@@ -265,7 +265,8 @@ cudaError_t by_head_dim(const Args& a) {
 
 }  // namespace
 
-// Launches on `stream` of CUDA device `device`.  Returns 0 on success,
+// Launches on `stream`, whose device must be the calling thread's
+// current one (the Python wrapper selects it).  Returns 0 on success,
 // else the CUDA error code of the refused launch (cudaErrorInvalidValue
 // for a shape or dtype this kernel does not take).  dtype codes:
 // 0 = float32, 1 = bfloat16.  Takes (q, pool) dtype pairs (f32, f32),
@@ -273,11 +274,9 @@ cudaError_t by_head_dim(const Args& a) {
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* lengths,
                                    const void* page_indices, void* out,
-                                   int device, int B, int KV, int G, int D,
-                                   int P, int ps, int pps, float scale,
-                                   int q_dtype, int kv_dtype, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+                                   int B, int KV, int G, int D, int P, int ps,
+                                   int pps, float scale, int q_dtype,
+                                   int kv_dtype, void* stream) {
   const Args a{q,  k_pages, v_pages, static_cast<const int*>(lengths),
                static_cast<const int*>(page_indices),
                out, B, KV, G, D, P, ps, pps, scale,

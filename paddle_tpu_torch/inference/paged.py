@@ -2,10 +2,12 @@
 
 Counterpart of ``paddle_tpu/inference/paged.py``.  The page pool is one
 ``[L, KV, num_pages, page_size, D]`` tensor each for K and V on the
-cache's device, and — unlike the JAX package, whose arrays are
-immutable — it is UPDATED IN PLACE: ``write_at``, ``append`` and the
-executor's per-layer decode writes store into the same storage, so the
-pool is never copied.  Page allocation is control plane and stays on the
+cache's device (CUDA unless the caller names another), and — unlike the
+JAX package, whose arrays are immutable — it is UPDATED IN PLACE:
+``write_at``, ``append`` and the executor's per-layer decode writes
+(``write_token``) store into the same storage, so the pool is never
+copied.  This module alone knows the pool's layout and the
+position -> (page, offset) arithmetic.  Page allocation is control plane and stays on the
 host: a free list, a ``[max_seqs, max_pages_per_seq]`` int32 page table
 (-1 = unset) and the per-slot lengths, all numpy.
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.kernels.paged_decode import paged_decode
 
 _POOL_EXHAUSTED = "KV page pool exhausted"
@@ -39,14 +42,14 @@ class PagedKVCache:
 
     def __init__(self, n_layers, n_kv_heads, head_dim, num_pages,
                  page_size=16, max_seqs=8, dtype=torch.bfloat16,
-                 max_pages_per_seq=None, device="cpu"):
+                 max_pages_per_seq=None, device=None):
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages_per_seq = (num_pages // max_seqs
                                   if max_pages_per_seq is None
                                   else int(max_pages_per_seq))
         self.max_seqs = max_seqs
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (n_layers, n_kv_heads, num_pages, page_size, head_dim)
         self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -140,22 +143,35 @@ class PagedKVCache:
             t += n
         self.lengths[seq] = start + T
 
+    def token_slots(self, page_indices, positions):
+        """(page ids, in-page offsets), each int64 [B], of token
+        ``positions[b]`` of the sequence whose table row is
+        ``page_indices[b]`` (as returned by ``tables``)."""
+        rows = torch.arange(positions.shape[0], device=positions.device)
+        pids = page_indices[rows, positions // self.page_size].long()
+        return pids, (positions % self.page_size).long()
+
+    def write_token(self, layer: int, pids, offs, k, v) -> None:
+        """Store one token per row of k/v [B, KV, D] into layer
+        ``layer`` at the slots ``token_slots`` gave.  Lengths are the
+        caller's to advance."""
+        kp, vp = self.k_pages[layer], self.v_pages[layer]
+        kp[:, pids, offs] = k.transpose(0, 1).to(kp.dtype)
+        vp[:, pids, offs] = v.transpose(0, 1).to(vp.dtype)
+
     def append(self, seqs, k, v) -> None:
         """Decode-step write of one token per listed sequence: k/v
         [L, KV, B, D].  Reserves for the whole batch first, so a
         capacity failure mutates nothing."""
-        ps = self.page_size
+        seqs = list(seqs)
         self.reserve(seqs, extra_tokens=1)
-        pids, offs = [], []
+        table, lens = self.tables(seqs)
+        pids, offs = self.token_slots(table, lens.long())
+        for layer in range(self.k_pages.shape[0]):
+            self.write_token(layer, pids, offs, k[layer].transpose(0, 1),
+                             v[layer].transpose(0, 1))
         for s in seqs:
-            pos = int(self.lengths[s])
-            pids.append(int(self.page_table[s, pos // ps]))
-            offs.append(pos % ps)
-            self.lengths[s] = pos + 1
-        pids = torch.tensor(pids, device=self.device)
-        offs = torch.tensor(offs, device=self.device)
-        self.k_pages[:, :, pids, offs] = k.to(self.k_pages.dtype)
-        self.v_pages[:, :, pids, offs] = v.to(self.v_pages.dtype)
+            self.lengths[s] += 1
 
     def gather_dense(self, seq: int, length=None):
         """A sequence's pages gathered into dense [L, KV, n * ps, D]
@@ -188,7 +204,12 @@ class PagedKVCache:
 
     def attend(self, layer: int, q, seqs):
         """Decode attention for one layer: q [B, H, D] over the listed
-        sequences' pages."""
-        table, lens = self.tables(seqs)
+        sequences' pages, at their current lengths."""
+        return self.attend_tables(layer, q, *self.tables(seqs))
+
+    def attend_tables(self, layer: int, q, page_indices, lengths):
+        """Decode attention for one layer over explicit ``tables``-style
+        page_indices [B, pps] and lengths [B] (int32, on the cache's
+        device)."""
         return paged_decode(q, self.k_pages[layer], self.v_pages[layer],
-                            lens, table)
+                            lengths, page_indices)

@@ -14,8 +14,9 @@ dtype rules included: RMSNorm in fp32 cast back, RoPE promoting a bf16
 stream to fp32 for q and k, prefill softmax in fp32 cast back to the
 activation dtype, masked with ``finfo(dtype).min``.  Weight products and
 prefill attention are ``torch.matmul`` (the JAX package leaves them to
-XLA); decode attention is the paged-decode kernel (its plain version for
-CPU tensors).
+XLA); decode writes and attention go through ``PagedKVCache``
+(``write_token``, ``attend_tables``) and so through the paged-decode
+kernel (its plain version for CPU tensors).
 
 Not ported yet (later slices): ``decode_n``, ``verify``, the async
 twins, AOT warmup, int8 weights and pools, prefix attach and the
@@ -30,7 +31,6 @@ import torch.nn.functional as F
 from ...device import resolve_device
 from ...models.llama import params_to, rope_tables
 from ...ops.nn_ops import rms_norm, rope
-from ...ops.kernels.paged_decode import paged_decode
 from ..paged import PagedKVCache
 
 
@@ -173,21 +173,17 @@ class PagedExecutor:
         Returns logits [B, V]."""
         cfg = self.config
         nh, d = cfg.num_attention_heads, cfg.head_dim
-        ps = self.cache.page_size
+        cache = self.cache
         B = ids.shape[0]
         x = self.tops["embed"][ids][:, None]                  # [B, 1, h]
         pos = positions[:, None]
-        rows = torch.arange(B, device=self.device)
-        pids = page_tables[rows, positions // ps].long()       # [B]
-        offs = (positions % ps).long()
+        pids, offs = cache.token_slots(page_tables, positions)
         for i in range(cfg.num_hidden_layers):
             lp = self._layer(i)
             q, k, v = self._qkv(x, lp, pos)
-            kp, vp = self.cache.k_pages[i], self.cache.v_pages[i]
-            kp[:, pids, offs] = k[:, 0].transpose(0, 1).to(kp.dtype)
-            vp[:, pids, offs] = v[:, 0].transpose(0, 1).to(vp.dtype)
-            o = paged_decode(q[:, 0].contiguous(), kp, vp, lengths + 1,
-                             page_tables)
+            cache.write_token(i, pids, offs, k[:, 0], v[:, 0])
+            o = cache.attend_tables(i, q[:, 0].contiguous(), page_tables,
+                                    lengths + 1)
             o = o.reshape(B, 1, nh * d).to(x.dtype)
             x = x + o @ lp["self_attn.o_proj.weight"]
             x = self._mlp(x, lp)

@@ -11,14 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .generation import stack_layer_params
 from .llama import LlamaConfig
 
 
-def from_numpy_state(state: dict, cfg: LlamaConfig, device="cpu",
+def from_numpy_state(state: dict, cfg: LlamaConfig, device=None,
                      dtype=torch.float32) -> dict:
     """The port's parameter dict (see ``models/llama.py``) from a numpy
-    state dict, on ``device`` in ``dtype``."""
+    state dict, on ``device`` (default CUDA, see
+    ``device.resolve_device``) in ``dtype``."""
+    device = resolve_device(device)
     def t(a):
         return torch.from_numpy(np.array(a)).to(
             device=device, dtype=dtype)

@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 #: the per-layer weights, in ``paddle_tpu``'s state-dict naming.
 LAYER_WEIGHTS = (
     "self_attn.q_proj.weight", "self_attn.k_proj.weight",
@@ -64,9 +66,11 @@ class LlamaConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-def rope_tables(config: LlamaConfig, device="cpu"):
+def rope_tables(config: LlamaConfig, device=None):
     """(cos, sin), each fp32 ``[max_position_embeddings, head_dim]``
-    (the half-split layout ``rope`` rotates)."""
+    (the half-split layout ``rope`` rotates), on ``device`` (default
+    CUDA, see ``device.resolve_device``)."""
+    device = resolve_device(device)
     dim = config.head_dim
     inv_freq = 1.0 / (config.rope_theta ** (
         np.arange(0, dim, 2, dtype=np.float32) / dim))
@@ -94,14 +98,15 @@ def layer_weight_shapes(config: LlamaConfig) -> dict:
     }
 
 
-def init_llama_params(config: LlamaConfig, seed=0, device="cpu",
+def init_llama_params(config: LlamaConfig, seed=0, device=None,
                       dtype=torch.float32, std=0.02) -> dict:
     """Random Llama parameters from ``torch.Generator(device)`` seeded
     with ``seed``: projections and embeddings N(0, std), norm weights 1.
     The draw order is fixed (layer weights in ``LAYER_WEIGHTS`` order,
     then embed, then lm_head), so one seed on one device type always
-    gives the same weights."""
-    device = torch.device(device)
+    gives the same weights.  ``device`` defaults to CUDA (see
+    ``device.resolve_device``)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     L = config.num_hidden_layers

@@ -79,7 +79,7 @@ def _lib():
     lib = _build.load("paged_decode")
     fn = lib.paged_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -164,13 +164,14 @@ def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None):
             f"needs {smem_bytes(G, D, pps * ps)} bytes of shared memory "
             f"(> {_SMEM_LIMIT})")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device)
-    rc = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                lengths.data_ptr(), page_indices.data_ptr(),
-                out.data_ptr(), q.device.index or 0, B, KV, G, D,
-                k_pages.shape[1], ps, pps, float(scale),
-                _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
-                stream.cuda_stream)
+    launch = _lib()
+    with torch.cuda.device(q.device):       # the C side launches on the
+        stream = torch.cuda.current_stream()  # current device's stream
+        rc = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    lengths.data_ptr(), page_indices.data_ptr(),
+                    out.data_ptr(), B, KV, G, D, k_pages.shape[1], ps, pps,
+                    float(scale), _DTYPE_CODE[q.dtype],
+                    _DTYPE_CODE[k_pages.dtype], stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA "
                            f"error {rc}")

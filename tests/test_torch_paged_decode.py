@@ -128,14 +128,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtypes,atol", [
-    ((torch.float32, torch.float32), 2e-5),
-    ((torch.float32, torch.bfloat16), 2e-5),
-    ((torch.bfloat16, torch.bfloat16), 2e-2),
+@pytest.mark.parametrize("dtypes,atol,rtol", [
+    ((torch.float32, torch.float32), 2e-5, 0.0),
+    ((torch.float32, torch.bfloat16), 2e-5, 0.0),
+    ((torch.bfloat16, torch.bfloat16), 1e-4, 2 ** -7),
 ])
-def test_kernel_matches_plain_on_card(cuda_device, dtypes, atol):
-    """fp32 output: same fp32 arithmetic in another order (2e-5).  bf16
-    output: one bf16 rounding of values of order 1 (2e-2)."""
+def test_kernel_matches_plain_on_card(cuda_device, dtypes, atol, rtol):
+    """fp32 output: same fp32 arithmetic in another order (atol 2e-5).
+    bf16 output: the two fp32 results may round to neighbouring bf16
+    values, so one bf16 ulp of the value (rtol 2^-7) plus atol 1e-4."""
     rng = np.random.RandomState(7)
     q, kp, vp, table = _mk(rng, B=3, H=8, KV=2, D=128, P=32, ps=16, pps=8)
     lens = np.array([128, 1, 40], np.int32)
@@ -149,5 +150,5 @@ def test_kernel_matches_plain_on_card(cuda_device, dtypes, atol):
     torch.cuda.synchronize()
     want = pd.paged_decode_reference(*args)
     assert got.dtype == qd
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)

@@ -181,3 +181,41 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(untied):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(cfg, params, **ENGINE_KW)
+
+
+def _entry_points(cfg, params):
+    from paddle_tpu_torch.inference.paged import PagedKVCache
+    from paddle_tpu_torch.models import (
+        init_llama_params, params_to, rope_tables,
+    )
+
+    state = {"llama.embed_tokens.weight": params["embed"].numpy(),
+             "llama.norm.weight": params["norm"].numpy(),
+             "lm_head.weight": params["lm_head"].numpy()}
+    for name, w in params["layers"].items():
+        for i in range(cfg.num_hidden_layers):
+            state[f"llama.layers.{i}.{name}"] = w[i].numpy()
+    return {
+        "PagedKVCache": lambda: PagedKVCache(
+            n_layers=1, n_kv_heads=1, head_dim=4, num_pages=4).k_pages,
+        "init_llama_params": lambda: init_llama_params(cfg)["embed"],
+        "rope_tables": lambda: rope_tables(cfg)[0],
+        "from_numpy_state": lambda: from_numpy_state(state, cfg)["embed"],
+        "PagedExecutor": lambda: PagedExecutor(
+            cfg, params_to(params), **ENGINE_KW).cache.k_pages,
+    }
+
+
+@pytest.mark.parametrize("entry", ["PagedKVCache", "init_llama_params",
+                                   "rope_tables", "from_numpy_state",
+                                   "PagedExecutor"])
+def test_entry_points_default_to_cuda(untied, entry):
+    """With no device named, each entry point puts its tensors on CUDA,
+    or raises where there is none; it never drops to the CPU."""
+    _, cfg, params = untied
+    make = _entry_points(cfg, params)[entry]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
