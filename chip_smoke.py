@@ -8,20 +8,36 @@ result):
 1. device  — name and power limit; TF32 off for matmuls and cuDNN, so
              fp32 means fp32 in every comparison below.
 2. build   — every kernel under paddle_tpu_torch/csrc, one nvcc each,
-             all started together.
+             all started together; registers, shared memory and spills
+             of every kernel as ptxas reports them.
 3. kernels — each kernel against its plain PyTorch version on the same
-             CUDA tensors, at the shapes the serving path gives it, then
-             its time (CUDA events, L2 flushed before each launch) beside
-             its bound, the plain version's time and one library call's.
+             CUDA tensors, at the shapes the serving and training paths
+             give it (and at S=1024, in fp32, and with fused RoPE for
+             attention), then its time (CUDA events, L2 flushed before
+             each launch) beside its bound, the plain version's time and
+             one library call's.
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
              from seed 0 made on the card, 16 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
              512-token prefill chunks).  Every request must finish, and
              the kernel must have launched once per layer per decode step.
+             4b profiles decode steps with torch.profiler.
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
              card (the kernel) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
              atol 1e-3.
+6. train   — Llama-2-7B width cut to 8 layers (the only cut: 32 layers of
+             fp32 master plus bf16 moments would not fit 80 GB), B=4,
+             S=2048, bf16 compute, fp32 master, bf16 moments, full
+             recompute, FLAGS_use_fused_rms_norm, lr 1e-4: one warm-up
+             step and 5 timed steps through CompiledTrainStep.  Losses
+             must be finite and fall; each kernel must launch exactly as
+             often per step as full recompute implies.  6b profiles one
+             step with torch.profiler.
+7. train parity — 2 layers at a narrow width that still takes the
+             attention kernel (S=1024, D=128, H == KV), fp32: 3 steps on
+             the card (kernels) and on the CPU (plain versions) from the
+             same weights give losses within 1e-4 relative.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -39,6 +55,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 
 
 def log(*a):
@@ -71,25 +88,54 @@ def phase_build():
     info = _build.build_all()
     wall = time.perf_counter() - t0
     for name, rec in info.items():
-        regs = [ln.strip() for ln in rec["log"].splitlines()
-                if "registers" in ln]
-        spills = [ln.strip() for ln in rec["log"].splitlines()
-                  if "spill" in ln and " 0 bytes spill stores" not in ln]
-        log(f"[build] {name}: {rec['seconds']:.1f} s; "
-            f"{len(regs)} kernel instantiations; "
-            f"max registers {_max_regs(regs)}; "
-            f"spilling instantiations {len(spills)}")
+        entries = _ptxas_entries(rec["log"])
+        log(f"[build] {name}: {rec['seconds']:.1f} s; {len(entries)} "
+            f"kernel instantiations; max registers "
+            f"{max((e['regs'] for e in entries), default=None)}; "
+            f"spilling instantiations "
+            f"{sum(1 for e in entries if e['spill'])}")
+        for e in entries:
+            log(f"[build]   {e['name']}: {e['regs']} registers, "
+                f"{e['smem']} bytes static shared memory, spill stores/"
+                f"loads {e['spill_st']}/{e['spill_ld']} bytes")
     log(f"[build] all kernels in {wall:.1f} s")
+    from paddle_tpu_torch.ops.kernels import long_attention, rms_norm
+
+    log(f"[build] dynamic shared memory per block: "
+        f"{long_attention.smem_bytes()} (long_attention), "
+        f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096)")
 
 
-def _max_regs(lines):
-    vals = []
-    for ln in lines:
-        for part in ln.split(","):
-            part = part.strip()
-            if part.endswith("registers"):
-                vals.append(int(part.split()[-2]))
-    return max(vals) if vals else None
+def _ptxas_entries(text):
+    """One record per kernel instantiation from ``nvcc -Xptxas -v``."""
+    import re
+
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            # <len><name>_kernel<template args>Ev: keep name and args
+            short = re.search(r"\d((?:attn|rms_norm|paged_decode)\w*?"
+                              r"_kernel)(I\w*?E)?Ev", m.group(1))
+            cur = {"name": (short.group(1) + (short.group(2) or ""))
+                   if short else m.group(1),
+                   "regs": None, "smem": 0, "spill_st": 0, "spill_ld": 0,
+                   "spill": False}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_st"], cur["spill_ld"] = int(m[1]), int(m[2])
+            cur["spill"] = cur["spill_st"] + cur["spill_ld"] > 0
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["regs"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m[1]) if m else 0
+    return out
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -115,6 +161,32 @@ def time_ms(fn, flush, iters=50, warmup=5):
         e1.synchronize()
         total += e0.elapsed_time(e1)
     return total / iters
+
+
+BF16_WHY = "bf16 output: the two fp32 results may round to neighbouring " \
+    "bf16 values, one ulp <= 2^-7 |want|"
+
+
+def _hold(label, got, want, atol, rtol, why):
+    """Fail unless ``got`` (a kernel's output) is finite, has ``want``'s
+    dtype and shape, and |got - want| <= atol + rtol * |want| everywhere.
+    Returns the largest absolute error."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"[kernels] {label}: got {got.dtype} "
+                             f"{tuple(got.shape)}, want {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"[kernels] {label}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    over = (diff - (atol + rtol * want.float().abs())).max().item()
+    log(f"[kernels] {label}: max_abs_err {err:.3e} (atol {atol:g} + rtol "
+        f"{rtol:g} * |want|: {why})")
+    if not over <= 0:
+        raise AssertionError(f"[kernels] {label}: max_abs_err {err}, "
+                             f"{over} over atol {atol} + rtol {rtol} * "
+                             "|want|")
+    return err
 
 
 def make_paged_case(gen, B, KV, G, D, ps, pps, lengths, q_dtype, kv_dtype,
@@ -170,8 +242,6 @@ def phase_kernels(device):
     l7b = [1, 8, 2048, 17, 500, 1024, 1999, 333]
     # (label, shape, (q dtype, pool dtype), atol, rtol, reason); an
     # element passes when |got - want| <= atol + rtol * |want|
-    bf16_why = ("bf16 output: the two fp32 results may round to "
-                "neighbouring bf16 values, one ulp <= 2^-7 |want|")
     cases = [
         ("llama2-7b serving (q f32, pool bf16)",
          dict(B=8, KV=32, G=1, D=128, ps=16, pps=128, lengths=l7b),
@@ -182,7 +252,7 @@ def phase_kernels(device):
          (f32, f32), 2e-5, 0.0, "fp32 throughout, other summation order"),
         ("llama2-7b bf16", dict(B=8, KV=32, G=1, D=128, ps=16, pps=128,
                                 lengths=l7b),
-         (bf16, bf16), 1e-4, 2 ** -7, bf16_why),
+         (bf16, bf16), 1e-4, 2 ** -7, BF16_WHY),
         ("gqa G=4 D=128", dict(B=4, KV=8, G=4, D=128, ps=16, pps=128,
                                lengths=[2048, 1, 40, 777]),
          (f32, bf16), 2e-5, 0.0, "fp32 math, other summation order"),
@@ -197,21 +267,8 @@ def phase_kernels(device):
         got = pdmod.paged_decode(*args)
         torch.cuda.synchronize()
         want = pdmod.paged_decode_reference(*args)
-        if got.dtype != qd or got.shape != want.shape:
-            raise AssertionError(f"[kernels] {label}: got {got.dtype} "
-                                 f"{tuple(got.shape)}")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"[kernels] {label}: non-finite output "
-                                 "(NaN pages leaked in)")
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        over = (diff - (atol + rtol * want.float().abs())).max().item()
-        log(f"[kernels] paged_decode {label}: max_abs_err {err:.3e} "
-            f"(atol {atol:g} + rtol {rtol:g} * |want|: {why})")
-        if not over <= 0:
-            raise AssertionError(f"[kernels] {label}: max_abs_err {err}, "
-                                 f"{over} over atol {atol} + rtol {rtol} "
-                                 "* |want|")
+        # a non-finite output would mean NaN pages leaked in
+        err = _hold(f"paged_decode {label}", got, want, atol, rtol, why)
         if main_row is None:
             main_row = (args, err)
 
@@ -254,6 +311,197 @@ def phase_kernels(device):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+# -- phase 3b: the training kernels -------------------------------------------
+
+TRAIN_SHAPE = dict(B=4, H=32, S=2048, D=128, h=4096)
+def rms_norm_bounds(N, h, x_bytes, w_bytes):
+    """(fwd, bwd) (bound_ms, bound_by): each input read once, each output
+    written once, over HBM rate, against ~4 flops per element (fwd) and
+    ~8 (bwd) over the fp32 rate."""
+    fwd_b = 2 * N * h * x_bytes + h * w_bytes + 4 * N
+    bwd_b = 3 * N * h * x_bytes + h * w_bytes + 4 * N
+    out = []
+    for nbytes, flops in ((fwd_b, 4 * N * h), (bwd_b, 8 * N * h)):
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = flops / FP32_FLOPS * 1e3
+        out.append((tb, "bytes") if tb >= to else (to, "operations"))
+    return out
+
+
+def attention_bounds(B, H, S, D, elem_bytes, causal=True):
+    """(fwd, bwd) (bound_ms, bound_by): the multiply-adds of the causal
+    (i, j <= i) pairs, two products forward and five backward, over the
+    bf16 tensor-core rate (fp32 inputs: the fp32 rate), against q, k, v,
+    out (and g, dq, dk, dv) moved once over HBM rate."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    rate = BF16_FLOPS if elem_bytes == 2 else FP32_FLOPS
+    one = B * H * S * D * elem_bytes
+    out = []
+    for n_products, nbytes in ((2, 4 * one + 4 * B * H * S),
+                               (5, 8 * one + 4 * B * H * S)):
+        to = n_products * 2 * B * H * pairs * D / rate * 1e3
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append((to, "operations") if to >= tb else (tb, "bytes"))
+    return out
+
+
+def phase_train_kernels(device, iters=20):
+    """The four training kernels against their plain versions, then timed
+    at the training path's shapes.  Returns their rows (no launches)."""
+    from paddle_tpu_torch.ops.kernels import long_attention as la
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, H, S, D, h = (TRAIN_SHAPE[k] for k in "BHSDh")
+    before = {f: f.launches for f in (rn.rms_norm_fwd, rn.rms_norm_bwd,
+                                      la.attention_fwd, la.attention_bwd)}
+    eps = 1e-5
+
+    # RMSNorm: (rows, x dtype, w dtype, atol, rtol, why)
+    norm_cases = [
+        (B * S, bf16, f32, 1e-6, 2 ** -7, BF16_WHY),
+        (B * 1024, bf16, f32, 1e-6, 2 ** -7, BF16_WHY),
+        (B * S, bf16, bf16, 1e-6, 2 ** -7, BF16_WHY),
+        (B * S, f32, f32, 1e-5, 0.0, "fp32 throughout, other summation "
+         "order"),
+    ]
+    norm_err = {}
+    for N, xd, wd, atol, rtol, why in norm_cases:
+        x = torch.randn(N, h, generator=gen, device=device).to(xd)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device=device)).to(wd)
+        dy = torch.randn(N, h, generator=gen, device=device).to(xd)
+        out, rstd = rn.rms_norm_fwd(x, w, eps)
+        dx = rn.rms_norm_bwd(x, w, rstd, dy)
+        torch.cuda.synchronize()
+        want, wrstd = rn.rms_norm_fwd_reference(x, w, eps)
+        wdx = rn.rms_norm_bwd_reference(x, w, wrstd, dy)
+        tag = f"N={N} h={h} x {xd} w {wd}"
+        e1 = _hold(f"rms_norm_fwd {tag}", out, want, atol, rtol, why)
+        _hold(f"rms_norm_fwd rstd {tag}", rstd, wrstd, 1e-6, 1e-5,
+              "fp32, other summation order")
+        e2 = _hold(f"rms_norm_bwd {tag}", dx, wdx, atol, rtol, why)
+        norm_err.setdefault("fwd", e1)
+        norm_err.setdefault("bwd", e2)
+
+    # attention: (B, H, S, dtype, rope_base)
+    attn_cases = [(B, H, S, bf16, None), (B, H, 1024, bf16, None),
+                  (B, H, S, f32, None), (B, H, S, bf16, 10000.0)]
+    attn_err = {}
+    scale = 1.0 / np.sqrt(D)
+    for b, hh, s, dt, rb in attn_cases:
+        q, k, v, g = (torch.randn(b, hh, s, D, generator=gen,
+                                  device=device).to(dt) for _ in range(4))
+        out, lse = la.attention_fwd(q, k, v, scale, True, rb)
+        grads = la.attention_bwd(q, k, v, out, lse, g, scale, True, rb)
+        torch.cuda.synchronize()
+        wout, wlse = la.attention_fwd_reference(q, k, v, scale, True, rb)
+        tag = f"B={b} H={hh} S={s} D={D} {dt} rope_base={rb}"
+        if dt == f32:
+            tol = dict(out=(2e-5, 0.0), lse=(2e-5, 0.0), grad=(1e-4, 0.0))
+            why = "fp32 throughout, other summation order"
+            gwhy = why
+        else:
+            tol = dict(out=(2e-3, 2 ** -7), lse=(1e-3, 0.0),
+                       grad=(5e-3, 2 ** -6))
+            why = BF16_WHY
+            gwhy = "bf16 outputs of sums over up to 2048 fp32 terms"
+        e1 = _hold(f"attention_fwd out {tag}", out, wout, *tol["out"], why)
+        _hold(f"attention_fwd lse {tag}", lse, wlse, *tol["lse"],
+              "fp32, other summation order")
+        del wout, wlse
+        torch.cuda.empty_cache()
+        wgrads = la.attention_bwd_reference(q, k, v, out, lse, g, scale,
+                                            True, rb)
+        errs = [_hold(f"attention_bwd {n} {tag}", a, w_, *tol["grad"], gwhy)
+                for n, a, w_ in zip(("dq", "dk", "dv"), grads, wgrads)]
+        attn_err.setdefault("fwd", e1)
+        attn_err.setdefault("bwd", max(errs))
+        del wgrads, grads, q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+
+    # timing at the training path's shapes and dtypes
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+    x = torch.randn(B * S, h, generator=gen, device=device).to(bf16)
+    w = torch.ones(h, device=device)
+    dy = torch.randn(B * S, h, generator=gen, device=device).to(bf16)
+    _, rstd = rn.rms_norm_fwd(x, w, eps)
+    xl = x.detach().requires_grad_(True)
+    wb = w.to(bf16)
+    yl = F.rms_norm(xl, (h,), wb, eps)
+    t = {
+        "rms_norm_fwd": (
+            lambda: rn.rms_norm_fwd(x, w, eps),
+            lambda: rn.rms_norm_fwd_reference(x, w, eps),
+            lambda: F.rms_norm(x, (h,), wb, eps)),
+        "rms_norm_bwd": (
+            lambda: rn.rms_norm_bwd(x, w, rstd, dy),
+            lambda: rn.rms_norm_bwd_reference(x, w, rstd, dy),
+            lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True)),
+    }
+    times = {name: [time_ms(f, flush, iters=iters) for f in fns]
+             for name, fns in t.items()}
+    del x, dy, xl, yl
+    q, k, v, g = (torch.randn(B, H, S, D, generator=gen,
+                              device=device).to(bf16) for _ in range(4))
+    out, lse = la.attention_fwd(q, k, v, scale, True)
+    ql, kl, vl = (a.detach().requires_grad_(True) for a in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    t = {
+        "attention_fwd": (
+            lambda: la.attention_fwd(q, k, v, scale, True),
+            lambda: la.attention_fwd_reference(q, k, v, scale, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        "attention_bwd": (
+            lambda: la.attention_bwd(q, k, v, out, lse, g, scale, True),
+            lambda: la.attention_bwd_reference(q, k, v, out, lse, g, scale,
+                                               True),
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
+                                        retain_graph=True)),
+    }
+    for name, fns in t.items():
+        times[name] = [time_ms(f, flush, iters=iters) for f in fns]
+    del q, k, v, g, out, lse, ql, kl, vl, ol, flush
+    torch.cuda.empty_cache()
+    for f, n in before.items():        # checks and timing do not count
+        f.launches = n
+
+    nb = rms_norm_bounds(B * S, h, 2, 4)
+    ab = attention_bounds(B, H, S, D, 2)
+    meta = {
+        "rms_norm_fwd": ("csrc/rms_norm.cu", "rms_norm.py:72", nb[0],
+                         norm_err["fwd"], "F.rms_norm, bf16 weight",
+                         f"x [{B * S}, {h}] bf16, w fp32"),
+        "rms_norm_bwd": ("csrc/rms_norm.cu", "rms_norm.py:103", nb[1],
+                         norm_err["bwd"], "autograd of F.rms_norm, dx only",
+                         f"x, dy [{B * S}, {h}] bf16, w fp32"),
+        "attention_fwd": ("csrc/long_attention.cu", "long_attention.py:147",
+                          ab[0], attn_err["fwd"],
+                          "scaled_dot_product_attention(is_causal=True)",
+                          f"q/k/v [{B}, {H}, {S}, {D}] bf16, causal"),
+        "attention_bwd": ("csrc/long_attention.cu", "long_attention.py:168",
+                          ab[1], attn_err["bwd"],
+                          "autograd of scaled_dot_product_attention",
+                          f"q/k/v/g [{B}, {H}, {S}, {D}] bf16, causal"),
+    }
+    rows = []
+    for name, (src, rep, (bound, by), err, lib, shape) in meta.items():
+        ms, plain_ms, library_ms = times[name]
+        log(f"[kernels] {name} time at {shape}: kernel {ms:.4f} ms | "
+            f"bound {bound:.4f} ms ({by}) | plain {plain_ms:.4f} ms | "
+            f"library_ms {library_ms:.4f} ms ({lib}) | "
+            f"{100 * bound / ms:.1f}% of bound")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"paddle_tpu_torch/{src}",
+                     "replaces": f"paddle_tpu/ops/pallas_kernels/{rep}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": library_ms})
+    return rows
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -449,6 +697,171 @@ def phase_parity(device, cfg=None):
         f" tokens)")
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+TRAIN_RUN = dict(batch=4, seq=2048, steps=5, lr=1e-4)
+
+
+def _train_counters():
+    from paddle_tpu_torch.ops.kernels import long_attention as la
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+    return {"rms_norm_fwd": rn.rms_norm_fwd, "rms_norm_bwd": rn.rms_norm_bwd,
+            "attention_fwd": la.attention_fwd,
+            "attention_bwd": la.attention_bwd}
+
+
+def phase_train(device, limit, cfg=None, run=None):
+    """Llama-2-7B width x 8 layers: one warm-up step and ``steps`` timed
+    ones.  Returns ({kernel: launches over all steps}, step, batch)."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import (
+        CompiledTrainStep, LlamaConfig, LlamaForCausalLM,
+    )
+
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=8, recompute=True,
+                                       recompute_policy="full",
+                                       attention_impl="auto")
+    run = dict(TRAIN_RUN, **(run or {}))
+    B, S, n = run["batch"], run["seq"], run["steps"]
+    L = cfg.num_hidden_layers
+    on_card = device.type == "cuda"
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    step = CompiledTrainStep(model, lr=run["lr"], compute_dtype="bfloat16",
+                             moments_dtype="bfloat16", device=device)
+    nparams = model.num_params()
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
+    batch = (torch.as_tensor(ids, device=device),) * 2  # inputs = labels
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"[train] {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, D {cfg.head_dim}, intermediate "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}: "
+        f"{nparams / 1e9:.3f} B parameters, bf16 compute, fp32 master, "
+        f"bf16 moments, built in {time.perf_counter() - t0:.1f} s")
+    counters = _train_counters()
+    per_step = {"rms_norm_fwd": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+                "attention_fwd": 2 * L, "attention_bwd": L}
+    for f in counters.values():
+        f.launches = 0
+    losses, step_ms = [], []
+    for i in range(n + 1):
+        before = {k: f.launches for k, f in counters.items()}
+        t1 = time.perf_counter()
+        loss = float(step.step(*batch))       # float() synchronises
+        ms = (time.perf_counter() - t1) * 1e3
+        losses.append(loss)
+        if i:
+            step_ms.append(ms)
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{loss:.6f}, {ms:.1f} ms, launches {got}")
+        if on_card and got != per_step:
+            raise AssertionError(f"[train] step {i} launched {got}, expected "
+                                 f"{per_step} (full recompute: every layer "
+                                 f"forward runs twice)")
+    launches = {k: f.launches for k, f in counters.items()}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses {losses}: not finite and "
+                             "falling")
+    mean_ms = float(np.mean(step_ms))
+    tokens = B * S
+    mfu = model.flops_per_token(S) * tokens / (mean_ms / 1e3) / BF16_FLOPS
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    log(f"[train] B={B} S={S}: step {mean_ms:.1f} ms (mean of {n}; "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)}) | "
+        f"{tokens / (mean_ms / 1e3):.1f} tokens/s | MFU {mfu:.4f} "
+        f"(6N + 12LhS = {model.flops_per_token(S):.4e} flops/token over "
+        f"{BF16_FLOPS / 1e12:g} TFLOP/s bf16) | peak memory {peak:.2f} GiB | "
+        f"losses {losses} | {limit}")
+    return launches, step, batch
+
+
+def phase_train_profile(step, batch, device):
+    """One traced training step: device time by kind and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = _train_counters()
+    saved = {k: f.launches for k, f in counters.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    for k, f in counters.items():        # the traced step does not count
+        f.launches = saved[k]
+    kinds = {"rms_norm_fwd": 0.0, "rms_norm_bwd": 0.0, "attention_fwd": 0.0,
+             "attention_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        name = ev.key.lower()
+        kind = ("rms_norm_fwd" if "rms_norm_fwd" in name else
+                "rms_norm_bwd" if "rms_norm_bwd" in name else
+                "attention_fwd" if "attn_fwd" in name else
+                "attention_bwd" if ("attn_bwd" in name
+                                    or "attn_delta" in name) else
+                "gemm" if any(k in name for k in ("gemm", "cutlass", "xmma",
+                                                  "nvjet", "sm90_"))
+                else "other")
+        kinds[kind] += ms
+        per_kernel[ev.key[:60]] = (ms, ev.count)
+    busy = sum(kinds.values())
+    log(f"[profile-train] one step traced: {wall:.1f} ms wall | device busy "
+        f"{busy:.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in kinds.items())}"
+        f") | idle share {1 - busy / wall:.3f}")
+    for name, (ms, calls) in sorted(per_kernel.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+        log(f"[profile-train]   {ms:9.2f} ms  {calls:5d} launches  {name}")
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+def phase_train_parity(device, steps=3):
+    """The same weights trained on the card (kernels) and on the CPU
+    (plain versions), fp32, at a width that takes the attention kernel."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import (
+        CompiledTrainStep, LlamaConfig, LlamaForCausalLM,
+    )
+
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    cfg = LlamaConfig(vocab_size=4096, hidden_size=256,
+                      intermediate_size=688, num_hidden_layers=2,
+                      num_attention_heads=2, num_key_value_heads=2,
+                      max_position_embeddings=1024, recompute=True)
+    ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 1024))
+    counters = _train_counters()
+    losses = {}
+    for dev in (device, torch.device("cpu")):
+        model = LlamaForCausalLM(cfg, device="cpu", seed=3)
+        step = CompiledTrainStep(model, lr=1e-3, device=dev)
+        before = {k: f.launches for k, f in counters.items()}
+        batch = (torch.as_tensor(ids, device=dev),) * 2
+        losses[dev.type] = [float(step.step(*batch)) for _ in range(steps)]
+        launched = {k: f.launches - before[k] for k, f in counters.items()}
+        log(f"[train-parity] {dev.type}: losses {losses[dev.type]}, kernel "
+            f"launches {launched}")
+        if dev.type == "cuda" and not all(launched.values()):
+            raise AssertionError("[train-parity] the card run missed a "
+                                 f"kernel: {launched}")
+    got, want = np.array(losses[device.type]), np.array(losses["cpu"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f"[train-parity] {steps} fp32 steps, 2 layers, hidden 256, S=1024: "
+        f"max relative loss difference card vs CPU {rel:.3e} (limit 1e-4: "
+        f"fp32 on both, TF32 off, other summation orders)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"[train-parity] losses differ: {losses}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -456,18 +869,29 @@ def main():
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
 
+    t0 = time.perf_counter()
     device = torch.device("cuda", 0)
     name, limit = phase_device()
     phase_build()
-    row = phase_kernels(device)
-    row["launches"], engine = phase_serve(device)
+    rows = [phase_kernels(device)]
+    rows += phase_train_kernels(device)
+    rows[0]["launches"], engine = phase_serve(device)
     phase_profile(engine, device)
     del engine
+    torch.cuda.empty_cache()
     phase_parity(device)
+    launches, step, batch = phase_train(device, limit)
+    for row in rows[1:]:
+        row["launches"] = launches[row["name"]]
+    phase_train_profile(step, batch, device)
+    del step, batch
+    torch.cuda.empty_cache()
+    phase_train_parity(device)
+    log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(limit)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,7 +9,11 @@ that ``paddle_tpu`` wrote in Pallas written again by hand for Hopper
 
 Covered so far: greedy Llama serving through the paged engine
 (``inference.server.ServingEngine``), whose decode attention is the
-hand-written CUDA kernel ``ops.kernels.paged_decode``.
+hand-written CUDA kernel ``ops.kernels.paged_decode``; and Llama
+training (``models.LlamaForCausalLM`` with ``models.CompiledTrainStep``,
+AdamW), whose fused RMSNorm and causal attention, forward and backward,
+are the hand-written CUDA kernels ``ops.kernels.rms_norm`` and
+``ops.kernels.long_attention``.
 
 Importing the package is light: it pulls in neither ``triton`` nor the
 kernel build, and never ``jax`` or ``paddle_tpu``.

@@ -1,4 +1,8 @@
-from .convert import from_numpy_state  # noqa: F401
-from .llama import (  # noqa: F401
-    LlamaConfig, init_llama_params, params_to, rope_tables,
+from .convert import (  # noqa: F401
+    from_numpy_state, load_numpy_state, serving_params,
 )
+from .llama import (  # noqa: F401
+    LlamaConfig, LlamaForCausalLM, init_llama_params, params_to,
+    rope_tables,
+)
+from .training import CompiledTrainStep  # noqa: F401

@@ -1,10 +1,13 @@
-"""Weights from ``paddle_tpu`` into the port — the only crossing point.
+"""Weights from ``paddle_tpu`` into the port — the only crossing point —
+and from the training model into the serving engine.
 
 ``paddle_tpu``'s ``LlamaForCausalLM.state_dict()``, converted to numpy
 by the caller, is keyed ``llama.layers.{i}.self_attn.q_proj.weight``,
 ``llama.embed_tokens.weight``, ``llama.norm.weight`` and
 ``lm_head.weight`` (absent when embeddings are tied), with Linear
 weights ``[in, out]`` — the layout the port keeps, so no transpose.
+The port's training module (``models.llama.LlamaForCausalLM``) has the
+same parameter names.
 """
 from __future__ import annotations
 
@@ -35,3 +38,32 @@ def from_numpy_state(state: dict, cfg: LlamaConfig, device=None,
         "lm_head": (None if cfg.tie_word_embeddings
                     else t(state["lm_head.weight"])),
     }
+
+
+def load_numpy_state(module: torch.nn.Module, state: dict) -> None:
+    """Copy a numpy state dict into ``module``'s parameters in place,
+    each cast to its parameter's dtype and device.  The names must match
+    exactly: a missing or an unknown name raises ``KeyError``."""
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(state))
+    unknown = sorted(set(state) - set(params))
+    if missing or unknown:
+        raise KeyError(f"state dict does not match the module: missing "
+                       f"{missing}, unknown {unknown}")
+    with torch.no_grad():
+        for name, p in params.items():
+            a = np.asarray(state[name])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape} in the state, "
+                                 f"{tuple(p.shape)} in the module")
+            p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+
+
+def serving_params(module: torch.nn.Module, device=None,
+                   dtype=torch.float32) -> dict:
+    """The serving parameter dict (``from_numpy_state``'s form, which
+    ``ServingEngine`` takes) of a training ``LlamaForCausalLM``, on
+    ``device`` (default CUDA) in ``dtype``."""
+    state = {name: p.detach().float().cpu().numpy()
+             for name, p in module.named_parameters()}
+    return from_numpy_state(state, module.config, device, dtype)

@@ -1,13 +1,17 @@
-"""Llama configuration, RoPE tables and seeded parameters for serving.
+"""Llama: configuration, RoPE tables, seeded parameters for serving, and
+the ``nn.Module`` model for training.
 
 Counterpart of ``paddle_tpu/models/llama.py``: ``LlamaConfig`` keeps
-only the fields the serving path reads, ``rope_tables`` computes the
-same fp32 cos/sin tables (the same numpy arithmetic, so both packages
-hold identical tables), and ``init_llama_params`` fills every weight
-from one ``torch.Generator`` on the target device, so a full-size
-model never passes through host memory.
+the fields the serving and training paths read, ``rope_tables``
+computes the same fp32 cos/sin tables (the same numpy arithmetic, so
+both packages hold identical tables), and ``init_llama_params`` fills
+every weight from one ``torch.Generator`` on the target device, so a
+full-size model never passes through host memory.
 
-Parameters are a plain dict, already stacked per layer::
+Training uses ``LlamaForCausalLM`` (below), whose parameters carry
+``paddle_tpu``'s state-dict names and ``[in, out]`` Linear layout.
+
+Serving parameters are a plain dict, already stacked per layer::
 
     {"layers": {name: [L, ...] tensor},   # names as in the state dict
      "embed":   [V, h],
@@ -23,8 +27,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..analysis.cost import transformer_flops_per_token
 from ..device import resolve_device
+from ..nn import Embedding, Linear, RMSNorm
+from ..ops import nn_ops
 
 #: the per-layer weights, in ``paddle_tpu``'s state-dict naming.
 LAYER_WEIGHTS = (
@@ -47,6 +56,18 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    dtype: str = "float32"
+    #: checkpoint each decoder layer (torch.utils.checkpoint) and take the
+    #: loss through ``fused_linear_cross_entropy``
+    recompute: bool = False
+    #: only "full" is ported ("dots", "save_attn", "save_mlp": ROADMAP.md)
+    recompute_policy: str = "full"
+    #: an XLA compile-time device in ``paddle_tpu`` (one compiled layer
+    #: body); eager PyTorch has nothing to compile, so it is accepted and
+    #: has no effect, numeric or otherwise
+    scan_layers: bool = False
+    #: "auto" | "einsum" | "flash" | "short", as ``ops.nn_ops.sdpa`` takes
+    attention_impl: str = "auto"
 
     @staticmethod
     def llama2_7b(**kw):
@@ -143,3 +164,160 @@ def params_to(params: dict, device=None, dtype=None) -> dict:
         "norm": mv(params["norm"]),
         "lm_head": mv(params["lm_head"]),
     }
+
+
+# -- the training model -------------------------------------------------------
+
+_REMAT_POLICIES = ("full", "dots", "save_attn", "save_mlp")
+
+
+def _check_remat_policy(name):
+    if name not in _REMAT_POLICIES:
+        raise ValueError(f"unknown recompute_policy {name!r}; expected "
+                         "'full', 'dots', 'save_attn' or 'save_mlp'")
+    if name != "full":
+        raise NotImplementedError(
+            f"recompute_policy={name!r} is not ported yet (ROADMAP.md "
+            "Queue 1, item 3); only 'full' is")
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        h, d = config.hidden_size, config.head_dim
+        kv = config.num_key_value_heads * d
+        self.q_proj = Linear(h, h, device)
+        self.k_proj = Linear(h, kv, device)
+        self.v_proj = Linear(h, kv, device)
+        self.o_proj = Linear(h, h, device)
+
+    def forward(self, x, cos, sin, attn_mask=None):
+        cfg = self.config
+        B, S = x.shape[:2]
+        nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        q = self.q_proj(x).reshape(B, S, nh, d)
+        k = self.k_proj(x).reshape(B, S, nkv, d)
+        v = self.v_proj(x).reshape(B, S, nkv, d)
+        q, k = nn_ops.fused_rope(q, k, cos, sin)
+        out = nn_ops.sdpa(q, k, v, attn_mask, causal=True,
+                          impl=cfg.attention_impl)
+        return self.o_proj(out.reshape(B, S, cfg.hidden_size))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        self.gate_proj = Linear(h, i, device)
+        self.up_proj = Linear(h, i, device)
+        self.down_proj = Linear(i, h, device)
+
+    def forward(self, x):
+        return self.down_proj(nn_ops.swiglu(self.gate_proj(x),
+                                            self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        eps = config.rms_norm_eps
+        self.self_attn = LlamaAttention(config, device)
+        self.mlp = LlamaMLP(config, device)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, device)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
+                                                device)
+
+    def forward(self, x, cos, sin, attn_mask=None):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_mask)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      device)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+        cos, sin = rope_tables(config, device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids, attn_mask=None):
+        S = input_ids.shape[1]
+        x = self.embed_tokens(input_ids)
+        cos, sin = self.rope_cos[:S], self.rope_sin[:S]
+        remat = self.config.recompute and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                # full recompute: only the layer's input is kept; its
+                # forward runs again in the backward
+                x = checkpoint(layer, x, cos, sin, attn_mask,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, attn_mask)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama for causal LM training, on ``device`` (default CUDA, see
+    ``device.resolve_device``), parameters in fp32 filled from
+    ``torch.Generator(device)`` seeded with ``seed``: every matrix
+    N(0, ``std``), norm weights 1, in ``named_parameters`` order.
+
+    ``forward(input_ids, labels=None)`` returns logits ``[B, S, V]``, or
+    the mean loss when labels are given (labels are compared position by
+    position, as in ``paddle_tpu``; ``-100`` marks ignored positions).
+    With ``config.recompute`` each decoder layer is checkpointed and the
+    loss goes through ``fused_linear_cross_entropy``, as
+    ``_checkpointed_loss`` does."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed=0, std=0.02):
+        super().__init__()
+        if config.recompute:
+            _check_remat_policy(config.recompute_policy)
+        device = resolve_device(device)
+        self.config = config
+        self.llama = LlamaModel(config, device)
+        if not config.tie_word_embeddings:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                                  device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        with torch.no_grad():
+            for p in self.parameters():
+                if p.dim() > 1:
+                    p.normal_(0.0, std, generator=gen)
+
+    def _head_weight(self):
+        return (self.llama.embed_tokens.weight
+                if self.config.tie_word_embeddings else self.lm_head.weight)
+
+    def forward(self, input_ids, labels=None, attn_mask=None):
+        hidden = self.llama(input_ids, attn_mask)
+        cfg = self.config
+        if labels is not None and cfg.recompute:
+            return nn_ops.fused_linear_cross_entropy(
+                hidden.reshape(-1, cfg.hidden_size), self._head_weight(),
+                labels.reshape(-1), cfg.tie_word_embeddings, -100)
+        w = self._head_weight()
+        logits = hidden @ (w.t() if cfg.tie_word_embeddings else w)
+        if labels is None:
+            return logits
+        return nn_ops.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                    labels.reshape(-1))
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len):
+        """``6·N + 12·L·h·S`` (``analysis.cost``), for MFU."""
+        cfg = self.config
+        return transformer_flops_per_token(
+            self.num_params(), cfg.num_hidden_layers, cfg.hidden_size,
+            seq_len)

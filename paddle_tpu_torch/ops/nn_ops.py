@@ -1,12 +1,17 @@
-"""Plain PyTorch versions of the elementwise ops on the serving path.
+"""Plain PyTorch versions of the ops on the serving and training paths.
 
-Counterparts of ``paddle_tpu/ops/nn_ops.py`` ``_rms_norm_plain`` and
-``_rope_plain``, with the same dtype rules, so a bf16 stream rounds at
-the same places in both packages.  The serving programs of
-``paddle_tpu`` call these plain versions, not a kernel, so neither has
-a kernel here.
+Counterparts of ``paddle_tpu/ops/nn_ops.py`` (``_rms_norm_plain``,
+``_rope_plain``, ``_sdpa_plain``, ``fused_linear_cross_entropy``,
+``_softmax_ce_plain``) and ``paddle_tpu/ops/activation.py``
+(``_swiglu_plain``), with the same dtype rules, so a bf16 stream rounds
+at the same places in both packages.  Of these, only attention reaches a
+kernel here (``sdpa`` routes long causal sequences to
+``ops.kernels.long_attention``); the rest is plain PyTorch in both
+packages (XLA ops in ``paddle_tpu``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,17 +29,222 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
 def rope(q, k, cos, sin, position_ids):
-    """Half-split (neox) rotary embedding on ``[B, S, H, D]`` q and k.
+    """Half-split (neox) rotary embedding on ``[B, S, H, D]`` q and k, as
+    the serving programs apply it.
 
     ``cos``/``sin`` are fp32 ``[S_max, D]`` tables and ``position_ids``
     ``[B, S]`` selects their rows.  As in jnp, a bf16 ``q`` times the
     fp32 table promotes: the outputs are fp32."""
     c = cos[position_ids][:, :, None, :]     # [B, S, 1, D]
     s = sin[position_ids][:, :, None, :]
+    return q * c + _rotate_half(q) * s, k * c + _rotate_half(k) * s
 
-    def rot(x):
-        x1, x2 = x.chunk(2, dim=-1)
-        return torch.cat([-x2, x1], dim=-1)
 
+def fused_rope(q, k, cos, sin, position_ids=None, neox=True):
+    """Rotary embedding as the training path applies it
+    (``F.fused_rotary_position_embedding``): the ``[S_max, D]`` tables are
+    cast to q's dtype first, so a bf16 q/k stays bf16.  ``position_ids``
+    ``[B, S]`` selects table rows (default: rows ``0..S-1``); ``neox``
+    rotates half-split pairs, otherwise interleaved even/odd pairs."""
+    cos, sin = cos.to(q.dtype), sin.to(q.dtype)
+    if position_ids is not None:
+        c = cos[position_ids][:, :, None, :]
+        s = sin[position_ids][:, :, None, :]
+    else:
+        S = q.shape[1]
+        c = cos[None, :S, None, :]
+        s = sin[None, :S, None, :]
+    if neox:
+        rot = _rotate_half
+    else:
+        def rot(x):
+            return torch.stack([-x[..., 1::2], x[..., 0::2]],
+                               dim=-1).reshape(x.shape)
     return q * c + rot(q) * s, k * c + rot(k) * s
+
+
+def swiglu(x, y=None):
+    """``silu(x) * y``; with one argument, its last axis is split in two."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return x * torch.sigmoid(x) * y
+
+
+# -- attention ----------------------------------------------------------------
+
+#: where ``sdpa`` sends each region JAX gives to a Pallas kernel that is
+#: not ported yet (ROADMAP.md, Queue 2)
+_NOT_PORTED = {
+    "short": "short_attention (S <= 1024, no GQA) is not ported yet: "
+             "ROADMAP.md Queue 2, items 'short_attention._fwd_call_impl' "
+             "and '_bwd_call'",
+    "flash": "the stock Pallas flash-attention path (S % 512 == 0, "
+             "D % 128 == 0) is not ported yet: ROADMAP.md Queue 2, "
+             "'stock flash attention'",
+}
+
+
+def attention_route(Sq, Sk, H, Hkv, D, causal, has_mask=False,
+                    impl="auto", accelerated=True):
+    """Which attention ``_sdpa_plain`` would run for these shapes:
+    ``"long"`` (the ``long_attention`` kernel), ``"short"``,
+    ``"flash"`` or ``"einsum"``.  ``accelerated`` stands for JAX's
+    ``on_tpu``: the port passes True on CUDA, False on the CPU.  Raises
+    ``ValueError`` where JAX does (``impl="short"`` or ``"flash"`` on
+    shapes those kernels do not take).  The port takes no attention
+    dropout, so JAX's no-dropout conditions always hold."""
+    long_ok = (not has_mask and Sq == Sk
+               and D % 128 == 0 and Sq % 256 == 0 and Sq <= 2048
+               and Hkv == H and accelerated)
+    if impl == "auto" and long_ok and causal and Sq >= 1024:
+        return "long"
+    short_ok = (not has_mask and Sq == Sk and Sq <= 1024
+                and Sq % 128 == 0 and D % 64 == 0 and D <= 128
+                and Hkv == H and accelerated)
+    if impl == "short" and not short_ok:
+        raise ValueError(
+            "impl='short' requires: an accelerator, no attn_mask, Sq == Sk "
+            f"<= 1024, seq % 128 == 0, head_dim % 64 == 0, no GQA; got "
+            f"Sq={Sq} Sk={Sk} D={D} H={H} Hkv={Hkv} mask={has_mask}")
+    if short_ok and impl in ("auto", "short"):
+        return "short"
+    flash_ok = (not has_mask and Sq == Sk
+                and D % 128 == 0 and Sq % 512 == 0 and accelerated)
+    if impl == "flash" and not flash_ok:
+        raise ValueError(
+            "impl='flash' requires: an accelerator, no attn_mask, Sq == Sk, "
+            f"head_dim % 128 == 0, seq % 512 == 0; got Sq={Sq} Sk={Sk} "
+            f"D={D} mask={has_mask}")
+    if impl == "flash" or (impl == "auto" and flash_ok and causal
+                           and Sq >= 1024):
+        return "flash"
+    return "einsum"
+
+
+def _accelerated(device):
+    """The port's ``on_tpu``: the kernels run for CUDA tensors."""
+    return device.type == "cuda"
+
+
+def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto"):
+    """Scaled dot-product attention on ``[B, S, H, D]`` (the paddle
+    flash-attention layout), GQA when k/v have fewer heads.
+
+    Routes as ``_sdpa_plain`` does, with "a CUDA tensor" in place of "on
+    a TPU": causal S in [1024, 2048] (S % 256 == 0, D % 128 == 0, the
+    same heads for q and k/v, no mask) goes to the hand-written
+    ``long_attention`` kernel; on CUDA, the regions JAX gives to a kernel
+    not ported yet raise ``NotImplementedError``; the rest is the einsum
+    path, grouped for GQA: scores in q's dtype, then fp32 times the scale,
+    masked, fp32 softmax, probabilities cast to q's dtype.  Dropout is
+    not on this path and not taken."""
+    B, Sq, H, D = q.shape
+    Hkv, Sk = k.shape[2], k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    route = attention_route(Sq, Sk, H, Hkv, D, causal,
+                            has_mask=mask is not None, impl=impl,
+                            accelerated=_accelerated(q.device))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # B H S D
+    if route == "long":
+        from .kernels.long_attention import long_attention
+
+        out = long_attention(qt, kt, vt, float(scale), bool(causal))
+        return out.transpose(1, 2)
+    if route in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[route])
+    grouped = Hkv != H
+    if grouped:
+        qt = qt.reshape(B, Hkv, H // Hkv, Sq, D)
+        logits = torch.einsum("bngqd,bnkd->bngqk", qt, kt)
+    else:
+        logits = torch.einsum("bhqd,bhkd->bhqk", qt, kt)
+    logits = logits.float() * scale
+    if causal:
+        keep = torch.ones(Sq, Sk, dtype=torch.bool,
+                          device=q.device).tril(Sk - Sq)
+        logits = torch.where(keep, logits, torch.finfo(torch.float32).min)
+    if mask is not None:
+        if grouped and mask.dim() == 4:
+            mask = (mask.reshape(B, Hkv, H // Hkv, Sq, Sk)
+                    if mask.shape[1] == H else mask[:, :, None])
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if grouped:
+        out = torch.einsum("bngqk,bnkd->bngqd", probs, vt)
+        out = out.reshape(B, H, Sq, D)
+    else:
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+    return out.transpose(1, 2)
+
+
+# -- losses -------------------------------------------------------------------
+
+def cross_entropy(logits, labels, ignore_index=-100):
+    """Mean cross entropy of ``logits [N, V]`` against ``labels [N]``:
+    log-softmax in fp32, rows whose label is ``ignore_index`` give 0 and
+    still count in the mean (``F.cross_entropy(reduction='mean')`` with a
+    negative ``ignore_index``)."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    lab = labels.clamp(0, logits.shape[-1] - 1)
+    nll = -lsm.gather(-1, lab[:, None])[:, 0]
+    nll = torch.where(labels != ignore_index, nll, torch.zeros_like(nll))
+    return nll.mean()
+
+
+def _flce_logits(hidden, weight, tied):
+    return hidden @ (weight.t() if tied else weight)
+
+
+class FusedLinearCrossEntropy(torch.autograd.Function):
+    """``fused_linear_cross_entropy``'s custom VJP: the backward recomputes
+    the logits and forms ``softmax - onehot`` in the hidden dtype, so the
+    ``[N, V]`` fp32 log-softmax is never kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, tied, ignore_index):
+        lf = _flce_logits(hidden, weight, tied).float()
+        mx = lf.amax(dim=-1)
+        lse = mx + torch.log(torch.exp(lf - mx[:, None]).sum(dim=-1))
+        lab = labels.clamp(0, lf.shape[-1] - 1)
+        tgt = lf.gather(-1, lab[:, None])[:, 0]
+        nll = torch.where(labels != ignore_index, lse - tgt,
+                          torch.zeros_like(lse))
+        ctx.save_for_backward(hidden, weight, labels, lse)
+        ctx.cfg = (tied, ignore_index)
+        return nll.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, weight, labels, lse = ctx.saved_tensors
+        tied, ignore_index = ctx.cfg
+        lf = _flce_logits(hidden, weight, tied).float()
+        n, V = lf.shape
+        lab = labels.clamp(0, V - 1)
+        sm = torch.exp(lf - lse[:, None])
+        oh = torch.arange(V, device=lf.device)[None, :] == lab[:, None]
+        scale = (labels != ignore_index).float() * (g / n)
+        dlogits = ((sm - oh.float()) * scale[:, None]).to(hidden.dtype)
+        if tied:
+            dh = dlogits @ weight
+            dw = dlogits.t() @ hidden
+        else:
+            dh = dlogits @ weight.t()
+            dw = hidden.t() @ dlogits
+        return (dh.to(hidden.dtype), dw.to(weight.dtype), None, None,
+                None)
+
+
+def fused_linear_cross_entropy(hidden, weight, labels, tied=False,
+                               ignore_index=-100):
+    """Mean cross entropy over ``hidden [N, h] @ weight`` logits, weight
+    ``[h, V]`` (``[V, h]`` when ``tied``, an embedding table used as the
+    head); rows labelled ``ignore_index`` give 0 and count in the
+    mean."""
+    return FusedLinearCrossEntropy.apply(hidden, weight, labels,
+                                         bool(tied), int(ignore_index))

@@ -167,6 +167,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.models\n"
         "import paddle_tpu_torch.testing.load\n"
         "import paddle_tpu_torch.ops.kernels.paged_decode\n"
+        "import paddle_tpu_torch.ops.kernels.rms_norm\n"
+        "import paddle_tpu_torch.ops.kernels.long_attention\n"
+        "import paddle_tpu_torch.nn, paddle_tpu_torch.models.training\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -186,7 +189,8 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(untied):
 def _entry_points(cfg, params):
     from paddle_tpu_torch.inference.paged import PagedKVCache
     from paddle_tpu_torch.models import (
-        init_llama_params, params_to, rope_tables,
+        CompiledTrainStep, LlamaForCausalLM, init_llama_params, params_to,
+        rope_tables,
     )
 
     state = {"llama.embed_tokens.weight": params["embed"].numpy(),
@@ -203,12 +207,16 @@ def _entry_points(cfg, params):
         "from_numpy_state": lambda: from_numpy_state(state, cfg)["embed"],
         "PagedExecutor": lambda: PagedExecutor(
             cfg, params_to(params), **ENGINE_KW).cache.k_pages,
+        "LlamaForCausalLM": lambda: LlamaForCausalLM(cfg).lm_head.weight,
+        "CompiledTrainStep": lambda: CompiledTrainStep(
+            LlamaForCausalLM(cfg, device="cpu"))._master["lm_head.weight"],
     }
 
 
 @pytest.mark.parametrize("entry", ["PagedKVCache", "init_llama_params",
                                    "rope_tables", "from_numpy_state",
-                                   "PagedExecutor"])
+                                   "PagedExecutor", "LlamaForCausalLM",
+                                   "CompiledTrainStep"])
 def test_entry_points_default_to_cuda(untied, entry):
     """With no device named, each entry point puts its tensors on CUDA,
     or raises where there is none; it never drops to the CPU."""
