@@ -16,16 +16,26 @@ result):
              attention), then its time (CUDA events, L2 flushed before
              each launch) beside its bound, the plain version's time and
              one library call's.
+3c. quant kernels — the int8-weight matmul at every Llama-2-7B
+             projection shape for M = 8 (decode) and M = 512 (prefill),
+             bf16 and f32 x, and paged decode over int8 pages at the
+             decode shapes of 3, each against its plain version, then
+             timed as in 3.
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
              from seed 0 made on the card, 16 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
              512-token prefill chunks).  Every request must finish, and
              the kernel must have launched once per layer per decode step.
              4b profiles decode steps with torch.profiler.
+4c. int8 serve — the same model and load with quant="int8": every
+             request finishes, paged_decode_quant launches once per layer
+             per decode step, quant_matmul 7 times per layer per forward
+             (decode steps + prefill forwards), the bf16 paged_decode
+             never; 4d profiles its decode steps.
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
-             card (the kernel) and on the CPU (the plain versions) must
+             card (the kernels) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
-             atol 1e-3.
+             atol 1e-3, plain (5) and with quant="int8" (5b).
 6. train   — Llama-2-7B width cut to 8 layers (the only cut: 32 layers of
              fp32 master plus bf16 moments would not fit 80 GB), B=4,
              S=2048, bf16 compute, fp32 master, bf16 moments, full
@@ -115,8 +125,8 @@ def _ptxas_entries(text):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             # <len><name>_kernel<template args>Ev: keep name and args
-            short = re.search(r"\d((?:attn|rms_norm|paged_decode)\w*?"
-                              r"_kernel)(I\w*?E)?Ev", m.group(1))
+            short = re.search(r"\d((?:attn|rms_norm|paged_decode|qmm)"
+                              r"\w*?_kernel)(I\w*?E)?E", m.group(1))
             cur = {"name": (short.group(1) + (short.group(2) or ""))
                    if short else m.group(1),
                    "regs": None, "smem": 0, "spill_st": 0, "spill_ld": 0,
@@ -504,6 +514,201 @@ def phase_train_kernels(device, iters=20):
     return rows
 
 
+# -- phase 3c: the int8 serving kernels ----------------------------------------
+
+#: (K, N) of the Llama-2-7B projections: q/k/v/o (32 kv heads), gate/up,
+#: down
+QMM_SHAPES = {"q/k/v/o_proj": (4096, 4096), "gate/up_proj": (4096, 11008),
+              "down_proj": (11008, 4096)}
+
+
+def quant_matmul_bound(M, K, N, x_bytes):
+    """(bound_ms, bound_by): x, the int8 weight, the scales and out moved
+    once over HBM rate, against 2MKN flops at x's rate (bf16 tensor cores
+    for bf16 x, the fp32 rate for f32 x)."""
+    nbytes = M * K * x_bytes + K * N + 4 * N + M * N * x_bytes
+    rate = BF16_FLOPS if x_bytes == 2 else FP32_FLOPS
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = 2 * M * K * N / rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def quantize_pages(pages):
+    """Per-page symmetric int8 of float pools [KV, P, ps, D]: (int8
+    pages, f32 scales [KV, P]), amax / 127 as ``kv_write`` settles it."""
+    amax = pages.float().abs().amax(dim=(2, 3))
+    scales = amax / 127.0
+    q = torch.round(pages.float() / torch.where(scales > 0, scales, 1.0)
+                    [..., None, None])
+    return q.clamp_(-127, 127).to(torch.int8), scales
+
+
+def make_quant_paged_case(gen, B, KV, G, D, ps, pps, lengths, q_dtype,
+                          device):
+    """As ``make_paged_case`` over int8 pages: every slot past a
+    sequence's cover points at one page whose scales are NaN, so a read
+    of it would poison the output; the unwritten tail of each last page
+    holds garbage at its page's scale."""
+    q, kp, vp, lens, table = make_paged_case(
+        gen, B, KV, G, D, ps, pps, lengths, q_dtype, torch.float32, device)
+    nan_page = kp.shape[1] - 1
+    kp, vp = (torch.nan_to_num(t, nan=3.0) for t in (kp, vp))
+    (kq, ks), (vq, vs) = quantize_pages(kp), quantize_pages(vp)
+    ks[:, nan_page] = float("nan")
+    vs[:, nan_page] = float("nan")
+    return q, kq, vq, lens, table, ks, vs
+
+
+def paged_decode_quant_bound(q, k_pages, lengths, page_indices):
+    """(bound_ms, bound_by): the int8 K and V rows under each length, one
+    K and one V scale per covered page, the table entries, lengths, q in
+    and out, over HBM rate, against the dots (4 flops per query row,
+    token and dim) and the dequantizing multiplies (2 per kv head, token
+    and dim) over the fp32 rate."""
+    B, H, D = q.shape
+    KV, _, ps, _ = k_pages.shape
+    lens = [int(x) for x in lengths.cpu()]
+    tokens = sum(lens)
+    pages = sum(-(-n // ps) for n in lens)
+    nbytes = (2 * tokens * KV * D + 2 * pages * KV * 4 + pages * 4 + B * 4
+              + 2 * q.numel() * q.element_size())
+    flops = 4 * tokens * H * D + 2 * tokens * KV * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_quant_kernels(device, iters=50):
+    """Both int8 serving kernels against their plain versions at the
+    int8 serving path's shapes, then timed.  Returns their rows."""
+    from paddle_tpu_torch.ops import quant as tq
+    from paddle_tpu_torch.ops.kernels import paged_decode as pdmod
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2468)
+    f32, bf16 = torch.float32, torch.bfloat16
+    before = (qm.quant_matmul.launches, pdmod.paged_decode_quant.launches)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+
+    # kernel A: every projection shape, decode and prefill M, both x dtypes
+    qmm_err, timed = {}, {}
+    for label, (K, N) in QMM_SHAPES.items():
+        w = torch.randn(K, N, generator=gen, device=device) * 0.02
+        qw, sc = tq.quantize_per_channel(w)
+        sc = sc.reshape(N)
+        w_bf16 = tq.dequantize(qw, sc, bf16)      # the library's weight
+        del w
+        for M in (8, 512):
+            x = torch.randn(M, K, generator=gen, device=device)
+            for xd in (bf16, f32):
+                xs = x.to(xd)
+                got = qm.quant_matmul(xs, qw, sc)
+                torch.cuda.synchronize()
+                want = qm.quant_matmul_reference(xs, qw, sc)
+                if xd == f32:
+                    tol = (2e-4, 0.0, "fp32 sums of up to 11008 products "
+                           "in other orders, |out| ~ 2")
+                else:
+                    tol = (2e-4, 2 ** -7, BF16_WHY)
+                err = _hold(f"quant_matmul {label} M={M} K={K} N={N} x "
+                            f"{xd}", got, want, *tol)
+                qmm_err.setdefault((M, xd), 0.0)
+                qmm_err[(M, xd)] = max(qmm_err[(M, xd)], err)
+            xb = x.to(bf16)
+            timed[(label, M)] = (
+                [time_ms(f, flush, iters=iters) for f in (
+                    lambda: qm.quant_matmul(xb, qw, sc),
+                    lambda: qm.quant_matmul_reference(xb, qw, sc),
+                    lambda: torch.matmul(xb, w_bf16))],
+                quant_matmul_bound(M, K, N, 2))
+            del x, xb
+        del qw, sc, w_bf16
+        torch.cuda.empty_cache()
+    for (label, M), ((ms, plain_ms, lib_ms), (bound, by)) in timed.items():
+        log(f"[kernels] quant_matmul time at {label} M={M} x bf16: kernel "
+            f"{ms:.4f} ms | bound {bound:.4f} ms ({by}) | plain "
+            f"{plain_ms:.4f} ms | library_ms {lib_ms:.4f} ms (torch.matmul "
+            f"over the weight dequantized to bf16 beforehand) | "
+            f"{100 * bound / ms:.1f}% of bound")
+
+    # kernel B: int8 pages at the decode shapes of phase 3
+    l7b = [1, 8, 2048, 17, 500, 1024, 1999, 333]
+    cases = [
+        ("llama2-7b serving (q f32, pool int8)",
+         dict(B=8, KV=32, G=1, D=128, ps=16, pps=128, lengths=l7b), f32,
+         2e-5, 0.0, "fp32 math on the same dequantized values, other "
+         "summation order"),
+        ("llama2-7b q bf16, pool int8",
+         dict(B=8, KV=32, G=1, D=128, ps=16, pps=128, lengths=l7b), bf16,
+         1e-4, 2 ** -7, BF16_WHY),
+        ("gqa G=4 ps=32", dict(B=4, KV=8, G=4, D=128, ps=32, pps=64,
+                               lengths=[2048, 1, 40, 777]), f32, 2e-5, 0.0,
+         "fp32 math, other summation order"),
+        ("gqa G=2 D=64", dict(B=3, KV=4, G=2, D=64, ps=16, pps=32,
+                              lengths=[512, 9, 100]), f32, 2e-5, 0.0,
+         "fp32 math, other summation order"),
+    ]
+    main_case = None
+    for label, shape, qd, atol, rtol, why in cases:
+        args = make_quant_paged_case(gen, q_dtype=qd, device=device, **shape)
+        got = pdmod.paged_decode_quant(*args)
+        torch.cuda.synchronize()
+        want = pdmod.paged_decode_quant_reference(*args)
+        err = _hold(f"paged_decode_quant {label}", got, want, atol, rtol,
+                    why)
+        if main_case is None:
+            main_case = (args, err)
+    args, pdq_err = main_case
+    q, kq, vq, lens, table, ks, vs = args
+    ms = time_ms(lambda: pdmod.paged_decode_quant(*args), flush, iters=iters)
+    plain_ms = time_ms(lambda: pdmod.paged_decode_quant_reference(*args),
+                       flush, iters=iters)
+    B, H, D = q.shape
+    T = table.shape[1] * kq.shape[2]
+    idx = table.long()
+
+    def dense(pages, scales):
+        w = pages[:, idx].float() * scales[:, idx][..., None, None]
+        return w.transpose(0, 1).reshape(B, -1, T, D)
+
+    valid = torch.arange(T, device=device)[None] < lens[:, None]
+    kd, vd = (torch.where(valid[:, None, :, None], dense(p, sc_), 0)
+              .to(bf16) for p, sc_ in ((kq, ks), (vq, vs)))
+    qs, mask = q.to(bf16)[:, :, None], valid[:, None, None, :]
+    F = torch.nn.functional
+    library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask),
+        flush, iters=iters)
+    pdq_bound, pdq_by = paged_decode_quant_bound(q, kq, lens, table)
+    log(f"[kernels] paged_decode_quant time at B=8 KV=32 D=128 ps=16 "
+        f"pps=128, lengths {l7b}, q f32 / pool int8: kernel {ms:.4f} ms | "
+        f"bound {pdq_bound:.4f} ms ({pdq_by}) | plain {plain_ms:.4f} ms | "
+        f"library_ms {library_ms:.4f} ms (scaled_dot_product_attention, "
+        f"bf16, over the gathered and dequantized cache, gather and "
+        f"dequantization excluded) | {100 * pdq_bound / ms:.1f}% of bound")
+    del flush, kd, vd, args, q, kq, vq
+    torch.cuda.empty_cache()
+    qm.quant_matmul.launches, pdmod.paged_decode_quant.launches = before
+
+    (qmm_ms, qmm_plain, qmm_lib), (qmm_bound, qmm_by) = \
+        timed[("gate/up_proj", 8)]
+    return [
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "paddle_tpu/ops/pallas_kernels/quant_matmul.py:85",
+         "max_abs_err": max(qmm_err.values()), "ms": qmm_ms,
+         "plain_ms": qmm_plain, "bound_ms": qmm_bound, "bound_by": qmm_by,
+         "library_ms": qmm_lib},
+        {"name": "paged_decode_quant", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "paddle_tpu/ops/pallas_kernels/paged_decode.py:240",
+         "max_abs_err": pdq_err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": pdq_bound, "bound_by": pdq_by,
+         "library_ms": library_ms},
+    ]
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 SERVE_KW = dict(max_seqs=8, page_size=16, max_len=2048, prefill_chunk=512)
@@ -512,11 +717,21 @@ SERVE_LOAD = dict(n_requests=16, mean_interarrival=2.0,
                   seed=0)
 
 
+def _serve_counters():
+    from paddle_tpu_torch.ops.kernels import paged_decode as pdmod
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    return {"paged_decode": pdmod.paged_decode,
+            "paged_decode_quant": pdmod.paged_decode_quant,
+            "quant_matmul": qm.quant_matmul}
+
+
 def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
-                engine_kw=None):
+                engine_kw=None, quant="none"):
+    """Serve ``load`` through ServingEngine.  Returns ({kernel: launches
+    in the run}, engine)."""
     from paddle_tpu_torch.inference.server import RequestState, ServingEngine
     from paddle_tpu_torch.models import LlamaConfig, init_llama_params
-    from paddle_tpu_torch.ops.kernels import paged_decode as pdmod
     from paddle_tpu_torch.testing.load import (
         LoadSpec, generate_load, run_load,
     )
@@ -524,30 +739,41 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
     cfg = LlamaConfig.llama2_7b() if cfg is None else cfg
     load = SERVE_LOAD if load is None else load
     engine_kw = SERVE_KW if engine_kw is None else engine_kw
+    tag = "serve" if quant == "none" else f"serve-{quant}"
     t0 = time.perf_counter()
     params = init_llama_params(cfg, seed=0, device=device, dtype=dtype)
-    engine = ServingEngine(cfg, params, dtype=dtype, device=device,
-                           **engine_kw)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
     nparams = (sum(t.numel() for t in params["layers"].values())
                + params["embed"].numel()
                + (0 if params["lm_head"] is None
                   else params["lm_head"].numel()))
-    log(f"[serve] {cfg.num_hidden_layers} layers, hidden "
+    engine = ServingEngine(cfg, params, dtype=dtype, device=device,
+                           quant=quant, **engine_kw)
+    del params          # an int8 engine keeps no dense projection
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+    else:
+        resident = float("nan")
+    log(f"[{tag}] {cfg.num_hidden_layers} layers, hidden "
         f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, D "
         f"{cfg.head_dim}, intermediate {cfg.intermediate_size}, vocab "
         f"{cfg.vocab_size}: {nparams / 1e9:.3f} B parameters in {dtype}, "
-        f"built in {time.perf_counter() - t0:.1f} s")
+        f"quant={quant}, built in {time.perf_counter() - t0:.1f} s; "
+        f"{resident:.2f} GiB resident (weights and KV pool)")
     work = generate_load(LoadSpec(**dict(load, vocab=cfg.vocab_size)))
-    pdmod.paged_decode.launches = 0
+    counters = _serve_counters()
+    for f in counters.values():
+        f.launches = 0
+    ex = engine.executor
+    ex.prefill_events.clear()
     t0 = time.perf_counter()
     out = run_load(engine, work)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pdmod.paged_decode.launches
+    got = {k: f.launches for k, f in counters.items()}
     st = out["stats"]
     for w in work:
         h = out["handles"][w["rid"]]
@@ -558,23 +784,32 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
             raise AssertionError(
                 f"[serve] {w['rid']}: {h.state.value}, {len(toks)} of "
                 f"{w['max_new_tokens']} tokens")
-    want = cfg.num_hidden_layers * st["decode_steps"]
-    if device.type == "cuda" and launches != want:
-        raise AssertionError(
-            f"[serve] paged_decode launched {launches} times, expected "
-            f"{cfg.num_hidden_layers} layers x {st['decode_steps']} "
-            f"decode steps = {want}")
+    L, steps = cfg.num_hidden_layers, st["decode_steps"]
+    forwards = len(ex.prefill_events)
+    if quant == "int8":
+        want = {"paged_decode": 0, "paged_decode_quant": L * steps,
+                "quant_matmul": 7 * L * (steps + forwards)}
+        rule = (f"paged_decode_quant {L} layers x {steps} decode steps; "
+                f"quant_matmul 7 x {L} layers x ({steps} decode steps + "
+                f"{forwards} prefill forwards); paged_decode 0")
+    else:
+        want = {"paged_decode": L * steps, "paged_decode_quant": 0,
+                "quant_matmul": 0}
+        rule = f"paged_decode {L} layers x {steps} decode steps"
+    if device.type == "cuda" and got != want:
+        raise AssertionError(f"[{tag}] launches {got}, expected {want} "
+                             f"({rule})")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
-    log(f"[serve] {len(work)} requests finished in {wall:.3f} s, "
-        f"{st['steps']} steps, {st['decode_steps']} decode steps, "
-        f"{st['decode_tokens']} decode tokens, {st['prefill_tokens']} "
-        f"prefill tokens, {st['preemptions']} preemptions | "
-        f"{st['decode_tokens'] / wall:.2f} decode tok/s | TTFT p50 "
-        f"{st['ttft_ms_p50']} ms p99 {st['ttft_ms_p99']} ms | TPOT p50 "
-        f"{st['tpot_ms_p50']} ms p99 {st['tpot_ms_p99']} ms | "
-        f"paged_decode launches {launches} | peak memory {peak:.2f} GiB")
-    return launches, engine
+    log(f"[{tag}] {len(work)} requests finished in {wall:.3f} s, "
+        f"{st['steps']} steps, {steps} decode steps, {forwards} prefill "
+        f"forwards, {st['decode_tokens']} decode tokens, "
+        f"{st['prefill_tokens']} prefill tokens, {st['preemptions']} "
+        f"preemptions | {st['decode_tokens'] / wall:.2f} decode tok/s | "
+        f"TTFT p50 {st['ttft_ms_p50']} ms p99 {st['ttft_ms_p99']} ms | "
+        f"TPOT p50 {st['tpot_ms_p50']} ms p99 {st['tpot_ms_p99']} ms | "
+        f"launches {got} ({rule}) | peak memory {peak:.2f} GiB")
+    return got, engine
 
 
 def phase_profile(engine, device, n_steps=5, prompt=512):
@@ -605,34 +840,45 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
             engine.step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    kinds = {"paged_decode": 0.0, "gemm": 0.0, "other": 0.0}
+    # kinds by kernel name, first match wins
+    patterns = (("quant_matmul", ("qmm_",)),
+                ("paged_decode_quant", ("paged_decode_quant",)),
+                ("paged_decode", ("paged_decode",)),
+                ("gemm", ("gemm", "cutlass", "xmma", "nvjet")))
+    kinds = {k: 0.0 for k, _ in patterns}
+    kinds["other"] = 0.0
     per_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = ev.self_device_time_total / 1e3 / n_steps
         name = ev.key.lower()
-        kind = ("paged_decode" if "paged_decode" in name else
-                "gemm" if any(k in name for k in ("gemm", "cutlass",
-                                                  "xmma", "nvjet"))
-                else "other")
+        kind = next((k for k, pats in patterns
+                     if any(p in name for p in pats)), "other")
         kinds[kind] += ms
         per_kernel[ev.key[:60]] = (ms, ev.count / n_steps)
     busy = sum(kinds.values())
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in ex.layers.values()) + \
-        ex.tops["head_w"].numel() * ex.tops["head_w"].element_size()
+
+    def nbytes(w):
+        if isinstance(w, dict):
+            return sum(nbytes(t) for t in w.values())
+        return w.numel() * w.element_size()
+
+    weight_bytes = sum(nbytes(w) for w in ex.layers.values()) \
+        + nbytes(ex.tops["head_w"])
     lens = [int(ex.cache.lengths[h._req.sid]) for h in handles]
-    log(f"[profile] decode step at batch {len(handles)}, lengths "
+    tag = "profile" if ex.quant == "none" else f"profile-{ex.quant}"
+    log(f"[{tag}] decode step at batch {len(handles)}, lengths "
         f"{min(lens)}-{max(lens)}: {step_ms:.3f} ms untraced, "
-        f"{traced_ms:.3f} ms traced | device busy {busy:.3f} ms/step "
-        f"(paged_decode {kinds['paged_decode']:.3f}, gemm "
-        f"{kinds['gemm']:.3f}, other {kinds['other']:.3f}) | idle share "
-        f"{1 - busy / traced_ms:.3f} | weight-read bound "
-        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step")
+        f"{traced_ms:.3f} ms traced | device busy {busy:.3f} ms/step ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items() if v or
+                    k in ("gemm", "other"))
+        + f") | idle share {1 - busy / traced_ms:.3f} | weight-read bound "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step "
+        f"({weight_bytes / 1e9:.3f} GB of layer and head weights)")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (ms, calls) in top:
-        log(f"[profile]   {ms:8.3f} ms/step  {calls:6.1f} launches/step  "
+        log(f"[{tag}]   {ms:8.3f} ms/step  {calls:6.1f} launches/step  "
             f"{name}")
     for h in handles:
         h.cancel()
@@ -647,16 +893,18 @@ PARITY_LOAD = dict(n_requests=4, mean_interarrival=1.0,
                    seed=1)
 
 
-def phase_parity(device, cfg=None):
+def phase_parity(device, cfg=None, quant="none"):
     from paddle_tpu_torch.inference.server import PagedExecutor, ServingEngine
     from paddle_tpu_torch.models import (
         LlamaConfig, init_llama_params, params_to,
     )
-    from paddle_tpu_torch.ops.kernels import paged_decode as pdmod
     from paddle_tpu_torch.testing.load import (
         LoadSpec, generate_load, run_load,
     )
 
+    tag = "parity" if quant == "none" else f"parity-{quant}"
+    counters = {k: f for k, f in _serve_counters().items()
+                if (k == "paged_decode") == (quant == "none")}
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2) if cfg is None else cfg
     params = init_llama_params(cfg, seed=0, device=device,
                                dtype=torch.float32)
@@ -666,33 +914,37 @@ def phase_parity(device, cfg=None):
     logits = []
     for dev, p in ((device, params), (torch.device("cpu"), cpu_params)):
         ex = PagedExecutor(cfg, p, dtype=torch.float32, device=dev,
-                           max_seqs=1, page_size=16, max_len=256)
+                           max_seqs=1, page_size=16, max_len=256,
+                           quant=quant)
         with torch.no_grad():
             logits.append([ex._prefill_fwd(torch.as_tensor(
                 w["prompt_ids"][None], dtype=torch.long, device=dev))[0]
                 .cpu() for w in work])
     max_err = max((a - b).abs().max().item()
                   for a, b in zip(*logits))
-    log(f"[parity] first-token logits card vs CPU: max_abs_err "
+    log(f"[{tag}] first-token logits card vs CPU: max_abs_err "
         f"{max_err:.3e} (atol 1e-3: fp32 on both, TF32 off, other "
         f"summation order through 2 layers of width 4096)")
     if not max_err <= 1e-3:
-        raise AssertionError(f"[parity] logits differ by {max_err}")
+        raise AssertionError(f"[{tag}] logits differ by {max_err}")
     streams = {}
     for dev, p in ((device, params), (torch.device("cpu"), cpu_params)):
-        before = pdmod.paged_decode.launches
+        before = {k: f.launches for k, f in counters.items()}
         eng = ServingEngine(cfg, p, dtype=torch.float32, device=dev,
-                            **PARITY_KW)
+                            quant=quant, **PARITY_KW)
         out = run_load(eng, work)
         streams[dev.type] = {rid: h.tokens
                              for rid, h in out["handles"].items()}
-        log(f"[parity] {dev.type}: {out['stats']['decode_steps']} decode "
-            f"steps, kernel launches "
-            f"{pdmod.paged_decode.launches - before}")
+        launched = {k: f.launches - before[k] for k, f in counters.items()}
+        log(f"[{tag}] {dev.type}: {out['stats']['decode_steps']} decode "
+            f"steps, kernel launches {launched}")
+        if dev.type == "cuda" and not all(launched.values()):
+            raise AssertionError(f"[{tag}] the card run missed a kernel: "
+                                 f"{launched}")
     if streams[device.type] != streams["cpu"]:
-        raise AssertionError(f"[parity] greedy streams differ: "
+        raise AssertionError(f"[{tag}] greedy streams differ: "
                              f"{streams}")
-    log(f"[parity] greedy streams identical on {device.type} and cpu "
+    log(f"[{tag}] greedy streams identical on {device.type} and cpu "
         f"for {len(work)} requests ({sum(map(len, streams['cpu'].values()))}"
         f" tokens)")
 
@@ -874,15 +1126,25 @@ def main():
     name, limit = phase_device()
     phase_build()
     rows = [phase_kernels(device)]
-    rows += phase_train_kernels(device)
-    rows[0]["launches"], engine = phase_serve(device)
+    train_rows = phase_train_kernels(device)
+    quant_rows = phase_quant_kernels(device)
+    launches, engine = phase_serve(device)
+    rows[0]["launches"] = launches["paged_decode"]
+    phase_profile(engine, device)
+    del engine
+    torch.cuda.empty_cache()
+    launches, engine = phase_serve(device, quant="int8")
+    for row in quant_rows:
+        row["launches"] = launches[row["name"]]
     phase_profile(engine, device)
     del engine
     torch.cuda.empty_cache()
     phase_parity(device)
+    phase_parity(device, quant="int8")
     launches, step, batch = phase_train(device, limit)
-    for row in rows[1:]:
+    for row in train_rows:
         row["launches"] = launches[row["name"]]
+    rows += train_rows + quant_rows
     phase_train_profile(step, batch, device)
     del step, batch
     torch.cuda.empty_cache()

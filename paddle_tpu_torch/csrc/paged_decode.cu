@@ -35,12 +35,22 @@
 //     memory and the division by the softmax sum; out is written in q's
 //     dtype.
 // A length of 0 writes zeros.  Lengths above pps * ps are clamped.
+//
+// The int8 entry point (paged_decode_quant_launch) replaces the Pallas
+// TPU kernel's int8 variant (_kernel_quant / _call_quant, PT_QUANT=int8):
+// the same body over int8 pools, each K/V row multiplied by its page's
+// f32 scale (k_scales / v_scales [KV, P]) as it is widened, before the
+// dot and the weighted sum, as the TPU kernel dequantizes its window.
+// It moves half the K/V bytes of a bf16 pool.  The TPU gate
+// page_size % 32 == 0 is int8 sublane tiling; here any page size works.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -50,6 +60,28 @@ constexpr int kThreads = kWarps * 32;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
+// One lane's EPL elements of a K or V row, widened to float; an int8 row
+// is multiplied by its page's scale `s` (4-byte loads where they align).
+template <bool kQuant, typename TKV, int EPL>
+__device__ __forceinline__ void load_row(const TKV* p, float s,
+                                         float (&r)[EPL]) {
+  if constexpr (kQuant && EPL % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < EPL / 4; ++i) {
+      const char4 c = reinterpret_cast<const char4*>(p)[i];
+      r[4 * i] = c.x * s;
+      r[4 * i + 1] = c.y * s;
+      r[4 * i + 2] = c.z * s;
+      r[4 * i + 3] = c.w * s;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      r[e] = kQuant ? to_float(p[e]) * s : to_float(p[e]);
+  }
 }
 
 template <typename T>
@@ -92,14 +124,15 @@ __device__ float block_reduce(float v, float* red) {
   return r;
 }
 
-template <typename TQ, typename TKV, int D, int GMAX>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-                    const TKV* __restrict__ v_pages,
-                    const int* __restrict__ lengths,
-                    const int* __restrict__ page_indices,
-                    TQ* __restrict__ out, int KV, int G, int P, int ps,
-                    int pps, float scale) {
+// The body of both entry points; kQuant selects int8 pools with per-page
+// scales (k_scales / v_scales are unread otherwise).
+template <typename TQ, typename TKV, int D, int GMAX, bool kQuant>
+__device__ __forceinline__ void paged_decode_body(
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const int* __restrict__ lengths,
+    const int* __restrict__ page_indices, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, TQ* __restrict__ out, int KV, int G,
+    int P, int ps, int pps, float scale) {
   constexpr int EPL = D / 32;  // K/V row elements per lane
   const int b = blockIdx.x / KV;
   const int kv = blockIdx.x % KV;
@@ -137,15 +170,18 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
 
   const int* table = page_indices + (size_t)b * pps;
   const size_t pool = (size_t)kv * P * ps * D;
+  // this head's page scales (null for a float pool)
+  const float* ksc = kQuant ? k_scales + (size_t)kv * P : nullptr;
+  const float* vsc = kQuant ? v_scales + (size_t)kv * P : nullptr;
 
   // pass 1: scores
 #pragma unroll 4
   for (int t = warp; t < len; t += kWarps) {
-    const size_t row = ((size_t)table[t / ps] * ps + t % ps) * D;
-    const TKV* kp = k_pages + pool + row + lane * EPL;
+    const int pid = table[t / ps];
+    const size_t row = ((size_t)pid * ps + t % ps) * D;
     float kr[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) kr[e] = to_float(kp[e]);
+    load_row<kQuant>(k_pages + pool + row + lane * EPL,
+                     kQuant ? ksc[pid] : 1.f, kr);
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < G) {
@@ -185,11 +221,11 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
 
 #pragma unroll 4
   for (int t = warp; t < len; t += kWarps) {
-    const size_t row = ((size_t)table[t / ps] * ps + t % ps) * D;
-    const TKV* vp = v_pages + pool + row + lane * EPL;
+    const int pid = table[t / ps];
+    const size_t row = ((size_t)pid * ps + t % ps) * D;
     float vr[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) vr[e] = to_float(vp[e]);
+    load_row<kQuant>(v_pages + pool + row + lane * EPL,
+                     kQuant ? vsc[pid] : 1.f, vr);
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < G) {
@@ -217,12 +253,43 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   }
 }
 
+template <typename TQ, typename TKV, int D, int GMAX>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+                    const TKV* __restrict__ v_pages,
+                    const int* __restrict__ lengths,
+                    const int* __restrict__ page_indices,
+                    TQ* __restrict__ out, int KV, int G, int P, int ps,
+                    int pps, float scale) {
+  paged_decode_body<TQ, TKV, D, GMAX, false>(q, k_pages, v_pages, lengths,
+                                             page_indices, nullptr, nullptr,
+                                             out, KV, G, P, ps, pps, scale);
+}
+
+template <typename TQ, typename TKV, int D, int GMAX>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_quant_kernel(const TQ* __restrict__ q,
+                          const TKV* __restrict__ k_pages,
+                          const TKV* __restrict__ v_pages,
+                          const int* __restrict__ lengths,
+                          const int* __restrict__ page_indices,
+                          const float* __restrict__ k_scales,
+                          const float* __restrict__ v_scales,
+                          TQ* __restrict__ out, int KV, int G, int P, int ps,
+                          int pps, float scale) {
+  paged_decode_body<TQ, TKV, D, GMAX, true>(q, k_pages, v_pages, lengths,
+                                            page_indices, k_scales, v_scales,
+                                            out, KV, G, P, ps, pps, scale);
+}
+
 struct Args {
   const void* q;
   const void* k_pages;
   const void* v_pages;
   const int* lengths;
   const int* page_indices;
+  const float* k_scales;  // int8 pools only
+  const float* v_scales;
   void* out;
   int B, KV, G, D, P, ps, pps;
   float scale;
@@ -231,19 +298,35 @@ struct Args {
 
 template <typename TQ, typename TKV, int D, int GMAX>
 cudaError_t launch(const Args& a) {
-  auto kernel = paged_decode_kernel<TQ, TKV, D, GMAX>;
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   const size_t smem =
       sizeof(float) * ((size_t)a.G * D * (1 + kWarps) +
                        (size_t)a.G * a.pps * a.ps);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  const TQ* q = static_cast<const TQ*>(a.q);
+  const TKV* kp = static_cast<const TKV*>(a.k_pages);
+  const TKV* vp = static_cast<const TKV*>(a.v_pages);
+  TQ* out = static_cast<TQ*>(a.out);
+  if constexpr (kQuant) {
+    auto kernel = paged_decode_quant_kernel<TQ, TKV, D, GMAX>;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<a.B * a.KV, kThreads, smem, a.stream>>>(
+        q, kp, vp, a.lengths, a.page_indices, a.k_scales, a.v_scales, out,
+        a.KV, a.G, a.P, a.ps, a.pps, a.scale);
+  } else {
+    auto kernel = paged_decode_kernel<TQ, TKV, D, GMAX>;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<a.B * a.KV, kThreads, smem, a.stream>>>(
+        q, kp, vp, a.lengths, a.page_indices, out, a.KV, a.G, a.P, a.ps,
+        a.pps, a.scale);
   }
-  kernel<<<a.B * a.KV, kThreads, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k_pages),
-      static_cast<const TKV*>(a.v_pages), a.lengths, a.page_indices,
-      static_cast<TQ*>(a.out), a.KV, a.G, a.P, a.ps, a.pps, a.scale);
   return cudaGetLastError();
 }
 
@@ -278,7 +361,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int pps, float scale, int q_dtype,
                                    int kv_dtype, void* stream) {
   const Args a{q,  k_pages, v_pages, static_cast<const int*>(lengths),
-               static_cast<const int*>(page_indices),
+               static_cast<const int*>(page_indices), nullptr, nullptr,
                out, B, KV, G, D, P, ps, pps, scale,
                static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && kv_dtype == 0) return by_head_dim<float, float>(a);
@@ -286,5 +369,24 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
     return by_head_dim<float, __nv_bfloat16>(a);
   if (q_dtype == 1 && kv_dtype == 1)
     return by_head_dim<__nv_bfloat16, __nv_bfloat16>(a);
+  return cudaErrorInvalidValue;
+}
+
+// The int8-pool twin: k/v_pages int8 [KV, P, ps, D], k/v_scales float32
+// [KV, P].  Takes q float32 or bfloat16 (q_dtype 0 or 1); otherwise as
+// paged_decode_launch.
+extern "C" int paged_decode_quant_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* lengths, const void* page_indices, const void* k_scales,
+    const void* v_scales, void* out, int B, int KV, int G, int D, int P,
+    int ps, int pps, float scale, int q_dtype, void* stream) {
+  const Args a{q,  k_pages, v_pages, static_cast<const int*>(lengths),
+               static_cast<const int*>(page_indices),
+               static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales),
+               out, B, KV, G, D, P, ps, pps, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0) return by_head_dim<float, int8_t>(a);
+  if (q_dtype == 1) return by_head_dim<__nv_bfloat16, int8_t>(a);
   return cudaErrorInvalidValue;
 }

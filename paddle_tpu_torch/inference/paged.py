@@ -15,9 +15,19 @@ Decode attention goes through ``ops.kernels.paged_decode`` — the CUDA
 kernel for tensors on the card, its plain version for tensors on the
 CPU.
 
+``quant="int8"`` (``None`` follows ``PT_QUANT``) makes the pools int8
+with one f32 scale per (layer, kv head, page) in ``k_scales`` /
+``v_scales`` [L, KV, P]: writes quantize through ``ops.quant.kv_write``
+(in place, as the float writes are), ``gather_dense`` dequantizes the
+gathered window to ``compute_dtype``, and decode attention takes
+``paged_decode_quant``.  The int8 K and V pools (and their scales) are
+the two halves of one tensor, so one ``kv_write`` quantizes both: half
+the eager launches of two calls, the same bits.  The float path is
+unchanged by it.
+
 Not ported yet (later slices): page refcounts and copy-on-write for the
-prefix cache, ``trim`` for speculative decode, the int8 pool, and the
-sequence-parallel writes.
+prefix cache (and so the int8 copy-on-write of a page with its scale),
+``trim`` for speculative decode, and the sequence-parallel writes.
 """
 from __future__ import annotations
 
@@ -25,7 +35,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.kernels.paged_decode import paged_decode
+from ..ops import quant as _quant
+from ..ops.kernels.paged_decode import paged_decode, paged_decode_quant
 
 _POOL_EXHAUSTED = "KV page pool exhausted"
 
@@ -42,7 +53,7 @@ class PagedKVCache:
 
     def __init__(self, n_layers, n_kv_heads, head_dim, num_pages,
                  page_size=16, max_seqs=8, dtype=torch.bfloat16,
-                 max_pages_per_seq=None, device=None):
+                 max_pages_per_seq=None, device=None, quant=None):
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages_per_seq = (num_pages // max_seqs
@@ -50,9 +61,26 @@ class PagedKVCache:
                                   else int(max_pages_per_seq))
         self.max_seqs = max_seqs
         self.device = resolve_device(device)
+        #: what consumers compute in: the pool dtype of a float pool, the
+        #: requested dtype when the pool is int8
+        self.compute_dtype = dtype
+        self.quant = _quant.quant_mode(quant)
         shape = (n_layers, n_kv_heads, num_pages, page_size, head_dim)
-        self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
+        if self.quant == "int8":
+            # [2, ...]: index 0 is K, 1 is V
+            self._kv_pages = torch.zeros((2,) + shape, dtype=torch.int8,
+                                         device=self.device)
+            self._kv_scales = torch.zeros((2,) + shape[:3],
+                                          dtype=torch.float32,
+                                          device=self.device)
+            self.k_pages, self.v_pages = self._kv_pages
+            self.k_scales, self.v_scales = self._kv_scales
+        else:
+            self.k_pages = torch.zeros(shape, dtype=dtype,
+                                       device=self.device)
+            self.v_pages = torch.zeros(shape, dtype=dtype,
+                                       device=self.device)
+            self.k_scales = self.v_scales = None
         self._free = list(range(num_pages - 1, -1, -1))
         self.page_table = np.full((max_seqs, self.max_pages_per_seq),
                                   -1, np.int32)
@@ -129,9 +157,18 @@ class PagedKVCache:
         allocating pages as needed; the length becomes ``start + T``."""
         T = int(k.shape[2])
         self._ensure_capacity(seq, start + T)
+        ps = self.page_size
+        if self.k_scales is not None:
+            row = self.page_table[seq]
+            pos = np.arange(start, start + T)
+            pids = torch.as_tensor(row[pos // ps], device=self.device)
+            offs = torch.as_tensor(pos % ps, device=self.device)
+            _quant.kv_write(self._kv_pages, self._kv_scales, pids, offs,
+                            torch.stack([k, v]))
+            self.lengths[seq] = start + T
+            return
         k = k.to(self.k_pages.dtype)
         v = v.to(self.v_pages.dtype)
-        ps = self.page_size
         t = 0
         while t < T:
             pos = start + t
@@ -155,6 +192,11 @@ class PagedKVCache:
         """Store one token per row of k/v [B, KV, D] into layer
         ``layer`` at the slots ``token_slots`` gave.  Lengths are the
         caller's to advance."""
+        if self.k_scales is not None:
+            _quant.kv_write(self._kv_pages[:, layer],
+                            self._kv_scales[:, layer], pids, offs,
+                            torch.stack([k, v]).transpose(1, 2))
+            return
         kp, vp = self.k_pages[layer], self.v_pages[layer]
         kp[:, pids, offs] = k.transpose(0, 1).to(kp.dtype)
         vp[:, pids, offs] = v.transpose(0, 1).to(vp.dtype)
@@ -191,6 +233,11 @@ class PagedKVCache:
         pids = torch.as_tensor(row, device=self.device).long()
         k = self.k_pages[:, :, pids]           # [L, KV, n, ps, D]
         v = self.v_pages[:, :, pids]
+        if self.k_scales is not None:
+            k = _quant.kv_dequant(k, self.k_scales[:, :, pids],
+                                  self.compute_dtype)
+            v = _quant.kv_dequant(v, self.v_scales[:, :, pids],
+                                  self.compute_dtype)
         sh = (k.shape[0], k.shape[1], n * self.page_size, k.shape[4])
         return k.reshape(sh), v.reshape(sh)
 
@@ -211,5 +258,9 @@ class PagedKVCache:
         """Decode attention for one layer over explicit ``tables``-style
         page_indices [B, pps] and lengths [B] (int32, on the cache's
         device)."""
+        if self.k_scales is not None:
+            return paged_decode_quant(
+                q, self.k_pages[layer], self.v_pages[layer], lengths,
+                page_indices, self.k_scales[layer], self.v_scales[layer])
         return paged_decode(q, self.k_pages[layer], self.v_pages[layer],
                             lengths, page_indices)

@@ -18,7 +18,9 @@ so the logical clock IS the iteration count.
 
 ``device=None`` means CUDA and raises where there is none; pass
 ``device="cpu"`` for the plain PyTorch path (decode attention then
-takes the kernel's plain version).
+takes the kernel's plain version).  ``quant="int8"`` serves with int8
+weights and an int8 KV pool; ``quant=None`` follows ``PT_QUANT``
+(default ``none``), and a bad value fails here, at build.
 """
 from __future__ import annotations
 
@@ -34,11 +36,11 @@ class ServingEngine:
     def __init__(self, config, params, max_seqs=4, page_size=16,
                  max_len=256, dtype=torch.float32, num_pages=None,
                  policy="fifo", prefill_chunk=None, eos_token_id=None,
-                 max_preemptions=4, clock=None, device=None):
+                 max_preemptions=4, clock=None, device=None, quant=None):
         self.executor = PagedExecutor(
             config, params, max_seqs=max_seqs, page_size=page_size,
             max_len=max_len, dtype=dtype, num_pages=num_pages,
-            device=device)
+            device=device, quant=quant)
         self.device = self.executor.device
         self.metrics = EngineMetrics(
             max_seqs=max_seqs, num_pages=self.executor.cache.num_pages,

@@ -18,9 +18,15 @@ XLA); decode writes and attention go through ``PagedKVCache``
 (``write_token``, ``attend_tables``) and so through the paged-decode
 kernel (its plain version for CPU tensors).
 
+``quant="int8"`` (``None`` follows ``PT_QUANT``) quantizes the seven
+per-layer projections to per-channel int8 at construction, dropping the
+dense copies, and makes the KV pool int8: every projection then runs
+through ``ops.quant.qmatmul`` (the int8-weight matmul kernel) and every
+decode attention through ``paged_decode_quant``.  The embedding, the
+norms, the RoPE tables and the LM head stay in the checkpoint dtype.
+
 Not ported yet (later slices): ``decode_n``, ``verify``, the async
-twins, AOT warmup, int8 weights and pools, prefix attach and the
-sequence-parallel prefill.
+twins, AOT warmup, prefix attach and the sequence-parallel prefill.
 """
 from __future__ import annotations
 
@@ -30,8 +36,35 @@ import torch.nn.functional as F
 
 from ...device import resolve_device
 from ...models.llama import params_to, rope_tables
+from ...ops import quant as _quant
 from ...ops.nn_ops import rms_norm, rope
 from ..paged import PagedKVCache
+
+#: the stacked decoder weights quantized under ``quant="int8"``
+_QUANT_LAYER_WEIGHTS = (
+    "self_attn.q_proj.weight", "self_attn.k_proj.weight",
+    "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+    "mlp.gate_proj.weight", "mlp.up_proj.weight",
+    "mlp.down_proj.weight",
+)
+
+
+def _mm(x, w):
+    """Weight matmul that dispatches on the weight's form: a plain
+    tensor is ``x @ w``, a ``{"qweight", "scale"}`` dict goes through
+    the int8-weight matmul."""
+    if _quant.is_quantized(w):
+        return _quant.qmatmul(x, w)
+    return x @ w
+
+
+def _quantize_stacked(w):
+    """``quantize_linear`` of a stacked ``[L, in, out]`` weight, one layer
+    at a time, so the f32 temporaries are one layer's (bit-identical to
+    quantizing the stack: the scale is per layer and output channel)."""
+    parts = [_quant.quantize_linear(w[i]) for i in range(w.shape[0])]
+    return {name: torch.stack([p[name] for p in parts])
+            for name in ("qweight", "scale")}
 
 
 class PagedExecutor:
@@ -39,18 +72,24 @@ class PagedExecutor:
 
     ``params`` is the port's parameter dict (``models/llama.py``); it is
     moved to ``device`` if it lies elsewhere.  ``dtype`` is the KV pool
-    dtype.  ``num_pages=None`` sizes the pool so every slot can reach
-    ``max_len``; a smaller pool oversubscribes it."""
+    dtype (the compute dtype of an int8 pool).  ``num_pages=None`` sizes
+    the pool so every slot can reach ``max_len``; a smaller pool
+    oversubscribes it.  ``quant`` is ``"none"``, ``"int8"`` or ``None``
+    (follow ``PT_QUANT``), validated here."""
 
     def __init__(self, config, params, max_seqs=4, page_size=16,
                  max_len=256, dtype=torch.float32, num_pages=None,
-                 device=None):
+                 device=None, quant=None):
         self.device = resolve_device(device)
         cfg = config
         self.config = cfg
         self.max_len = int(max_len)
+        self.quant = _quant.quant_mode(quant)
         params = params_to(params, device=self.device)
-        self.layers = params["layers"]
+        self.layers = dict(params["layers"])
+        if self.quant == "int8":
+            for name in _QUANT_LAYER_WEIGHTS:
+                self.layers[name] = _quantize_stacked(self.layers.pop(name))
         cos, sin = rope_tables(cfg, device=self.device)
         self._tied = bool(cfg.tie_word_embeddings)
         self.tops = {
@@ -68,11 +107,19 @@ class PagedExecutor:
             num_pages=(max_seqs * pages_per_seq if num_pages is None
                        else int(num_pages)),
             page_size=page_size, max_seqs=max_seqs, dtype=dtype,
-            max_pages_per_seq=pages_per_seq, device=self.device)
+            max_pages_per_seq=pages_per_seq, device=self.device,
+            quant=self.quant)
+        # per-layer views of the stacked weights, sliced once
+        self._layers = [
+            {n: ({k: t[i] for k, t in w.items()} if isinstance(w, dict)
+                 else w[i]) for n, w in self.layers.items()}
+            for i in range(cfg.num_hidden_layers)]
         self.last_token = {}
+        #: (sid, n_tokens) per prefill forward
+        self.prefill_events = []
 
     def _layer(self, i):
-        return {n: w[i] for n, w in self.layers.items()}
+        return self._layers[i]
 
     def _head(self, x):
         w = self.tops["head_w"]
@@ -83,9 +130,9 @@ class PagedExecutor:
     def _mlp(self, x, lp):
         eps = self.config.rms_norm_eps
         h2 = rms_norm(x, lp["post_attention_layernorm.weight"], eps)
-        gate = h2 @ lp["mlp.gate_proj.weight"]
-        up = h2 @ lp["mlp.up_proj.weight"]
-        return x + (F.silu(gate) * up) @ lp["mlp.down_proj.weight"]
+        gate = _mm(h2, lp["mlp.gate_proj.weight"])
+        up = _mm(h2, lp["mlp.up_proj.weight"])
+        return x + _mm(F.silu(gate) * up, lp["mlp.down_proj.weight"])
 
     def _qkv(self, x, lp, pos):
         """Projections + RoPE: q [B, S, nh, d], k/v [B, S, nkv, d]."""
@@ -94,9 +141,9 @@ class PagedExecutor:
                       cfg.head_dim)
         B, S = x.shape[:2]
         h = rms_norm(x, lp["input_layernorm.weight"], cfg.rms_norm_eps)
-        q = (h @ lp["self_attn.q_proj.weight"]).reshape(B, S, nh, d)
-        k = (h @ lp["self_attn.k_proj.weight"]).reshape(B, S, nkv, d)
-        v = (h @ lp["self_attn.v_proj.weight"]).reshape(B, S, nkv, d)
+        q = _mm(h, lp["self_attn.q_proj.weight"]).reshape(B, S, nh, d)
+        k = _mm(h, lp["self_attn.k_proj.weight"]).reshape(B, S, nkv, d)
+        v = _mm(h, lp["self_attn.v_proj.weight"]).reshape(B, S, nkv, d)
         q, k = rope(q, k, self.tops["cos"], self.tops["sin"], pos)
         return q, k, v
 
@@ -115,7 +162,7 @@ class PagedExecutor:
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         p = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         o = (p @ vf).transpose(1, 2).reshape(B, S, -1)
-        return x + o @ lp["self_attn.o_proj.weight"]
+        return x + _mm(o, lp["self_attn.o_proj.weight"])
 
     def _prefill_fwd(self, ids):
         """[1, S] prompt -> (last-token logits [V], k [L, KV, S, D],
@@ -185,7 +232,7 @@ class PagedExecutor:
             o = cache.attend_tables(i, q[:, 0].contiguous(), page_tables,
                                     lengths + 1)
             o = o.reshape(B, 1, nh * d).to(x.dtype)
-            x = x + o @ lp["self_attn.o_proj.weight"]
+            x = x + _mm(o, lp["self_attn.o_proj.weight"])
             x = self._mlp(x, lp)
         x = rms_norm(x, self.tops["norm_w"], cfg.rms_norm_eps)
         return self._head(x[:, 0])
@@ -225,6 +272,7 @@ class PagedExecutor:
         """Whole-prompt prefill into an allocated slot; returns the
         first greedy token."""
         ids = self._ids(prompt_ids)
+        self.prefill_events.append((sid, int(ids.shape[1])))
         logits, k, v = self._prefill_fwd(ids)
         self.cache.write_at(sid, k, v, 0)
         tok = int(torch.argmax(logits))
@@ -239,6 +287,7 @@ class PagedExecutor:
         prompt's first greedy token; else returns None."""
         past_k, past_v = self.cache.gather_dense(sid, start)
         ids = self._ids(chunk_ids)
+        self.prefill_events.append((sid, int(ids.shape[1])))
         logits, k, v = self._chunk_fwd(ids, start, past_k, past_v, start)
         self.cache.write_at(sid, k, v, start)
         if not final:

@@ -1,12 +1,14 @@
 """``RMSNorm`` layer.  Counterpart of ``paddle_tpu/nn/norm.py``
-``RMSNorm``: a weight of ones, applied through
-``nn.functional.rms_norm`` (the fused kernel under
-``FLAGS_use_fused_rms_norm``, else the plain op)."""
+``RMSNorm``: a weight of ones on ``device`` (default CUDA, see
+``device.resolve_device``), applied through ``nn.functional.rms_norm``
+(the fused kernel under ``FLAGS_use_fused_rms_norm``, else the plain
+op)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import functional as F
 
 
@@ -15,8 +17,8 @@ class RMSNorm(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
-                                              dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(
+            hidden_size, device=resolve_device(device), dtype=dtype))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)

@@ -9,6 +9,14 @@ the port's the kernel's plain version).
 Tolerance: logits atol 1e-4 — fp32 on both sides, summed in other
 orders (the JAX side partly in fp64 under its x64 mode) through two
 layers and a 256-way head.  Token streams must be IDENTICAL.
+
+The int8 executors (``quant="int8"``: per-channel int8 projections and
+an int8 KV pool with per-page scales) are held to the same tolerance
+and the same stream identity: the quantized weights are bit-identical
+(``tests/test_torch_quant.py``), and the rest is the same fp32
+arithmetic in another order.  The port's own int8-vs-none drift of the
+prefill logits stays under a relative RMS of 0.05, the bound of
+``tests/test_quant.py::test_int8_logit_drift_bound``.
 """
 import subprocess
 import sys
@@ -66,10 +74,27 @@ def _close(got, want):
 def test_executor_logits_match(pair):
     """prefill, prefill_chunk and decode logits (and the KV they write)
     agree with the JAX programs on the same weights and tokens."""
-    model, cfg, params = pair
-    jex = JaxExecutor(model, dtype=jnp.float32, **ENGINE_KW)
+    _check_executor_logits(*pair, quant="none")
+
+
+def test_int8_executor_logits_match(pair):
+    """The same on the int8 executors: quantized projections
+    bit-identical, then prefill, prefill_chunk and decode logits within
+    atol 1e-4 and the same greedy tokens."""
+    _check_executor_logits(*pair, quant="int8")
+
+
+def _check_executor_logits(model, cfg, params, quant):
+    jex = JaxExecutor(model, dtype=jnp.float32, quant=quant, **ENGINE_KW)
     pex = PagedExecutor(cfg, params, dtype=torch.float32, device="cpu",
-                        **ENGINE_KW)
+                        quant=quant, **ENGINE_KW)
+    for name, w in pex.layers.items():
+        if isinstance(w, dict):
+            for part in ("qweight", "scale"):
+                np.testing.assert_array_equal(
+                    w[part].numpy(), np.asarray(jex.layers[name][part]))
+    assert isinstance(pex.layers["mlp.up_proj.weight"], dict) == \
+        (quant == "int8")
     ids = np.random.RandomState(0).randint(1, 256, (13,)).astype(np.int32)
 
     # whole-prompt prefill
@@ -87,6 +112,7 @@ def test_executor_logits_match(pair):
     past_j = jex.cache.gather_dense(sj, 5)
     past_p = pex.cache.gather_dense(sp, 5)
     _close(past_p[0], past_j[0])
+    _close(past_p[1], past_j[1])
     jl, _, _ = jex._jit_chunk(jex.layers, jex.tops, jnp.asarray(ids[None, 5:]),
                               jnp.int32(5), *past_j, jnp.int32(5))
     with torch.no_grad():
@@ -103,7 +129,7 @@ def test_executor_logits_match(pair):
         n = int(jex.cache.lengths[sj])
         jl, _, _ = jex._decode_fwd(
             jex.layers, jex.tops, jnp.asarray([jex.last_token[sj]]),
-            jnp.asarray([n]), jex.cache.k_pages, jex.cache.v_pages,
+            jnp.asarray([n]), *jex._pools(),
             jnp.asarray(jex.cache.lengths[[sj]]),
             jnp.asarray(np.maximum(jex.cache.page_table[[sj]], 0)))
         tables, lengths = pex.cache.tables([sp])
@@ -112,6 +138,7 @@ def test_executor_logits_match(pair):
                                  lengths.long(), lengths, tables)
         _close(pl, jl)
         assert jex.decode([sj]) == pex.decode([sp])
+    assert pex.prefill_events == [(sp, 5), (sp, 8)]
 
 
 def _streams(handles):
@@ -138,9 +165,16 @@ SPEC = dict(n_requests=6, mean_interarrival=1.5, prompt_len=(4, 24),
 
 
 def test_greedy_streams_match_with_chunked_prefill(untied):
-    model, cfg, params = untied
+    _check_chunked_prefill_streams(*untied, quant="none")
+
+
+def test_int8_greedy_streams_match_with_chunked_prefill(pair):
+    _check_chunked_prefill_streams(*pair, quant="int8")
+
+
+def _check_chunked_prefill_streams(model, cfg, params, quant):
     jout, pout = _serve_both(model, cfg, params, SPEC, prefill_chunk=5,
-                             **ENGINE_KW)
+                             quant=quant, **ENGINE_KW)
     assert _streams(pout["handles"]) == _streams(jout["handles"])
     assert all(h.state.value == "finished"
                for h in pout["handles"].values())
@@ -151,13 +185,42 @@ def test_greedy_streams_match_under_preemption(untied):
     """A pool of 8 four-token pages for two slots: decode runs the pool
     dry, victims are preempted and recomputed, and both packages make
     the same choices and emit the same tokens."""
-    model, cfg, params = untied
+    _check_preemption_streams(*untied, quant="none")
+
+
+def test_int8_greedy_streams_match_under_preemption(untied):
+    """The same on the int8 engines: a preempted request's pages are
+    freed with their scales and re-quantized on recompute."""
+    _check_preemption_streams(*untied, quant="int8")
+
+
+def _check_preemption_streams(model, cfg, params, quant):
     spec = dict(SPEC, prompt_len=(10, 20), max_new=(8, 14), seed=5)
     jout, pout = _serve_both(model, cfg, params, spec, num_pages=8,
-                             prefill_chunk=8, **ENGINE_KW)
+                             prefill_chunk=8, quant=quant, **ENGINE_KW)
     assert pout["stats"]["preemptions"] > 0
     assert pout["stats"]["preemptions"] == jout["stats"]["preemptions"]
     assert _streams(pout["handles"]) == _streams(jout["handles"])
+
+
+def test_int8_logit_drift_bound(pair):
+    """The port's int8 prefill logits stay within a relative RMS of 0.05
+    of its own unquantized forward, finite, on three seeded prompts."""
+    _, cfg, params = pair
+    exs = {q: PagedExecutor(cfg, params, dtype=torch.float32, device="cpu",
+                            quant=q, **ENGINE_KW) for q in ("none", "int8")}
+    rng = np.random.RandomState(5)
+    worst = 0.0
+    for _ in range(3):
+        ids = torch.as_tensor(rng.randint(1, 256, (1, 16)))
+        with torch.no_grad():
+            ln, lq = (exs[q]._prefill_fwd(ids)[0].double()
+                      for q in ("none", "int8"))
+        assert torch.isfinite(lq).all()
+        rel = float(torch.sqrt(torch.mean((ln - lq) ** 2))
+                    / (torch.sqrt(torch.mean(ln ** 2)) + 1e-12))
+        worst = max(worst, rel)
+    assert 0 < worst < 0.05, worst
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
@@ -169,6 +232,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.ops.kernels.paged_decode\n"
         "import paddle_tpu_torch.ops.kernels.rms_norm\n"
         "import paddle_tpu_torch.ops.kernels.long_attention\n"
+        "import paddle_tpu_torch.ops.kernels.quant_matmul\n"
+        "import paddle_tpu_torch.ops.quant\n"
         "import paddle_tpu_torch.nn, paddle_tpu_torch.models.training\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu', 'triton'))\n"
@@ -224,6 +289,23 @@ def test_entry_points_default_to_cuda(untied, entry):
     make = _entry_points(cfg, params)[entry]
     if torch.cuda.is_available():
         assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+@pytest.mark.parametrize("layer", ["Linear", "Embedding", "RMSNorm"])
+def test_nn_layers_default_to_cuda(layer):
+    """The building blocks resolve ``device=None`` as every entry point
+    does: CUDA, raising where there is none; ``device="cpu"`` builds."""
+    from paddle_tpu_torch import nn as pnn
+
+    make = {"Linear": lambda **kw: pnn.Linear(4, 3, **kw),
+            "Embedding": lambda **kw: pnn.Embedding(5, 3, **kw),
+            "RMSNorm": lambda **kw: pnn.RMSNorm(3, 1e-6, **kw)}[layer]
+    assert make(device="cpu").weight.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make().weight.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
