@@ -9,7 +9,9 @@ that ``paddle_tpu`` wrote in Pallas written again by hand for Hopper
 
 Covered so far: greedy Llama serving through the paged engine
 (``inference.server.ServingEngine``), whose decode attention is the
-hand-written CUDA kernel ``ops.kernels.paged_decode``; and Llama
+hand-written CUDA kernel ``ops.kernels.paged_decode``, and its int8
+mode (``quant="int8"``: ``ops.quant``, with the hand-written
+``ops.kernels.quant_matmul`` and ``paged_decode_quant``); and Llama
 training (``models.LlamaForCausalLM`` with ``models.CompiledTrainStep``,
 AdamW), whose fused RMSNorm and causal attention, forward and backward,
 are the hand-written CUDA kernels ``ops.kernels.rms_norm`` and

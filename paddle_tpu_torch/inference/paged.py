@@ -161,10 +161,13 @@ class PagedKVCache:
         if self.k_scales is not None:
             row = self.page_table[seq]
             pos = np.arange(start, start + T)
-            pids = torch.as_tensor(row[pos // ps], device=self.device)
-            offs = torch.as_tensor(pos % ps, device=self.device)
-            _quant.kv_write(self._kv_pages, self._kv_scales, pids, offs,
-                            torch.stack([k, v]))
+            pids = row[pos // ps]
+            _quant.kv_write(self._kv_pages, self._kv_scales,
+                            torch.as_tensor(pids, device=self.device),
+                            torch.as_tensor(pos % ps, device=self.device),
+                            torch.stack([k, v]),
+                            torch.as_tensor(np.unique(pids),
+                                            device=self.device))
             self.lengths[seq] = start + T
             return
         k = k.to(self.k_pages.dtype)

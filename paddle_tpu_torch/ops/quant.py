@@ -133,7 +133,7 @@ def qmatmul(x, qlin):
 # -- KV pages: per-page symmetric int8 with scatter-max requantize ------------
 
 
-def kv_write(pages, scales, pids, offs, vals):
+def kv_write(pages, scales, pids, offs, vals, pages_touched=None):
     """Quantize-on-write into int8 KV pages, IN PLACE.
 
     ``pages``: int8 ``[..., num_pages, page_size, head_dim]``;
@@ -147,21 +147,32 @@ def kv_write(pages, scales, pids, offs, vals):
     2. requantize the touched pages' resident cells by ``s_old /
        s_new`` (a ratio of 1 where the scale did not grow), read before
        anything is written, so duplicate ids write identical blocks;
-    3. write the new cells quantized at the settled scale."""
-    pids = pids.to(device=pages.device, dtype=torch.long)
-    offs = offs.to(device=pages.device, dtype=torch.long)
+    3. write the new cells quantized at the settled scale.
+
+    ``pages_touched``, the distinct ids of ``pids`` when the caller knows
+    them, makes step 2 requantize each page once instead of once per
+    token (a 512-token span then gathers 33 pages, not 512): the same
+    bits, since duplicate ids requantize identical blocks."""
+    dev = pages.device
+    pids = pids.to(device=dev, dtype=torch.long)
+    offs = offs.to(device=dev, dtype=torch.long)
+    upids = (pids if pages_touched is None
+             else pages_touched.to(device=dev, dtype=torch.long))
     v32 = vals.to(torch.float32)
-    s_old = scales[..., pids]                                  # [..., T]
+    s_old = scales[..., upids]
     needed = v32.abs().amax(dim=-1) / QMAX                     # [..., T]
     scales.scatter_reduce_(-1, pids.expand_as(needed), needed,
                            reduce="amax", include_self=True)
-    s_new = scales[..., pids]
+    s_new = scales[..., upids]
     live = s_new > 0
     safe = torch.where(live, s_new, 1.0)
     ratio = torch.where(live, s_old / safe, 1.0)
-    touched = pages[..., pids, :, :].to(torch.float32)
+    touched = pages[..., upids, :, :].to(torch.float32)
     requant = torch.round(touched * ratio[..., None, None])
-    pages[..., pids, :, :] = requant.clamp_(-QMAX, QMAX).to(torch.int8)
+    pages[..., upids, :, :] = requant.clamp_(-QMAX, QMAX).to(torch.int8)
+    if pages_touched is not None:               # the settled scale per token
+        s_tok = scales[..., pids]
+        safe = torch.where(s_tok > 0, s_tok, 1.0)
     q = torch.round(v32 / safe[..., None])
     pages[..., pids, offs, :] = q.clamp_(-QMAX, QMAX).to(torch.int8)
     return pages, scales

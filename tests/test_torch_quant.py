@@ -265,3 +265,22 @@ def test_int8_executor_holds_no_dense_projection():
                                        ex.cache.num_pages)
     # the caller's dense weights are left alone
     assert params["layers"]["mlp.down_proj.weight"].dtype == torch.float32
+
+
+def test_kv_write_with_distinct_pages_is_bit_identical():
+    """Requantizing each touched page once (``pages_touched``) gives the
+    bits of the per-token form, which is JAX's."""
+    rng = np.random.RandomState(6)
+    pages, scales = _kv_case(rng, (2, 2))
+    pages[...] = rng.randint(-127, 128, pages.shape)
+    scales[...] = np.abs(rng.randn(*scales.shape)) / 127
+    pids, offs = [3, 3, 3, 1, 1, 5, 5], [1, 2, 3, 0, 1, 0, 1]
+    vals = (rng.randn(2, 2, 7, 8) * 3).astype(np.float32)
+    jp, js = jq.kv_write(jnp.asarray(pages), jnp.asarray(scales),
+                         jnp.asarray(pids, jnp.int32),
+                         jnp.asarray(offs, jnp.int32), jnp.asarray(vals))
+    tp, ts = torch.from_numpy(pages.copy()), torch.from_numpy(scales.copy())
+    tq.kv_write(tp, ts, torch.tensor(pids), torch.tensor(offs),
+                torch.from_numpy(vals), torch.tensor(sorted(set(pids))))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))

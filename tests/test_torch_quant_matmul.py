@@ -130,3 +130,26 @@ def test_kernel_matches_plain_on_card(cuda_device, M, K, N, dtype):
     rtol = 0.0 if dtype == "float32" else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_on_unaligned_layer_slice(cuda_device, M, dtype):
+    """A layer of a stacked [L, K, N] weight whose K * N is odd starts
+    at an odd byte: the kernel falls back to narrow loads there (same
+    tolerances as above)."""
+    K, N = 101, 37
+    x, qw, s = _case(M + 5, M, K, N)
+    stacked = torch.zeros(2, K, N, dtype=torch.int8)
+    stacked[1] = torch.from_numpy(qw)
+    w = stacked.to(cuda_device)[1]
+    assert w.data_ptr() % 4 != 0
+    args = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype)), w,
+            torch.from_numpy(s).to(cuda_device))
+    got = qm.quant_matmul(*args)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul_reference(*args)
+    rtol = 0.0 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-4)
