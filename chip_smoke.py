@@ -21,6 +21,15 @@ result):
              bf16 and f32 x, and paged decode over int8 pages at the
              decode shapes of 3, each against its plain version, then
              timed as in 3.
+3e. short kernels — short-sequence attention forward (out, its fp32
+             copy, lse) and backward against the plain version at the
+             BERT-base shape [48, 12, 384, 64] bf16 with p = 0.1 and 0,
+             [4, 12, 384, 64] fp32, Llama's [4, 32, 512, 128] bf16 causal
+             and the edges S = 1024 and S = 128; then the dropout mask
+             itself (S = D = 128, p = 0.5, v = I and g = I: the zero
+             patterns of out and dv equal the plain version's exactly);
+             timed at the BERT shape beside the bound, the plain version
+             and SDPA with dropout.
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
              from seed 0 made on the card, 16 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
@@ -44,10 +53,26 @@ result):
              must be finite and fall; each kernel must launch exactly as
              often per step as full recompute implies.  6b profiles one
              step with torch.profiler.
+6c. train S=512 — Llama-2-7B width x 2 layers at B=4, S=512 (the short
+             kernel's causal region), full recompute: 2 timed steps with
+             exactly 2L forward and L backward short-attention launches
+             per step and none of the long kernel.
 7. train parity — 2 layers at a narrow width that still takes the
              attention kernel (S=1024, D=128, H == KV), fp32: 3 steps on
              the card (kernels) and on the CPU (plain versions) from the
              same weights give losses within 1e-4 relative.
+8. bert train — BERT-base SQuAD fine-tuning as bench.py's BASELINE
+             config 2 sets it: BertForQuestionAnswering(BertConfig.base())
+             at full width and depth, B=48, S=384, bf16 compute, fp32
+             master and moments, lr 3e-5, remat off, dropout 0.1 / 0.1,
+             ids and spans from RandomState(0): one warm-up step and 5
+             timed ones, every loss finite, exactly 12 forward and 12
+             backward short-attention launches per step and no long ones.
+             8b profiles one step with torch.profiler.
+9. bert parity — 2 layers, hidden 256, 4 heads (D = 64), S = 256, B = 2,
+             fp32, dropout 0: 3 steps on the card (the short kernel) and
+             on the CPU (the einsum path) from the same weights give
+             losses within 1e-4 relative.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -109,11 +134,15 @@ def phase_build():
                 f"{e['smem']} bytes static shared memory, spill stores/"
                 f"loads {e['spill_st']}/{e['spill_ld']} bytes")
     log(f"[build] all kernels in {wall:.1f} s")
-    from paddle_tpu_torch.ops.kernels import long_attention, rms_norm
+    from paddle_tpu_torch.ops.kernels import (
+        long_attention, rms_norm, short_attention,
+    )
 
     log(f"[build] dynamic shared memory per block: "
         f"{long_attention.smem_bytes()} (long_attention), "
-        f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096)")
+        f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096), "
+        f"{short_attention.smem_bytes(64)} (short_attention D=64), "
+        f"{short_attention.smem_bytes(128)} (short_attention D=128)")
 
 
 def _ptxas_entries(text):
@@ -125,7 +154,7 @@ def _ptxas_entries(text):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             # <len><name>_kernel<template args>Ev: keep name and args
-            short = re.search(r"\d((?:attn|rms_norm|paged_decode|qmm)"
+            short = re.search(r"\d((?:attn|sattn|rms_norm|paged_decode|qmm)"
                               r"\w*?_kernel)(I\w*?E)?E", m.group(1))
             cur = {"name": (short.group(1) + (short.group(2) or ""))
                    if short else m.group(1),
@@ -957,15 +986,20 @@ TRAIN_RUN = dict(batch=4, seq=2048, steps=5, lr=1e-4)
 def _train_counters():
     from paddle_tpu_torch.ops.kernels import long_attention as la
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.ops.kernels import short_attention as sa
 
     return {"rms_norm_fwd": rn.rms_norm_fwd, "rms_norm_bwd": rn.rms_norm_bwd,
             "attention_fwd": la.attention_fwd,
-            "attention_bwd": la.attention_bwd}
+            "attention_bwd": la.attention_bwd,
+            "short_attention_fwd": sa.short_attention_fwd,
+            "short_attention_bwd": sa.short_attention_bwd}
 
 
-def phase_train(device, limit, cfg=None, run=None):
+def phase_train(device, limit, cfg=None, run=None, tag="train"):
     """Llama-2-7B width x 8 layers: one warm-up step and ``steps`` timed
-    ones.  Returns ({kernel: launches over all steps}, step, batch)."""
+    ones.  Returns ({kernel: launches over all steps}, step, batch).
+    Attention takes the long kernel at S >= 1024 and the short one
+    below, 2L forward and L backward launches per step either way."""
     from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.models import (
         CompiledTrainStep, LlamaConfig, LlamaForCausalLM,
@@ -989,14 +1023,18 @@ def phase_train(device, limit, cfg=None, run=None):
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    log(f"[train] {L} layers, hidden {cfg.hidden_size}, "
+    log(f"[{tag}] {L} layers, hidden {cfg.hidden_size}, "
         f"{cfg.num_attention_heads} heads, D {cfg.head_dim}, intermediate "
         f"{cfg.intermediate_size}, vocab {cfg.vocab_size}: "
         f"{nparams / 1e9:.3f} B parameters, bf16 compute, fp32 master, "
         f"bf16 moments, built in {time.perf_counter() - t0:.1f} s")
     counters = _train_counters()
+    long = S >= 1024
     per_step = {"rms_norm_fwd": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
-                "attention_fwd": 2 * L, "attention_bwd": L}
+                "attention_fwd": 2 * L if long else 0,
+                "attention_bwd": L if long else 0,
+                "short_attention_fwd": 0 if long else 2 * L,
+                "short_attention_bwd": 0 if long else L}
     for f in counters.values():
         f.launches = 0
     losses, step_ms = [], []
@@ -1009,22 +1047,22 @@ def phase_train(device, limit, cfg=None, run=None):
         if i:
             step_ms.append(ms)
         got = {k: f.launches - before[k] for k, f in counters.items()}
-        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+        log(f"[{tag}] step {i}{' (warm-up)' if i == 0 else ''}: loss "
             f"{loss:.6f}, {ms:.1f} ms, launches {got}")
         if on_card and got != per_step:
-            raise AssertionError(f"[train] step {i} launched {got}, expected "
+            raise AssertionError(f"[{tag}] step {i} launched {got}, expected "
                                  f"{per_step} (full recompute: every layer "
                                  f"forward runs twice)")
     launches = {k: f.launches for k, f in counters.items()}
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] losses {losses}: not finite and "
+        raise AssertionError(f"[{tag}] losses {losses}: not finite and "
                              "falling")
     mean_ms = float(np.mean(step_ms))
     tokens = B * S
     mfu = model.flops_per_token(S) * tokens / (mean_ms / 1e3) / BF16_FLOPS
     peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
             else float("nan"))
-    log(f"[train] B={B} S={S}: step {mean_ms:.1f} ms (mean of {n}; "
+    log(f"[{tag}] B={B} S={S}: step {mean_ms:.1f} ms (mean of {n}; "
         f"{', '.join(f'{m:.1f}' for m in step_ms)}) | "
         f"{tokens / (mean_ms / 1e3):.1f} tokens/s | MFU {mfu:.4f} "
         f"(6N + 12LhS = {model.flops_per_token(S):.4e} flops/token over "
@@ -1102,7 +1140,9 @@ def phase_train_parity(device, steps=3):
         launched = {k: f.launches - before[k] for k, f in counters.items()}
         log(f"[train-parity] {dev.type}: losses {losses[dev.type]}, kernel "
             f"launches {launched}")
-        if dev.type == "cuda" and not all(launched.values()):
+        used = ("rms_norm_fwd", "rms_norm_bwd", "attention_fwd",
+                "attention_bwd")
+        if dev.type == "cuda" and not all(launched[k] for k in used):
             raise AssertionError("[train-parity] the card run missed a "
                                  f"kernel: {launched}")
     got, want = np.array(losses[device.type]), np.array(losses["cpu"])
@@ -1114,12 +1154,393 @@ def phase_train_parity(device, steps=3):
         raise AssertionError(f"[train-parity] losses differ: {losses}")
 
 
+# -- phase 3e: the short-attention kernels -------------------------------------
+
+def short_attention_bounds(B, H, S, D, elem_bytes, causal=False):
+    """(fwd, bwd) (bound_ms, bound_by): 4·B·H·S²·D flops forward and
+    10·B·H·S²·D backward (two and five [S, S, D] products), halved when
+    causal, over the bf16 tensor-core rate (fp32 inputs: the fp32 rate),
+    against the function's inputs read and outputs written once (fwd: q,
+    k, v in, out and lse out; bwd: q, k, v, g and lse in, dq, dk, dv
+    out) over HBM rate."""
+    rate = BF16_FLOPS if elem_bytes == 2 else FP32_FLOPS
+    one = B * H * S * D * elem_bytes
+    frac = 0.5 if causal else 1.0
+    out = []
+    for flops, nbytes in ((4, 4 * one + 4 * B * H * S),
+                          (10, 7 * one + 4 * B * H * S)):
+        to = flops * B * H * S * S * D * frac / rate * 1e3
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append((to, "operations") if to >= tb else (tb, "bytes"))
+    return out
+
+
+#: (label, B, H, S, D, dtype, causal, dropout_p)
+SHORT_CASES = [
+    ("bert-base p=0.1", 48, 12, 384, 64, torch.bfloat16, False, 0.1),
+    ("bert-base p=0", 48, 12, 384, 64, torch.bfloat16, False, 0.0),
+    ("bert-width fp32 p=0.1", 4, 12, 384, 64, torch.float32, False, 0.1),
+    ("llama S=512 causal", 4, 32, 512, 128, torch.bfloat16, True, 0.0),
+    ("S=1024 causal p=0.1", 2, 4, 1024, 128, torch.bfloat16, True, 0.1),
+    ("S=128 causal p=0.5 fp32", 2, 4, 128, 64, torch.float32, True, 0.5),
+]
+
+
+def phase_short_kernels(device, iters=20):
+    """Both short-attention kernels against their plain versions on the
+    card at the BERT, Llama S=512 and edge shapes, the dropout mask held
+    exactly, then timed at the BERT shape.  Returns their two rows."""
+    from paddle_tpu_torch.ops.kernels import short_attention as sa
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8642)
+    f32 = torch.float32
+    before = (sa.short_attention_fwd.launches,
+              sa.short_attention_bwd.launches)
+    seed = torch.tensor([-1234567891], dtype=torch.int32, device=device)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    kernel_ms = {}
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+    for label, B, H, S, D, dt, causal, p in SHORT_CASES:
+        q, k, v, g = (torch.randn(B, H, S, D, generator=gen, device=device)
+                      .to(dt) for _ in range(4))
+        scale = 1.0 / np.sqrt(D)
+        out, lse, out32 = sa.short_attention_fwd(q, k, v, seed, scale, p,
+                                                 causal, f32_out=True)
+        grads = sa.short_attention_bwd(q, k, v, out32, lse, g, seed, scale,
+                                       p, causal)
+        torch.cuda.synchronize()
+        wout, wlse, wout32 = sa.short_attention_fwd_reference(
+            q, k, v, seed, scale, p, causal, f32_out=True)
+        tag = f"{label} [{B}, {H}, {S}, {D}] {dt}"
+        if not torch.equal(out == 0, wout == 0):
+            raise AssertionError(f"[kernels] short_attention_fwd {tag}: the "
+                                 "zeros of out differ from the plain "
+                                 "version's (another dropout mask)")
+        if dt == f32:
+            tol, why = (2e-5, 0.0), "fp32 throughout, other summation order"
+            gtol, gwhy = (1e-4, 0.0), why
+        else:
+            tol, why = (2e-3, 2 ** -7), BF16_WHY
+            gtol = (5e-3, 2 ** -6)
+            gwhy = f"bf16 outputs of sums over up to {S} fp32 terms"
+        e = _hold(f"short_attention_fwd out {tag}", out, wout, *tol, why)
+        _hold(f"short_attention_fwd out32 {tag}", out32, wout32, 2e-5, 0.0,
+              "fp32 from the same widened inputs, other summation order")
+        _hold(f"short_attention_fwd lse {tag}", lse, wlse, 2e-5, 0.0,
+              "fp32, other summation order")
+        errs["fwd"] = max(errs["fwd"], e)
+        del wout, wlse, wout32
+        torch.cuda.empty_cache()
+        wgrads = sa.short_attention_bwd_reference(q, k, v, out32, lse, g,
+                                                  seed, scale, p, causal)
+        for n, a, w_ in zip(("dq", "dk", "dv"), grads, wgrads):
+            errs["bwd"] = max(errs["bwd"], _hold(
+                f"short_attention_bwd {n} {tag}", a, w_, *gtol, gwhy))
+        del wgrads
+        kernel_ms[label] = (
+            time_ms(lambda: sa.short_attention_fwd(q, k, v, seed, scale, p,
+                                                   causal), flush, iters),
+            time_ms(lambda: sa.short_attention_bwd(q, k, v, out32, lse, g,
+                                                   seed, scale, p, causal),
+                    flush, iters))
+        fb, bb = short_attention_bounds(B, H, S, D, q.element_size(), causal)
+        log(f"[kernels] short_attention time at {tag} causal={causal} "
+            f"p={p}: fwd {kernel_ms[label][0]:.4f} ms (bound {fb[0]:.4f}, "
+            f"{100 * fb[0] / kernel_ms[label][0]:.1f}%), bwd "
+            f"{kernel_ms[label][1]:.4f} ms (bound {bb[0]:.4f}, "
+            f"{100 * bb[0] / kernel_ms[label][1]:.1f}%)")
+        del q, k, v, g, out, lse, out32, grads
+        torch.cuda.empty_cache()
+
+    # the mask itself: v = I makes out the dropped probability matrix, and
+    # g = I makes dv its transpose
+    S = D = 128
+    q, k = (torch.randn(2, 4, S, D, generator=gen, device=device)
+            for _ in range(2))
+    eye = torch.eye(S, device=device).expand(2, 4, S, S).contiguous()
+    out, lse, out32 = sa.short_attention_fwd(q, k, eye, seed, 1 / np.sqrt(D),
+                                             0.5, False, f32_out=True)
+    _, _, dv = sa.short_attention_bwd(q, k, eye, out32, lse, eye, seed,
+                                      1 / np.sqrt(D), 0.5, False)
+    torch.cuda.synchronize()
+    wout, _ = sa.short_attention_fwd_reference(q, k, eye, seed,
+                                               1 / np.sqrt(D), 0.5, False)
+    _, _, wdv = sa.short_attention_bwd_reference(q, k, eye, out32, lse, eye,
+                                                 seed, 1 / np.sqrt(D), 0.5,
+                                                 False)
+    keep = sa.keep_mask(seed, 2, 4, S, 0.5)
+    ok = (torch.equal(out == 0, wout == 0) and torch.equal(out == 0, ~keep)
+          and torch.equal(dv == 0, wdv == 0)
+          and torch.equal(dv == 0, ~keep.transpose(-1, -2)))
+    log(f"[kernels] short_attention dropout mask at S = D = 128, p = 0.5, "
+        f"seed {int(seed)}: zeros of out (v = I) and of dv (g = I) equal "
+        f"the plain version's exactly: {ok} (kept share "
+        f"{keep.float().mean().item():.4f})")
+    if not ok:
+        raise AssertionError("[kernels] short_attention: the kernel's "
+                             "dropout mask differs from the plain version's")
+
+    # timing at the BERT shape, bf16, p = 0.1: kernel, plain, SDPA
+    label, B, H, S, D, dt, causal, p = SHORT_CASES[0]
+    q, k, v, g = (torch.randn(B, H, S, D, generator=gen, device=device)
+                  .to(dt) for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+    out, lse, out32 = sa.short_attention_fwd(q, k, v, seed, scale, p, causal,
+                                             f32_out=True)
+    ql, kl, vl = (a.detach().requires_grad_(True) for a in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=p)
+    times = {
+        "short_attention_fwd": [time_ms(f, flush, iters) for f in (
+            lambda: sa.short_attention_fwd(q, k, v, seed, scale, p, causal),
+            lambda: sa.short_attention_fwd_reference(q, k, v, seed, scale, p,
+                                                     causal),
+            lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=p))],
+        "short_attention_bwd": [time_ms(f, flush, iters) for f in (
+            lambda: sa.short_attention_bwd(q, k, v, out32, lse, g, seed,
+                                           scale, p, causal),
+            lambda: sa.short_attention_bwd_reference(
+                q, k, v, out32, lse, g, seed, scale, p, causal),
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
+                                        retain_graph=True))],
+    }
+    del q, k, v, g, out, lse, out32, ql, kl, vl, ol, flush
+    torch.cuda.empty_cache()
+    sa.short_attention_fwd.launches, sa.short_attention_bwd.launches = before
+
+    bounds = short_attention_bounds(B, H, S, D, 2, causal)
+    lib = {"short_attention_fwd": "scaled_dot_product_attention, "
+                                  f"dropout_p={p}, its own RNG",
+           "short_attention_bwd": "autograd of scaled_dot_product_attention"
+                                  f" with dropout_p={p}"}
+    rows = []
+    for (name, (ms, plain_ms, library_ms)), (bound, by), line in zip(
+            times.items(), bounds, (139, 163)):
+        log(f"[kernels] {name} time at [{B}, {H}, {S}, {D}] bf16 p={p}: "
+            f"kernel {ms:.4f} ms | bound {bound:.4f} ms ({by}) | plain "
+            f"{plain_ms:.4f} ms | library_ms {library_ms:.4f} ms "
+            f"({lib[name]}) | {100 * bound / ms:.1f}% of bound")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/short_attention.cu",
+                     "replaces": "paddle_tpu/ops/pallas_kernels/"
+                                 f"short_attention.py:{line}",
+                     "max_abs_err": errs[name[-3:]], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": library_ms})
+    return rows
+
+
+# -- phase 8: BERT-base SQuAD fine-tuning ---------------------------------------
+
+BERT_RUN = dict(batch=48, seq=384, steps=5, lr=3e-5)
+
+
+class QATrain(torch.nn.Module):
+    """bench.py's QA wrapper: ``(ids, starts, ends) -> loss``."""
+
+    def __init__(self, cfg, device, seed=0):
+        super().__init__()
+        from paddle_tpu_torch.models import BertForQuestionAnswering
+
+        self.qa = BertForQuestionAnswering(cfg, device=device, seed=seed)
+
+    def forward(self, ids, starts, ends):
+        return self.qa(ids, start_positions=starts, end_positions=ends)
+
+
+def _bert_batch(vocab, B, S, device, seed=0):
+    """ids and span labels as bench.py draws them (int32)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (B, S)).astype(np.int32)
+    starts = rng.randint(0, S, (B,)).astype(np.int32)
+    ends = rng.randint(0, S, (B,)).astype(np.int32)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (ids, starts, ends))
+
+
+def phase_bert_train(device, limit, cfg=None, run=None):
+    """BERT-base QA fine-tuning at bench.py's settings: one warm-up step
+    and ``steps`` timed ones.  Returns ({kernel: launches over all
+    steps}, step, batch)."""
+    from paddle_tpu_torch.models import BertConfig, CompiledTrainStep
+
+    cfg = cfg or BertConfig.base()
+    run = dict(BERT_RUN, **(run or {}))
+    B, S, n = run["batch"], run["seq"], run["steps"]
+    L = cfg.num_hidden_layers
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    model = QATrain(cfg, device)
+    model.train()
+    step = CompiledTrainStep(model, lr=run["lr"], compute_dtype="bfloat16",
+                             device=device)
+    bert = model.qa.bert
+    batch = _bert_batch(cfg.vocab_size, B, S, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"[bert] {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, D "
+        f"{cfg.hidden_size // cfg.num_attention_heads}, intermediate "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}: "
+        f"{bert.num_params() / 1e6:.3f} M encoder parameters, bf16 compute, "
+        f"fp32 master and moments, dropout {cfg.hidden_dropout_prob} / "
+        f"{cfg.attention_probs_dropout_prob}, remat off, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counters = _train_counters()
+    per_step = {k: 0 for k in counters}
+    per_step.update(short_attention_fwd=L, short_attention_bwd=L)
+    for f in counters.values():
+        f.launches = 0
+    losses, step_ms = [], []
+    for i in range(n + 1):
+        before = {k: f.launches for k, f in counters.items()}
+        t1 = time.perf_counter()
+        loss = float(step.step(*batch))       # float() synchronises
+        ms = (time.perf_counter() - t1) * 1e3
+        losses.append(loss)
+        if i:
+            step_ms.append(ms)
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        log(f"[bert] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{loss:.6f}, {ms:.1f} ms, short-attention launches "
+            f"{got['short_attention_fwd']} fwd / {got['short_attention_bwd']}"
+            f" bwd")
+        if on_card and got != per_step:
+            raise AssertionError(f"[bert] step {i} launched {got}, expected "
+                                 f"{per_step} (one short-attention forward "
+                                 f"and backward per layer, no remat)")
+    launches = {k: f.launches for k, f in counters.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[bert] losses {losses}: not all finite")
+    mean_ms = float(np.mean(step_ms))
+    tokens = B * S
+    fpt = bert.flops_per_token(S)
+    mfu = fpt * tokens / (mean_ms / 1e3) / BF16_FLOPS
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    log(f"[bert] B={B} S={S}: step {mean_ms:.1f} ms (mean of {n}; "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)}) | "
+        f"{B / (mean_ms / 1e3):.1f} sequences/s | "
+        f"{tokens / (mean_ms / 1e3):.1f} tokens/s | MFU {mfu:.4f} "
+        f"(6N + 12LhS = {fpt:.4e} flops/token over "
+        f"{BF16_FLOPS / 1e12:g} TFLOP/s bf16) | peak memory {peak:.2f} GiB | "
+        f"losses {losses} | {limit}")
+    return launches, step, batch
+
+
+def phase_bert_profile(step, batch):
+    """One traced BERT step: device time of the short kernels, cuBLAS,
+    the forward's LayerNorms and dropouts, AdamW and the rest, and the
+    idle share.  LayerNorm, dropout and the AdamW update are marked with
+    ``record_function`` ranges for the traced step only."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.ops import nn_ops
+
+    counters = _train_counters()
+    saved = {k: f.launches for k, f in counters.items()}
+    real = {"layer_norm": nn_ops.layer_norm, "dropout": nn_ops.dropout}
+
+    def ranged(name, fn):
+        def f(*a, **kw):
+            with record_function(f"smoke::{name}"):
+                return fn(*a, **kw)
+        return f
+
+    update = step._update
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for name, fn in real.items():
+            setattr(nn_ops, name, ranged(name, fn))
+            stack.callback(setattr, nn_ops, name, fn)
+        step._update = ranged("adamw", update)
+        stack.callback(delattr, step, "_update")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step.step(*batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    for k, f in counters.items():        # the traced step does not count
+        f.launches = saved[k]
+    kinds = {"short_attention_fwd": 0.0, "short_attention_bwd": 0.0,
+             "gemm": 0.0, "other": 0.0}
+    ranges = {"layer_norm": 0.0, "dropout": 0.0, "adamw": 0.0}
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("smoke::"):     # the CPU-side range only
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                ranges[ev.key[7:]] += ev.device_time_total / 1e3
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        name = ev.key.lower()
+        kind = ("short_attention_fwd" if "sattn_fwd" in name else
+                "short_attention_bwd" if ("sattn_bwd" in name
+                                          or "sattn_delta" in name) else
+                "gemm" if any(k in name for k in ("gemm", "cutlass", "xmma",
+                                                  "nvjet", "sm90_"))
+                else "other")
+        kinds[kind] += ms
+        per_kernel[ev.key[:60]] = (ms, ev.count)
+    busy = sum(kinds.values())
+    log(f"[profile-bert] one step traced: {wall:.1f} ms wall | device busy "
+        f"{busy:.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in kinds.items())}"
+        f"; of 'other': forward LayerNorm {ranges['layer_norm']:.1f}, "
+        f"forward dropout {ranges['dropout']:.1f}, AdamW "
+        f"{ranges['adamw']:.1f}) | idle share {1 - busy / wall:.3f}")
+    for name, (ms, calls) in sorted(per_kernel.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile-bert]   {ms:9.2f} ms  {calls:5d} launches  {name}")
+
+
+def phase_bert_parity(device, steps=3):
+    """The same BERT weights trained on the card (the short kernel) and
+    on the CPU (the einsum path), fp32, dropout 0."""
+    from paddle_tpu_torch.models import BertConfig, CompiledTrainStep
+
+    cfg = BertConfig(vocab_size=4096, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=1024,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    counters = _train_counters()
+    losses = {}
+    for dev in (device, torch.device("cpu")):
+        model = QATrain(cfg, "cpu", seed=3)
+        step = CompiledTrainStep(model, lr=1e-3, device=dev)
+        before = {k: f.launches for k, f in counters.items()}
+        batch = _bert_batch(cfg.vocab_size, 2, 256, dev, seed=1)
+        losses[dev.type] = [float(step.step(*batch)) for _ in range(steps)]
+        launched = {k: f.launches - before[k] for k, f in counters.items()}
+        log(f"[bert-parity] {dev.type}: losses {losses[dev.type]}, kernel "
+            f"launches {launched}")
+        if dev.type == "cuda" and not (
+                launched["short_attention_fwd"]
+                == launched["short_attention_bwd"]
+                == steps * cfg.num_hidden_layers):
+            raise AssertionError("[bert-parity] the card run did not take "
+                                 f"the short kernel: {launched}")
+    got, want = np.array(losses[device.type]), np.array(losses["cpu"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f"[bert-parity] {steps} fp32 steps, 2 layers, hidden 256, 4 heads, "
+        f"S=256: max relative loss difference card vs CPU {rel:.3e} (limit "
+        f"1e-4: fp32 on both, TF32 off, other summation orders)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"[bert-parity] losses differ: {losses}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside the repo)
+    from paddle_tpu_torch.models import LlamaConfig
 
     t0 = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -1128,6 +1549,7 @@ def main():
     rows = [phase_kernels(device)]
     train_rows = phase_train_kernels(device)
     quant_rows = phase_quant_kernels(device)
+    short_rows = phase_short_kernels(device)
     launches, engine = phase_serve(device)
     rows[0]["launches"] = launches["paged_decode"]
     phase_profile(engine, device)
@@ -1148,7 +1570,20 @@ def main():
     phase_train_profile(step, batch, device)
     del step, batch
     torch.cuda.empty_cache()
+    phase_train(device, limit, tag="train-s512",
+                cfg=LlamaConfig.llama2_7b(num_hidden_layers=2,
+                                          recompute=True),
+                run=dict(batch=4, seq=512, steps=2))
+    torch.cuda.empty_cache()
     phase_train_parity(device)
+    launches, step, batch = phase_bert_train(device, limit)
+    for row in short_rows:
+        row["launches"] = launches[row["name"]]
+    rows += short_rows
+    phase_bert_profile(step, batch)
+    del step, batch
+    torch.cuda.empty_cache()
+    phase_bert_parity(device)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

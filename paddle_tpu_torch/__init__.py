@@ -15,7 +15,11 @@ mode (``quant="int8"``: ``ops.quant``, with the hand-written
 training (``models.LlamaForCausalLM`` with ``models.CompiledTrainStep``,
 AdamW), whose fused RMSNorm and causal attention, forward and backward,
 are the hand-written CUDA kernels ``ops.kernels.rms_norm`` and
-``ops.kernels.long_attention``.
+``ops.kernels.long_attention``; and BERT (``models.BertModel`` and its
+QA, classification and MLM heads, on the ``nn`` transformer encoder),
+fine-tuned through the same train step, whose attention for S <= 1024
+(forward and backward, with ``paddle_tpu``'s hash dropout) is the
+hand-written CUDA kernel ``ops.kernels.short_attention``.
 
 Importing the package is light: it pulls in neither ``triton`` nor the
 kernel build, and never ``jax`` or ``paddle_tpu``.

@@ -1,3 +1,10 @@
+"""Models of the port: Llama (serving parameters and the training
+module) and BERT (the encoder and its QA, classification and MLM heads),
+the AdamW train step, and the numpy weight bridge from ``paddle_tpu``."""
+from .bert import (  # noqa: F401
+    BertConfig, BertForMaskedLM, BertForQuestionAnswering,
+    BertForSequenceClassification, BertModel, init_bert_params,
+)
 from .convert import (  # noqa: F401
     from_numpy_state, load_numpy_state, serving_params,
 )

@@ -44,7 +44,10 @@ def _f32(x):
 
 class CompiledTrainStep:
     """AdamW train step over a module whose ``forward(*batch)`` returns the
-    loss (``LlamaForCausalLM(input_ids, labels)``).
+    loss (``LlamaForCausalLM(input_ids, labels)``, or a wrapper around
+    ``BertForQuestionAnswering`` that passes span labels).  A parameter
+    the loss does not reach (BERT's pooler under the QA head) gets a zero
+    gradient, as ``jax.grad`` gives it.
 
     ``step(*batch) -> loss`` (a 0-dim fp32 tensor on the device; reading
     it synchronises).  The state (module parameters, fp32 master, moments)
@@ -53,13 +56,14 @@ class CompiledTrainStep:
     port does not have yet raise ``NotImplementedError``: ``mesh``,
     ``update_fn``, ``loss_fn``, ``remat=True``,
     ``master_dtype="bfloat16_sr"``, ``multi_step`` and ``guarded_step``
-    (ROADMAP.md Queue 1, item 3)."""
+    (ROADMAP.md Queue 1, item 3).  ``donate`` is accepted and has no
+    effect: the step updates the parameters in place already."""
 
     def __init__(self, model, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
                  weight_decay=0.01, grad_clip_norm=1.0, compute_dtype=None,
                  no_decay_fn=_default_no_decay, moments_dtype="float32",
                  master_dtype="float32", device=None, mesh=None,
-                 update_fn=None, loss_fn=None, remat=False):
+                 update_fn=None, loss_fn=None, remat=False, donate=True):
         for name, value, off in (("mesh", mesh, None),
                                  ("update_fn", update_fn, None),
                                  ("loss_fn", loss_fn, None),
@@ -118,7 +122,8 @@ class CompiledTrainStep:
         return loss.detach()
 
     def _clipped_grads(self):
-        grads = {k: p.grad for k, p in self.params.items()}
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in self.params.items()}
         if self._clip is None:
             return grads
         names = sorted(grads)           # jax.tree.leaves order of a dict

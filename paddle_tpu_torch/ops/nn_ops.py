@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the ops on the serving and training paths.
 
 Counterparts of ``paddle_tpu/ops/nn_ops.py`` (``_rms_norm_plain``,
-``_rope_plain``, ``_sdpa_plain``, ``fused_linear_cross_entropy``,
-``_softmax_ce_plain``) and ``paddle_tpu/ops/activation.py``
-(``_swiglu_plain``), with the same dtype rules, so a bf16 stream rounds
-at the same places in both packages.  Of these, only attention reaches a
-kernel here (``sdpa`` routes long causal sequences to
-``ops.kernels.long_attention``); the rest is plain PyTorch in both
-packages (XLA ops in ``paddle_tpu``).
+``_layer_norm_plain``, ``_rope_plain``, ``_sdpa_plain``, ``dropout_raw``,
+``fused_linear_cross_entropy``, ``_softmax_ce_plain``) and
+``paddle_tpu/ops/activation.py`` (``_swiglu_plain``, ``gelu``), with the
+same dtype rules, so a bf16 stream rounds at the same places in both
+packages.  Of these, only attention reaches a kernel here (``sdpa``
+routes long causal sequences to ``ops.kernels.long_attention`` and
+short ones to ``ops.kernels.short_attention``); the rest is plain
+PyTorch in both packages (XLA ops in ``paddle_tpu``).  Every random draw
+(dropout) takes an explicit ``torch.Generator`` on the tensor's device.
 """
 from __future__ import annotations
 
@@ -69,6 +71,25 @@ def fused_rope(q, k, cos, sin, position_ids=None, neox=True):
     return q * c + rot(q) * s, k * c + rot(k) * s
 
 
+def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the last axis as ``_layer_norm_plain`` computes it:
+    mean and variance in **x's dtype** (a bf16 stream normalises in bf16,
+    its sums accumulated in fp32 by the mean as in jnp), then weight and
+    bias cast to x's dtype, so fp32 norm parameters never promote the
+    stream.  The reciprocal square root is taken in fp32 and rounded
+    once, as XLA rounds its bf16 ``rsqrt``: torch's bf16 ``rsqrt`` on the
+    CPU is off by one bf16 ulp on about a third of its inputs."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((var + epsilon).float()).to(x.dtype)
+    out = (x - mean) * rstd
+    if weight is not None:
+        out = out * weight.to(out.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
 def swiglu(x, y=None):
     """``silu(x) * y``; with one argument, its last axis is split in two."""
     if y is None:
@@ -76,14 +97,51 @@ def swiglu(x, y=None):
     return x * torch.sigmoid(x) * y
 
 
+def gelu(x):
+    """GELU in its exact erf form (``ops.gelu``'s default,
+    ``approximate=False``, which BERT uses), in x's dtype."""
+    return torch.nn.functional.gelu(x)
+
+
+def _need_generator(generator, device, what):
+    if generator is None:
+        raise ValueError(f"{what} draws random numbers: pass an explicit "
+                         "torch.Generator on the tensor's device")
+    if generator.device.type != device.type:
+        raise ValueError(f"{what}: the generator is on "
+                         f"{generator.device}, the tensor on {device}")
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+            generator=None):
+    """Dropout as ``dropout_raw`` applies it.  Training: a Bernoulli keep
+    mask (probability ``1 - p``) drawn from ``generator`` (on x's
+    device), kept entries divided by ``1 - p`` in ``upscale_in_train``
+    and passed as they are in ``downscale_in_infer``; the gradient takes
+    the same mask.  Not training: ``downscale_in_infer`` scales by
+    ``1 - p``, ``upscale_in_train`` is the identity."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"unknown dropout mode {mode!r}")
+    if not training:
+        if mode == "downscale_in_infer" and p > 0.0:
+            return x * (1.0 - p)
+        return x
+    if p == 0.0:
+        return x
+    _need_generator(generator, x.device, "dropout")
+    keep = 1.0 - p
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator).bool()
+    kept = x / keep if mode == "upscale_in_train" else x
+    return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+
+
 # -- attention ----------------------------------------------------------------
 
 #: where ``sdpa`` sends each region JAX gives to a Pallas kernel that is
 #: not ported yet (ROADMAP.md, Queue 2)
 _NOT_PORTED = {
-    "short": "short_attention (S <= 1024, no GQA) is not ported yet: "
-             "ROADMAP.md Queue 2, items 'short_attention._fwd_call_impl' "
-             "and '_bwd_call'",
     "flash": "the stock Pallas flash-attention path (S % 512 == 0, "
              "D % 128 == 0) is not ported yet: ROADMAP.md Queue 2, "
              "'stock flash attention'",
@@ -91,15 +149,16 @@ _NOT_PORTED = {
 
 
 def attention_route(Sq, Sk, H, Hkv, D, causal, has_mask=False,
-                    impl="auto", accelerated=True):
+                    impl="auto", accelerated=True, has_dropout=False):
     """Which attention ``_sdpa_plain`` would run for these shapes:
-    ``"long"`` (the ``long_attention`` kernel), ``"short"``,
-    ``"flash"`` or ``"einsum"``.  ``accelerated`` stands for JAX's
-    ``on_tpu``: the port passes True on CUDA, False on the CPU.  Raises
-    ``ValueError`` where JAX does (``impl="short"`` or ``"flash"`` on
-    shapes those kernels do not take).  The port takes no attention
-    dropout, so JAX's no-dropout conditions always hold."""
-    long_ok = (not has_mask and Sq == Sk
+    ``"long"`` (the ``long_attention`` kernel), ``"short"`` (the
+    ``short_attention`` kernel), ``"flash"`` or ``"einsum"``.
+    ``accelerated`` stands for JAX's ``on_tpu``: the port passes True on
+    CUDA, False on the CPU; ``has_dropout`` for its dropout key (attention
+    dropout in training), which only the short kernel and the einsum path
+    take.  Raises ``ValueError`` where JAX does (``impl="short"`` or
+    ``"flash"`` on shapes those kernels do not take)."""
+    long_ok = (not has_mask and not has_dropout and Sq == Sk
                and D % 128 == 0 and Sq % 256 == 0 and Sq <= 2048
                and Hkv == H and accelerated)
     if impl == "auto" and long_ok and causal and Sq >= 1024:
@@ -114,13 +173,13 @@ def attention_route(Sq, Sk, H, Hkv, D, causal, has_mask=False,
             f"Sq={Sq} Sk={Sk} D={D} H={H} Hkv={Hkv} mask={has_mask}")
     if short_ok and impl in ("auto", "short"):
         return "short"
-    flash_ok = (not has_mask and Sq == Sk
+    flash_ok = (not has_mask and not has_dropout and Sq == Sk
                 and D % 128 == 0 and Sq % 512 == 0 and accelerated)
     if impl == "flash" and not flash_ok:
         raise ValueError(
-            "impl='flash' requires: an accelerator, no attn_mask, Sq == Sk, "
-            f"head_dim % 128 == 0, seq % 512 == 0; got Sq={Sq} Sk={Sk} "
-            f"D={D} mask={has_mask}")
+            "impl='flash' requires: an accelerator, no attn_mask, no "
+            "dropout, Sq == Sk, head_dim % 128 == 0, seq % 512 == 0; got "
+            f"Sq={Sq} Sk={Sk} D={D} mask={has_mask} dropout={has_dropout}")
     if impl == "flash" or (impl == "auto" and flash_ok and causal
                            and Sq >= 1024):
         return "flash"
@@ -132,29 +191,54 @@ def _accelerated(device):
     return device.type == "cuda"
 
 
-def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto"):
+def _seed(generator, device):
+    """One int32 seed for the short kernel's hash dropout, drawn from
+    ``generator`` on ``device`` and left there: the kernel reads it from
+    device memory, so drawing it does not synchronise."""
+    return torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
+                         device=device, generator=generator)
+
+
+def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
+         dropout_p=0.0, generator=None):
     """Scaled dot-product attention on ``[B, S, H, D]`` (the paddle
-    flash-attention layout), GQA when k/v have fewer heads.
+    flash-attention layout), GQA when k/v have fewer heads, with
+    attention dropout at rate ``dropout_p`` (0 outside training) drawn
+    from ``generator`` on q's device.
 
     Routes as ``_sdpa_plain`` does, with "a CUDA tensor" in place of "on
-    a TPU": causal S in [1024, 2048] (S % 256 == 0, D % 128 == 0, the
-    same heads for q and k/v, no mask) goes to the hand-written
-    ``long_attention`` kernel; on CUDA, the regions JAX gives to a kernel
-    not ported yet raise ``NotImplementedError``; the rest is the einsum
-    path, grouped for GQA: scores in q's dtype, then fp32 times the scale,
-    masked, fp32 softmax, probabilities cast to q's dtype.  Dropout is
-    not on this path and not taken."""
+    a TPU": causal S in [1024, 2048] without dropout (S % 256 == 0,
+    D % 128 == 0, the same heads for q and k/v, no mask) goes to the
+    hand-written ``long_attention`` kernel; Sq == Sk <= 1024 (S % 128 ==
+    0, D 64 or 128, no GQA, no mask) to the hand-written
+    ``short_attention`` kernel, whose hash dropout takes an int32 seed
+    drawn from the generator; on CUDA, the stock-flash region raises
+    ``NotImplementedError``; the rest is the einsum path, grouped for
+    GQA: scores in q's dtype, then fp32 times the scale, masked, fp32
+    softmax, probabilities cast to q's dtype, then dropped with a
+    Bernoulli mask from the generator and divided by ``1 - p``."""
     B, Sq, H, D = q.shape
     Hkv, Sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dropout_p = float(dropout_p)
+    if dropout_p > 0.0:
+        _need_generator(generator, q.device, "attention dropout")
     route = attention_route(Sq, Sk, H, Hkv, D, causal,
                             has_mask=mask is not None, impl=impl,
-                            accelerated=_accelerated(q.device))
+                            accelerated=_accelerated(q.device),
+                            has_dropout=dropout_p > 0.0)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # B H S D
     if route == "long":
         from .kernels.long_attention import long_attention
 
         out = long_attention(qt, kt, vt, float(scale), bool(causal))
+        return out.transpose(1, 2)
+    if route == "short":
+        from .kernels.short_attention import short_attention
+
+        seed = _seed(generator, q.device) if dropout_p > 0.0 else None
+        out = short_attention(qt, kt, vt, seed, float(scale), dropout_p,
+                              bool(causal))
         return out.transpose(1, 2)
     if route in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[route])
@@ -175,6 +259,12 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto"):
                     if mask.shape[1] == H else mask[:, :, None])
         logits = logits + mask
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = torch.empty(probs.shape, device=probs.device).bernoulli_(
+            1.0 - dropout_p, generator=generator).bool()
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device))
     if grouped:
         out = torch.einsum("bngqk,bnkd->bngqd", probs, vt)
         out = out.reshape(B, H, Sq, D)
@@ -191,6 +281,7 @@ def cross_entropy(logits, labels, ignore_index=-100):
     still count in the mean (``F.cross_entropy(reduction='mean')`` with a
     negative ``ignore_index``)."""
     lsm = torch.log_softmax(logits.float(), dim=-1)
+    labels = labels.long()
     lab = labels.clamp(0, logits.shape[-1] - 1)
     nll = -lsm.gather(-1, lab[:, None])[:, 0]
     nll = torch.where(labels != ignore_index, nll, torch.zeros_like(nll))

@@ -186,23 +186,31 @@ def test_route_matches_sdpa_plain(monkeypatch, on_tpu):
 
 def test_sdpa_on_card_routes(monkeypatch):
     """With the CPU standing in for the card (``_accelerated`` patched):
-    the long region goes through ``long_attention`` (here its plain
-    version) and agrees with the einsum path; the short and flash
-    regions raise NotImplementedError, naming ROADMAP.md."""
+    the long region goes through ``long_attention`` and the short region
+    (causal S = 512) through ``short_attention`` (here their plain
+    versions), each agreeing with the einsum path; the flash region
+    raises NotImplementedError, naming ROADMAP.md."""
+    from paddle_tpu_torch.ops.kernels import short_attention as sa
+
     rng = np.random.RandomState(5)
     q, k, v = (torch.from_numpy(rng.randn(1, 1024, 2, 128).astype(
         np.float32)) for _ in range(3))
     einsum = nn_ops.sdpa(q, k, v, causal=True)
+    einsum_short = nn_ops.sdpa(q[:, :512], k[:, :512], v[:, :512],
+                               causal=True)
     monkeypatch.setattr(nn_ops, "_accelerated", lambda device: True)
     calls = []
-    real = la.long_attention
-    monkeypatch.setattr(la, "long_attention",
-                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    for mod, name in ((la, "long_attention"), (sa, "short_attention")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real, **kw:
+                            calls.append(_n) or _f(*a, **kw))
     long = nn_ops.sdpa(q, k, v, causal=True)
-    assert calls == [1]
+    assert calls == ["long_attention"]
     np.testing.assert_allclose(_np(long), _np(einsum), rtol=0, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        nn_ops.sdpa(q[:, :512], k[:, :512], v[:, :512], causal=True)
+    short = nn_ops.sdpa(q[:, :512], k[:, :512], v[:, :512], causal=True)
+    assert calls == ["long_attention", "short_attention"]
+    np.testing.assert_allclose(_np(short), _np(einsum_short), rtol=0,
+                               atol=2e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         nn_ops.sdpa(q, k[:, :, :1], v[:, :, :1], causal=True)
 
