@@ -134,15 +134,11 @@ def phase_build():
                 f"{e['smem']} bytes static shared memory, spill stores/"
                 f"loads {e['spill_st']}/{e['spill_ld']} bytes")
     log(f"[build] all kernels in {wall:.1f} s")
-    from paddle_tpu_torch.ops.kernels import (
-        long_attention, rms_norm, short_attention,
-    )
+    from paddle_tpu_torch.ops.kernels import long_attention, rms_norm
 
     log(f"[build] dynamic shared memory per block: "
         f"{long_attention.smem_bytes()} (long_attention), "
-        f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096), "
-        f"{short_attention.smem_bytes(64)} (short_attention D=64), "
-        f"{short_attention.smem_bytes(128)} (short_attention D=128)")
+        f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096)")
 
 
 def _ptxas_entries(text):
@@ -1207,12 +1203,12 @@ def phase_short_kernels(device, iters=20):
                       .to(dt) for _ in range(4))
         scale = 1.0 / np.sqrt(D)
         out, lse, out32 = sa.short_attention_fwd(q, k, v, seed, scale, p,
-                                                 causal, f32_out=True)
+                                                 causal)
         grads = sa.short_attention_bwd(q, k, v, out32, lse, g, seed, scale,
                                        p, causal)
         torch.cuda.synchronize()
         wout, wlse, wout32 = sa.short_attention_fwd_reference(
-            q, k, v, seed, scale, p, causal, f32_out=True)
+            q, k, v, seed, scale, p, causal)
         tag = f"{label} [{B}, {H}, {S}, {D}] {dt}"
         if not torch.equal(out == 0, wout == 0):
             raise AssertionError(f"[kernels] short_attention_fwd {tag}: the "
@@ -1261,12 +1257,12 @@ def phase_short_kernels(device, iters=20):
             for _ in range(2))
     eye = torch.eye(S, device=device).expand(2, 4, S, S).contiguous()
     out, lse, out32 = sa.short_attention_fwd(q, k, eye, seed, 1 / np.sqrt(D),
-                                             0.5, False, f32_out=True)
+                                             0.5, False)
     _, _, dv = sa.short_attention_bwd(q, k, eye, out32, lse, eye, seed,
                                       1 / np.sqrt(D), 0.5, False)
     torch.cuda.synchronize()
-    wout, _ = sa.short_attention_fwd_reference(q, k, eye, seed,
-                                               1 / np.sqrt(D), 0.5, False)
+    wout, _, _ = sa.short_attention_fwd_reference(q, k, eye, seed,
+                                                  1 / np.sqrt(D), 0.5, False)
     _, _, wdv = sa.short_attention_bwd_reference(q, k, eye, out32, lse, eye,
                                                  seed, 1 / np.sqrt(D), 0.5,
                                                  False)
@@ -1287,8 +1283,7 @@ def phase_short_kernels(device, iters=20):
     q, k, v, g = (torch.randn(B, H, S, D, generator=gen, device=device)
                   .to(dt) for _ in range(4))
     scale = 1.0 / np.sqrt(D)
-    out, lse, out32 = sa.short_attention_fwd(q, k, v, seed, scale, p, causal,
-                                             f32_out=True)
+    out, lse, out32 = sa.short_attention_fwd(q, k, v, seed, scale, p, causal)
     ql, kl, vl = (a.detach().requires_grad_(True) for a in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=p)
     times = {

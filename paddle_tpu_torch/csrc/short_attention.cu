@@ -19,10 +19,10 @@
 // any tiling regenerates the same mask.  The seed is read from device
 // memory (an int32 the wrapper draws on the card), so no host sync.
 //
-// Bound: operations.  At BERT-base's B=48, H=12, S=384, D=64 the forward's
-// two products are 2 * 2 * B H S^2 D = 2.17e10 flops (0.022 ms at 989
-// TFLOP/s bf16), the backward's five 5.44e10 (0.055 ms); q, k, v, out once
-// each in bf16 are 57 MB (0.017 ms at 3.35 TB/s).
+// Bound: at BERT-base's B=48, H=12, S=384, D=64, bytes.  The forward's two
+// products are 2 * 2 * B H S^2 D = 2.17e10 flops (0.022 ms at 989 TFLOP/s
+// bf16), the backward's five 5.44e10 (0.055 ms); q, k, v, out once each in
+// bf16 are 113 MB (0.034 ms at 3.35 TB/s), before the fp32 copy of out.
 //
 // Design (simple first; mma.sync / wgmma and TMA come later):
 //   * The TPU kernel keeps one head's whole [S, S] score matrix in VMEM;
@@ -572,8 +572,8 @@ cudaError_t bwd_by_dim(const BwdArgs& a, int D, int causal) {
 // 1 = bfloat16, the same for every q/k/v/out/dout/dq/dk/dv.  Layout
 // [BH, S, D] contiguous, D = 64 or 128; lse and delta [BH, S] fp32; `seed`
 // one int32 on the device, read only when not null (null: no dropout);
-// `out32`, the fp32 output, may be null in the forward (not written) and
-// is read by the backward.  The backward's `delta` is scratch the caller
+// `out32`, the fp32 output, is null in the forward when `out` is itself
+// fp32 (not written twice), and is read by the backward.  The backward's `delta` is scratch the caller
 // allocates.
 extern "C" int short_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* seed, void* out,

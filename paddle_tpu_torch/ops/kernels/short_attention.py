@@ -55,15 +55,6 @@ _NEG = -1e30                   # the TPU kernel's causal mask value
 _U32 = 0xFFFFFFFF
 
 
-def smem_bytes(D: int) -> dict:
-    """Dynamic shared memory a block of each kernel takes at head dim
-    ``D`` (mirrors the .cu: fp32 tiles with padded strides)."""
-    tile, sq = TILE * (D + 1), TILE * (TILE + 1)
-    return {"fwd": 4 * (3 * tile + sq),
-            "bwd_dkdv": 4 * (4 * tile + 2 * sq + 2 * TILE),
-            "bwd_dq": 4 * (4 * tile + sq + 2 * TILE)}
-
-
 # -- the dropout mask -----------------------------------------------------------
 
 def dropout_constants(dropout_p: float):
@@ -138,11 +129,11 @@ def _dropped(x, seed, dropout_p, B, H, S):
 
 
 def short_attention_fwd_reference(q, k, v, seed, scale, dropout_p=0.0,
-                                  causal=False, f32_out=False):
+                                  causal=False):
     """Plain version of ``_fwd_call_impl``: q/k/v [B, H, S, D] -> (out in
-    q's dtype, lse [B, H, 1, S] fp32), as the TPU kernel computes them:
-    ``p = e / l``, then the mask and ``1/(1-p)``, then ``p @ v``.  With
-    ``f32_out``, a third tensor: the output before its cast, in fp32."""
+    q's dtype, lse [B, H, 1, S] fp32, the output before its cast in fp32),
+    as the TPU kernel computes them: ``p = e / l``, then the mask and
+    ``1/(1-p)``, then ``p @ v``."""
     B, H, S, _ = q.shape
     s = _scores(q, k, scale, causal)
     m = s.amax(dim=-1, keepdim=True)
@@ -151,9 +142,7 @@ def short_attention_fwd_reference(q, k, v, seed, scale, dropout_p=0.0,
     p = _dropped(e / l, seed, dropout_p, B, H, S)
     out32 = torch.matmul(p, v.float())
     lse = (m + torch.log(l))[..., 0][:, :, None, :]
-    if f32_out:
-        return out32.to(q.dtype), lse, out32
-    return out32.to(q.dtype), lse
+    return out32.to(q.dtype), lse, out32
 
 
 def short_attention_bwd_reference(q, k, v, out, lse, g, seed, scale,
@@ -162,7 +151,7 @@ def short_attention_bwd_reference(q, k, v, out, lse, g, seed, scale,
     ``p = exp(s - lse)``, the regenerated mask on ``p`` and on
     ``dp = g v^T``, ``ds = p (dp - delta)``, ``dq = ds k · scale``,
     ``dk = ds^T q · scale``, ``dv = pd^T g``.  ``out`` is the forward's
-    output in fp32 (``f32_out``), and ``delta = rowsum(g · out)`` as the
+    output in fp32 (its third result), and ``delta = rowsum(g · out)`` as the
     CUDA kernel forms it; the TPU kernel takes ``rowsum(dp · p)``, equal
     in exact arithmetic (with dropout too)."""
     B, H, S, _ = q.shape
@@ -239,13 +228,12 @@ def _dropout_args(seed, dropout_p):
     return seed.data_ptr(), threshold, inv
 
 
-def short_attention_fwd(q, k, v, seed, scale, dropout_p=0.0, causal=False,
-                        f32_out=False):
+def short_attention_fwd(q, k, v, seed, scale, dropout_p=0.0, causal=False):
     """Attention forward over q/k/v [B, H, S, D] (the same heads for all
-    three) -> (out in q's dtype, lse [B, H, 1, S] fp32), plus the output
-    in fp32 when ``f32_out`` (``out`` itself for fp32 inputs; for bf16
-    the kernel writes both in one pass).  ``seed`` is an int32 tensor of
-    one element on q's device (unread when ``dropout_p`` is 0).  CPU
+    three) -> (out in q's dtype, lse [B, H, 1, S] fp32, the output in fp32
+    for the backward's delta: ``out`` itself for fp32 inputs; for bf16 the
+    kernel writes both in one pass).  ``seed`` is an int32 tensor of one
+    element on q's device, or None when ``dropout_p`` is 0.  CPU
     tensors take :func:`short_attention_fwd_reference`; CUDA tensors
     launch the kernel, or raise on what it does not take: dtypes other
     than f32 or bf16 (the same for q, k, v), D not 64 or 128, S not a
@@ -256,12 +244,12 @@ def short_attention_fwd(q, k, v, seed, scale, dropout_p=0.0, causal=False,
         raise ValueError("short_attention_fwd: q, k and v shapes differ")
     if q.device.type == "cpu":
         return short_attention_fwd_reference(q, k, v, seed, scale,
-                                             dropout_p, causal, f32_out)
+                                             dropout_p, causal)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("short_attention_fwd: q, k, v dtypes differ")
     B, H, S, D = q.shape
     out = torch.empty_like(q)
-    out32 = out if q.dtype == torch.float32 or not f32_out \
+    out32 = out if q.dtype == torch.float32 \
         else torch.empty_like(q, dtype=torch.float32)
     lse = torch.empty(B, H, 1, S, dtype=torch.float32, device=q.device)
     launch, _ = _lib()
@@ -278,14 +266,14 @@ def short_attention_fwd(q, k, v, seed, scale, dropout_p=0.0, causal=False,
         raise RuntimeError(f"short_attention_fwd kernel launch failed: "
                            f"CUDA error {rc}")
     short_attention_fwd.launches += 1
-    return (out, lse, out32) if f32_out else (out, lse)
+    return out, lse, out32
 
 
 def short_attention_bwd(q, k, v, out, lse, g, seed, scale, dropout_p=0.0,
                         causal=False):
     """Attention backward -> (dq, dk, dv) in q's dtype, regenerating the
     forward's mask from ``seed``.  ``out`` is the forward's output in fp32
-    (``f32_out``), from which the kernel forms ``delta = rowsum(g ·
+    (its third result), from which the kernel forms ``delta = rowsum(g ·
     out)``.  Same routing and limits as :func:`short_attention_fwd`."""
     dropout_p = float(dropout_p)
     _check("short_attention_bwd", q, seed, dropout_p, k, v, out, lse, g)
@@ -325,13 +313,13 @@ short_attention_bwd.launches = 0
 
 class ShortAttention(torch.autograd.Function):
     """``short_attention``'s custom VJP: saves q, k, v, the fp32 output,
-    lse and the seed, so the backward regenerates the forward's mask."""
+    lse and the seed (None without dropout), so the backward regenerates
+    the forward's mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, scale, dropout_p, causal):
         out, lse, out32 = short_attention_fwd(q, k, v, seed, scale,
-                                              dropout_p, causal,
-                                              f32_out=True)
+                                              dropout_p, causal)
         ctx.save_for_backward(q, k, v, out32, lse, seed)
         ctx.cfg = (scale, dropout_p, causal)
         return out
@@ -349,15 +337,19 @@ def short_attention(q, k, v, seed=None, scale=None, dropout_p=0.0,
                     causal=False):
     """[B, H, S, D] attention, differentiable, with the TPU kernel's hash
     dropout at rate ``dropout_p`` drawn from ``seed`` (an int, or an
-    int32 tensor of one element on q's device; needed only when
-    ``dropout_p`` > 0).  ``scale`` defaults to ``1/sqrt(D)``.  The
-    counterpart of ``paddle_tpu``'s ``short_attention``."""
+    int32 tensor of one element on q's device; read only when
+    ``dropout_p`` > 0, so without dropout nothing is copied to the
+    device).  ``scale`` defaults to ``1/sqrt(D)``.  The counterpart of
+    ``paddle_tpu``'s ``short_attention``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    if seed is None:
-        seed = 0
-    if not isinstance(seed, torch.Tensor):
+    dropout_p = float(dropout_p)
+    if dropout_p <= 0.0:
+        seed = None
+    elif isinstance(seed, torch.Tensor):
+        seed = seed.reshape(1)
+    elif seed is not None:
         seed = torch.tensor([int(seed)], dtype=torch.int32,
                             device=q.device)
     return ShortAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), seed.reshape(1),
-                                scale, float(dropout_p), bool(causal))
+                                v.contiguous(), seed, scale, dropout_p,
+                                bool(causal))

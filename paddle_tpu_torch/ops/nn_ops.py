@@ -258,13 +258,8 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
             mask = (mask.reshape(B, Hkv, H // Hkv, Sq, Sk)
                     if mask.shape[1] == H else mask[:, :, None])
         logits = logits + mask
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    if dropout_p > 0.0:
-        keep = torch.empty(probs.shape, device=probs.device).bernoulli_(
-            1.0 - dropout_p, generator=generator).bool()
-        probs = torch.where(keep, probs / (1.0 - dropout_p),
-                            torch.zeros((), dtype=probs.dtype,
-                                        device=probs.device))
+    probs = dropout(torch.softmax(logits, dim=-1).to(q.dtype), dropout_p,
+                    True, "upscale_in_train", generator)
     if grouped:
         out = torch.einsum("bngqk,bnkd->bngqd", probs, vt)
         out = out.reshape(B, H, Sq, D)

@@ -122,8 +122,7 @@ def test_matches_pallas_kernel_in_interpret_mode(S, D, causal, p, name):
 
     T = [torch.from_numpy(a).to(td) for a in (q, k, v)]
     seed = torch.tensor([SEED], dtype=torch.int32)
-    out, lse, out32 = sa.short_attention_fwd(*T, seed, scale, p, causal,
-                                             f32_out=True)
+    out, lse, out32 = sa.short_attention_fwd(*T, seed, scale, p, causal)
     assert out.dtype == td and lse.dtype == torch.float32
     assert out32.dtype == torch.float32 and lse.shape == (1, 2, 1, S)
     assert torch.equal(out32.to(td), out)
@@ -167,7 +166,7 @@ def test_identity_v_exposes_the_mask():
     T = [torch.from_numpy(a) for a in (q, k, eye)]
     seed = torch.tensor([SEED], dtype=torch.int32)
     out, lse, out32 = sa.short_attention_fwd(*T, seed, 1.0 / math.sqrt(D),
-                                             0.5, False, f32_out=True)
+                                             0.5, False)
     np.testing.assert_array_equal(_np(out) == 0, _np(jout) == 0)
     keep = sa.keep_mask(SEED, 2, 2, S, 0.5)
     assert torch.equal(out == 0, ~keep)
@@ -188,7 +187,27 @@ def test_wrappers_check_their_inputs():
         sa.short_attention_fwd(q, q, q, None, 0.125, 0.1)
     with pytest.raises(ValueError, match="shapes differ"):
         sa.short_attention_fwd(q, q[:, :1], q, seed, 0.125)
-    assert sa.smem_bytes(128)["bwd_dkdv"] <= 232448
+    with pytest.raises(ValueError, match="seed"):
+        sa.short_attention(q, q, q, None, 0.125, 0.1)
+
+
+def test_no_dropout_passes_no_seed(monkeypatch):
+    """Without dropout the autograd function gets no seed tensor (on the
+    card, building one would copy from the host on every layer) and saves
+    None for the backward; an int seed is ignored."""
+    seen = []
+    real = sa.short_attention_fwd
+    monkeypatch.setattr(sa, "short_attention_fwd", lambda q, k, v, seed, *a:
+                        seen.append(seed) or real(q, k, v, seed, *a))
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 128, 64).astype(np.float32))
+               .requires_grad_(True) for _ in range(3))
+    sa.short_attention(q, k, v, 77, None, 0.0, True).sum().backward()
+    assert seen == [None]
+    want = sa.short_attention_fwd_reference(q, k, v, None, 0.125, 0.0, True)
+    got = sa.short_attention(q, k, v, None, None, 0.0, True)
+    assert torch.equal(got, want[0])
+    assert all(t.grad is not None for t in (q, k, v))
 
 
 class _Routed(Exception):
@@ -316,7 +335,7 @@ def test_sdpa_short_route_draws_its_seed(monkeypatch):
     out = nn_ops.sdpa(q, k, v, dropout_p=0.1, generator=gen)
     gen.set_state(state)
     seed = nn_ops._seed(gen, q.device)
-    want, _ = sa.short_attention_fwd_reference(
+    want, _, _ = sa.short_attention_fwd_reference(
         *(t.transpose(1, 2) for t in (q, k, v)), seed, 1 / 8, 0.1, False)
     assert torch.equal(out, want.transpose(1, 2))
     gen.set_state(state)
@@ -400,7 +419,7 @@ def test_kernels_match_plain_on_card(cuda_device, name, S, D, causal, p):
     before = (sa.short_attention_fwd.launches,
               sa.short_attention_bwd.launches)
     out, lse, out32 = sa.short_attention_fwd(q, k, v, seed, scale, p,
-                                             causal, f32_out=True)
+                                             causal)
     grads = sa.short_attention_bwd(q, k, v, out32, lse, g, seed, scale, p,
                                    causal)
     torch.cuda.synchronize()
@@ -408,7 +427,7 @@ def test_kernels_match_plain_on_card(cuda_device, name, S, D, causal, p):
             sa.short_attention_bwd.launches) == (before[0] + 1,
                                                  before[1] + 1)
     wout, wlse, wout32 = sa.short_attention_fwd_reference(
-        q, k, v, seed, scale, p, causal, f32_out=True)
+        q, k, v, seed, scale, p, causal)
     wgrads = sa.short_attention_bwd_reference(q, k, v, out32, lse, g, seed,
                                               scale, p, causal)
     assert torch.equal(out.cpu() == 0, wout.cpu() == 0)
