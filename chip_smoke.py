@@ -74,6 +74,30 @@ result):
              on the CPU (the einsum path) from the same weights give
              losses within 1e-4 relative.
 
+3f. grouped kernels — the grouped expert FFN (kernel 10, dense weights)
+             and its int8 twin (kernel 11) against their plain versions
+             at the MoE bench bucket [8, 2560, 2048] x F = 5504 bf16, at
+             C = 20 (a 64-token decode batch), fp32 [4, 256, 256] x 512,
+             relu and silu, C = 130, [2, 7, 8, 8], H and F off the
+             multiples of 128 through impl="pallas", H above 2048; int8
+             at [8, 2560, 2048] and [8, 20, 2048] x 5504.  Timed beside
+             the bound, the plain version and the einsum route.
+10. moe train — bench.py's `moe` config (bench.py:1832-1939): its body,
+             ep_moe_local forward and backward at T = 8192, H = 2048,
+             E = 8, top-2, F = 5504, C = 2560, bf16 tokens and experts,
+             fp32 gate; then MoELayer with the same shape on a
+             [4, 2048, 2048] bf16 input through CompiledTrainStep (bf16
+             compute, fp32 master, lr 1e-4, remat off).  One warm-up and
+             5 timed steps each, losses finite, exactly one kernel-10
+             launch per step and no kernel-11 launch.  10b profiles one
+             MoELayer step with torch.profiler.
+10c. moe int8 — ep_moe_local with int8 expert weights at T = 8192 and
+             T = 64: one kernel-11 launch per forward, output within a
+             relative RMS of 0.05 of the bf16 forward.
+11. moe parity — MoELayer at H = 256, F = 512, E = 8, top-2, T = 512,
+             fp32: 3 steps on the card (kernel 10) and on the CPU (its
+             plain version) give losses within 1e-4 relative.
+
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
 of paddle_tpu.
@@ -150,7 +174,7 @@ def _ptxas_entries(text):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             # <len><name>_kernel<template args>Ev: keep name and args
-            short = re.search(r"\d((?:attn|sattn|rms_norm|paged_decode|qmm)"
+            short = re.search(r"\d((?:attn|sattn|rms_norm|paged_decode|qmm|gffn)"
                               r"\w*?_kernel)(I\w*?E)?E", m.group(1))
             cur = {"name": (short.group(1) + (short.group(2) or ""))
                    if short else m.group(1),
@@ -1529,6 +1553,462 @@ def phase_bert_parity(device, steps=3):
         raise AssertionError(f"[bert-parity] losses differ: {losses}")
 
 
+# -- phase 3f: the grouped expert FFN kernels ----------------------------------
+
+#: bench.py's `moe` config (bench.py:1832-1939): d_model, experts, top-k,
+#: FFN width, tokens, capacity factor
+MOE = dict(H=2048, E=8, k=2, F=5504, T=8192, cf=1.25)
+
+
+def moe_capacity(T, E=MOE["E"], k=MOE["k"], cf=MOE["cf"]):
+    """Slots per expert, on the host as both packages compute it."""
+    return min(T, max(1, int(np.ceil(T * cf * k / E))))
+
+
+def grouped_ffn_bound(E, C, H, F, x_bytes, w_bytes, scales=False):
+    """(bound_ms, bound_by): 4·E·C·H·F flops over the bf16 tensor-core
+    rate (fp32 x: the fp32 rate) against x, weights, biases, scales and
+    out moved once over HBM rate."""
+    rate = FP32_FLOPS if x_bytes == 4 else BF16_FLOPS
+    nbytes = (2 * E * C * H * x_bytes + 2 * E * H * F * w_bytes
+              + E * (F + H) * (x_bytes + (4 if scales else 0)))
+    to = 4 * E * C * H * F / rate * 1e3
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    return (to, "operations") if to >= tb else (tb, "bytes")
+
+
+#: (label, E, C, H, F, dtype, activation, impl forced)
+GROUPED_CASES = [
+    ("bench bucket", 8, 2560, 2048, 5504, torch.bfloat16, "gelu", None),
+    ("decode C=20 (T=64)", 8, 20, 2048, 5504, torch.bfloat16, "gelu", None),
+    ("fp32", 4, 256, 256, 512, torch.float32, "gelu", None),
+    ("relu", 4, 256, 512, 1024, torch.bfloat16, "relu", None),
+    ("silu", 4, 256, 512, 1024, torch.bfloat16, "silu", None),
+    ("C=130", 8, 130, 1024, 768, torch.bfloat16, "gelu", None),
+    ("tiny", 2, 7, 8, 8, torch.bfloat16, "silu", None),
+    ("tiny fp32", 2, 7, 8, 8, torch.float32, "silu", None),
+    ("H, F not multiples of 128", 4, 64, 200, 300, torch.bfloat16, "gelu",
+     "pallas"),
+    ("H > 2048, F ragged, fp32", 2, 40, 2176, 200, torch.float32, "tanh",
+     "pallas"),
+]
+GROUPED_Q_CASES = [("int8 bench bucket", 8, 2560), ("int8 decode C=20", 8, 20)]
+
+
+def _moe_weights(gen, E, H, F, dtype, device, scale=0.02):
+    w1 = (torch.randn(E, H, F, generator=gen, device=device) * scale)
+    w2 = (torch.randn(E, F, H, generator=gen, device=device) * scale)
+    b1 = torch.randn(E, 1, F, generator=gen, device=device) * scale
+    b2 = torch.randn(E, 1, H, generator=gen, device=device) * scale
+    return [t.to(dtype) for t in (w1, b1, w2, b2)]
+
+
+def _hold_grouped(label, got, want):
+    if want.dtype == torch.float32:
+        atol = 1e-5 * want.abs().max().item()
+        return _hold(label, got, want, atol, 1e-5,
+                     "fp32 sums of up to 2048 products in another order")
+    atol = 1e-3 * want.float().abs().max().item()
+    return _hold(label, got, want, atol, 2 ** -7, BF16_WHY)
+
+
+def phase_grouped_kernels(device, iters=10):
+    """Kernels 10 and 11 against their plain versions on the card at the
+    MoE bench shape, a decode-sized C, fp32, other activations and ragged
+    edges, each timed beside its bound, the plain version and the einsum
+    route (the library call).  Returns their two rows."""
+    from paddle_tpu_torch.ops import quant as tq
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(97531)
+    before = (gg.grouped_ffn.launches, gg.grouped_ffn_q.launches)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+    errs, timed = {"grouped_ffn": 0.0, "grouped_ffn_q": 0.0}, {}
+    bench_w = None
+    for label, E, C, H, F, dt, act, impl in GROUPED_CASES:
+        x = torch.randn(E, C, H, generator=gen, device=device).to(dt)
+        w1, b1, w2, b2 = _moe_weights(gen, E, H, F, dt, device)
+        if impl is None:
+            got = gg.grouped_ffn_fwd(x, w1, b1, w2, b2, act)
+        else:       # through the router, the kernel route forced
+            got = gg.grouped_ffn(x, w1, b1, w2, b2, act, impl=impl)
+        torch.cuda.synchronize()
+        want = gg.grouped_ffn_reference(x, w1, b1, w2, b2, act)
+        tag = f"{label} [{E}, {C}, {H}] x F={F} {dt} {act}"
+        errs["grouped_ffn"] = max(errs["grouped_ffn"], _hold_grouped(
+            f"grouped_ffn {tag}", got, want))
+        if label in ("bench bucket", "decode C=20 (T=64)", "fp32"):
+            timed[("grouped_ffn", label)] = (
+                [time_ms(f, flush, iters) for f in (
+                    lambda: gg.grouped_ffn_fwd(x, w1, b1, w2, b2, act),
+                    lambda: gg.grouped_ffn_reference(x, w1, b1, w2, b2, act),
+                    lambda: gg.einsum_ffn(x, w1, b1, w2, b2, act))],
+                grouped_ffn_bound(E, C, H, F, x.element_size(),
+                                  w1.element_size()), tag)
+        if label == "bench bucket":
+            bench_w = (w1, b1, w2, b2)
+        del x, got, want
+        if label != "bench bucket":
+            del w1, b1, w2, b2
+        torch.cuda.empty_cache()
+
+    # kernel 11 over the bench weights quantized, bf16 x
+    w1, b1, w2, b2 = bench_w
+    q1, q2 = tq.quantize_linear(w1), tq.quantize_linear(w2)
+    dq1 = tq.dequantize(q1["qweight"], q1["scale"], torch.bfloat16)
+    dq2 = tq.dequantize(q2["qweight"], q2["scale"], torch.bfloat16)
+    del bench_w, w1, w2
+    for label, E, C in GROUPED_Q_CASES:
+        H, F = MOE["H"], MOE["F"]
+        x = torch.randn(E, C, H, generator=gen, device=device).bfloat16()
+        args = (x, q1["qweight"], q1["scale"], b1, q2["qweight"],
+                q2["scale"], b2)
+        got = gg.grouped_ffn_q(*args)
+        torch.cuda.synchronize()
+        want = gg.grouped_ffn_q_reference(*args)
+        tag = f"{label} [{E}, {C}, {H}] x F={F} bf16 gelu"
+        errs["grouped_ffn_q"] = max(errs["grouped_ffn_q"], _hold_grouped(
+            f"grouped_ffn_q {tag}", got, want))
+        timed[("grouped_ffn_q", label)] = (
+            [time_ms(f, flush, iters) for f in (
+                lambda: gg.grouped_ffn_q(*args),
+                lambda: gg.grouped_ffn_q_reference(*args),
+                lambda: gg.einsum_ffn(x, dq1, b1, dq2, b2))],
+            grouped_ffn_bound(E, C, H, F, 2, 1, scales=True), tag)
+        del x, args, got, want
+        torch.cuda.empty_cache()
+    del q1, q2, dq1, dq2, flush
+    torch.cuda.empty_cache()
+    gg.grouped_ffn.launches, gg.grouped_ffn_q.launches = before
+
+    lib = {"grouped_ffn": "einsum_ffn: torch.bmm + bias + activation + "
+                          "torch.bmm in x's dtype",
+           "grouped_ffn_q": "einsum_ffn over the weights dequantized to "
+                            "bf16 beforehand"}
+    for (name, label), ((ms, plain, library), (bound, by), tag) in \
+            timed.items():
+        log(f"[kernels] {name} time at {tag}: kernel {ms:.4f} ms | bound "
+            f"{bound:.4f} ms ({by}) | plain {plain:.4f} ms | library_ms "
+            f"{library:.4f} ms ({lib[name]}) | {100 * bound / ms:.1f}% of "
+            f"bound")
+    rows = []
+    for name, label, line in (("grouped_ffn", "bench bucket", 110),
+                              ("grouped_ffn_q", "int8 bench bucket", 184)):
+        (ms, plain, library), (bound, by), _ = timed[(name, label)]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/grouped_gemm.cu",
+                     "replaces": "paddle_tpu/ops/pallas_kernels/"
+                                 f"grouped_gemm.py:{line}",
+                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": library})
+    return rows
+
+
+# -- phase 10: the MoE block trained at the bench shape -------------------------
+
+MOE_RUN = dict(batch=4, seq=2048, steps=5, lr=1e-4)
+
+
+class MoETrain(torch.nn.Module):
+    """``sum(out.f32^2) / T + gate.loss`` over one MoELayer (bench.py's
+    loss for its `moe` config)."""
+
+    def __init__(self, device, H=MOE["H"], F=MOE["F"], E=MOE["E"],
+                 k=MOE["k"], cf=MOE["cf"], seed=0, moe_impl=None):
+        super().__init__()
+        from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+        self.moe = MoELayer(d_model=H, d_hidden=F, num_experts=E,
+                            gate="gshard", top_k=k, capacity_factor=cf,
+                            moe_impl=moe_impl, device=device, seed=seed)
+
+    def forward(self, x):
+        out = self.moe(x.to(self.moe.gate.wg.dtype))
+        T = x.shape[0] * x.shape[1]
+        return out.float().square().sum() / T + self.moe.gate.loss.float()
+
+
+def _moe_counters():
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    return {"grouped_ffn": gg.grouped_ffn, "grouped_ffn_q": gg.grouped_ffn_q}
+
+
+def _moe_steps(label, run_step, n, per_step):
+    """Run 1 + ``n`` steps; each must launch exactly ``per_step``.
+    Returns (losses, timed step ms)."""
+    counters = _moe_counters()
+    losses, step_ms = [], []
+    for i in range(n + 1):
+        before = {k: f.launches for k, f in counters.items()}
+        t1 = time.perf_counter()
+        loss = run_step()
+        ms = (time.perf_counter() - t1) * 1e3
+        losses.append(loss)
+        if i:
+            step_ms.append(ms)
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        log(f"[{label}] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{loss:.6f}, {ms:.1f} ms, launches {got}")
+        if got != per_step:
+            raise AssertionError(f"[{label}] step {i} launched {got}, "
+                                 f"expected {per_step}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{label}] losses {losses}: not all finite")
+    return losses, step_ms
+
+
+def phase_moe_train(device, limit, run=None, H=MOE["H"], F=MOE["F"]):
+    """bench.py's MoE body (ep_moe_local forward and backward) and then
+    MoELayer trained with CompiledTrainStep, both at the bench shape.
+    Returns ({kernel: launches over both}, step, batch)."""
+    from paddle_tpu_torch.distributed.utils import moe_utils
+    from paddle_tpu_torch.models import CompiledTrainStep
+
+    run = dict(MOE_RUN, **(run or {}))
+    B, S, n = run["batch"], run["seq"], run["steps"]
+    E, k = MOE["E"], MOE["k"]
+    T = B * S
+    C = moe_capacity(T)
+    on_card = device.type == "cuda"
+    counters = _moe_counters()
+    for f in counters.values():
+        f.launches = 0
+    per_step = {"grouped_ffn": 1 if on_card else 0, "grouped_ffn_q": 0}
+
+    # (a) the bench body: bf16 tokens and experts, fp32 gate, GShard aux
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    tokens = torch.randn(T, H, generator=gen, device=device).bfloat16()
+    wg = torch.randn(H, E, generator=gen, device=device) * 0.02
+    w1 = (torch.randn(E, H, F, generator=gen, device=device) * 0.02
+          ).bfloat16()
+    w2 = (torch.randn(E, F, H, generator=gen, device=device) * 0.02
+          ).bfloat16()
+    b1 = torch.zeros(E, 1, F, dtype=torch.bfloat16, device=device)
+    b2 = torch.zeros(E, 1, H, dtype=torch.bfloat16, device=device)
+    leaves = [t.requires_grad_(True) for t in (tokens, w1, b1, w2, b2)]
+
+    def body_step():
+        for t in leaves:
+            t.grad = None
+        out, aux = moe_utils.ep_moe_local(
+            tokens, wg, w1, b1, w2, b2, axis_name=None, n=1, num_experts=E,
+            top_k=k, capacity=C, activation="gelu", gate_kind="gshard",
+            impl="fused" if on_card else None)
+        loss = out.float().square().sum() / T + aux
+        loss.backward()
+        return float(loss.detach())
+
+    losses, step_ms = _moe_steps("moe-body", body_step, n, per_step)
+    body_ms = float(np.mean(step_ms))
+    log(f"[moe-body] ep_moe_local fwd+bwd, T={T} H={H} E={E} top-{k} F={F} "
+        f"C={C}, bf16 tokens and experts, fp32 gate: step {body_ms:.1f} ms "
+        f"(mean of {n}; {', '.join(f'{m:.1f}' for m in step_ms)}) | "
+        f"{T / (body_ms / 1e3):.1f} MoE tokens/s | losses {losses} | "
+        f"{limit}")
+    del tokens, wg, w1, w2, b1, b2, leaves
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) MoELayer through CompiledTrainStep
+    t0 = time.perf_counter()
+    model = MoETrain(device, H=H, F=F)
+    step = CompiledTrainStep(model, lr=run["lr"], compute_dtype="bfloat16",
+                             device=device)
+    x = torch.as_tensor(np.random.RandomState(0).randn(B, S, H)
+                        .astype(np.float32), device=device).bfloat16()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"[moe-train] MoELayer(d_model={H}, d_hidden={F}, num_experts={E}, "
+        f"gate='gshard', top_k={k}, capacity_factor={MOE['cf']}) on "
+        f"[{B}, {S}, {H}] bf16, C={C}, bf16 compute, fp32 master and "
+        f"moments, lr {run['lr']}, remat off, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses, step_ms = _moe_steps("moe-train", lambda: float(step.step(x)),
+                                 n, per_step)
+    mean_ms = float(np.mean(step_ms))
+    flops = 3 * 4 * E * C * H * F
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    log(f"[moe-train] step {mean_ms:.1f} ms (mean of {n}; "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)}) | "
+        f"{T / (mean_ms / 1e3):.1f} tokens/s | GEMM share of "
+        f"{BF16_FLOPS / 1e12:g} TFLOP/s {flops / (mean_ms / 1e3) / BF16_FLOPS:.4f}"
+        f" (3 x 4·E·C·H·F = {flops:.4e} flops per step) | peak memory "
+        f"{peak:.2f} GiB | losses {losses} | {limit}")
+    launches = {name: f.launches for name, f in counters.items()}
+    return launches, step, (x,)
+
+
+def phase_moe_profile(step, batch):
+    """One traced MoELayer step: device ms of kernel 10, cuBLAS GEMMs,
+    sort/gather/scatter, elementwise, AdamW (a record_function range), the
+    rest, and the idle share."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    counters = _moe_counters()
+    saved = {k: f.launches for k, f in counters.items()}
+    update = step._update
+
+    def ranged(*a, **kw):
+        with record_function("smoke::adamw"):
+            return update(*a, **kw)
+
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        step._update = ranged
+        stack.callback(delattr, step, "_update")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step.step(*batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    for k, f in counters.items():        # the traced step does not count
+        f.launches = saved[k]
+    kinds = {"grouped_ffn": 0.0, "gemm": 0.0, "sort/gather/scatter": 0.0,
+             "elementwise": 0.0, "other": 0.0}
+    adamw = 0.0
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.key == "smoke::adamw":
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                adamw += ev.device_time_total / 1e3
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        name = ev.key.lower()
+        kind = ("grouped_ffn" if "gffn" in name else
+                "gemm" if any(s in name for s in ("gemm", "cutlass", "xmma",
+                                                  "nvjet", "sm90_")) else
+                "sort/gather/scatter" if any(s in name for s in (
+                    "sort", "radix", "scan", "index", "scatter", "gather",
+                    "cub::")) else
+                "elementwise" if any(s in name for s in (
+                    "elementwise", "vectorized", "unrolled")) else "other")
+        kinds[kind] += ms
+        per_kernel[ev.key[:60]] = (ms, ev.count)
+    busy = sum(kinds.values())
+    log(f"[profile-moe] one MoELayer step traced: {wall:.1f} ms wall | "
+        f"device busy {busy:.1f} ms "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in kinds.items())}; AdamW "
+        f"range {adamw:.1f}, inside the elementwise) | idle share "
+        f"{1 - busy / wall:.3f}")
+    for name, (ms, calls) in sorted(per_kernel.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile-moe]   {ms:9.2f} ms  {calls:5d} launches  {name}")
+
+
+# -- phase 10c: the int8 MoE forward -------------------------------------------
+
+def phase_moe_int8(device, limit, iters=5, H=MOE["H"], F=MOE["F"]):
+    """ep_moe_local with quantize_linear(w1) / quantize_linear(w2) on the
+    fused route at T = 8192 and T = 64: exactly one kernel-11 launch per
+    forward, and the output within a relative RMS of 0.05 of the bf16
+    forward (the serving gate).  Returns kernel-11 launches."""
+    from paddle_tpu_torch.distributed.utils import moe_utils
+    from paddle_tpu_torch.ops import quant as tq
+
+    E, k = MOE["E"], MOE["k"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    wg = torch.randn(H, E, generator=gen, device=device) * 0.02
+    w1 = (torch.randn(E, H, F, generator=gen, device=device) * 0.02
+          ).bfloat16()
+    w2 = (torch.randn(E, F, H, generator=gen, device=device) * 0.02
+          ).bfloat16()
+    b1 = torch.zeros(E, 1, F, dtype=torch.bfloat16, device=device)
+    b2 = torch.zeros(E, 1, H, dtype=torch.bfloat16, device=device)
+    q1, q2 = tq.quantize_linear(w1), tq.quantize_linear(w2)
+    counters = _moe_counters()
+    launches = 0
+    for T in (MOE["T"], 64):
+        C = moe_capacity(T)
+        tokens = torch.randn(T, H, generator=gen, device=device).bfloat16()
+        kw = dict(axis_name=None, n=1, num_experts=E, top_k=k, capacity=C,
+                  activation="gelu", gate_kind="gshard", impl="fused")
+        with torch.no_grad():
+            dense, _ = moe_utils.ep_moe_local(tokens, wg, w1, b1, w2, b2,
+                                              **kw)
+            before = counters["grouped_ffn_q"].launches
+            times = []
+            for i in range(iters + 1):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out, _ = moe_utils.ep_moe_local(tokens, wg, q1, b1, q2, b2,
+                                                **kw)
+                e1.record()
+                e1.synchronize()
+                if i:
+                    times.append(e0.elapsed_time(e1))
+            got = counters["grouped_ffn_q"].launches - before
+        launches += got
+        drift = ((out.float() - dense.float()).square().mean().sqrt()
+                 / dense.float().square().mean().sqrt()).item()
+        ms = float(np.mean(times))
+        log(f"[moe-int8] T={T} C={C}: {ms:.4f} ms per int8 forward (mean of "
+            f"{iters}; {', '.join(f'{t:.3f}' for t in times)}) | "
+            f"{T / (ms / 1e3):.1f} tokens/s | kernel-11 launches {got} over "
+            f"{iters + 1} forwards | int8 vs bf16 relative RMS {drift:.5f} "
+            f"(limit 0.05) | {limit}")
+        if got != iters + 1:
+            raise AssertionError(f"[moe-int8] {got} kernel-11 launches for "
+                                 f"{iters + 1} forwards")
+        if not (np.isfinite(drift) and drift < 0.05):
+            raise AssertionError(f"[moe-int8] drift {drift} over 0.05")
+        del tokens, dense, out
+    return launches
+
+
+# -- phase 11: card vs CPU MoE training ----------------------------------------
+
+def phase_moe_parity(device, steps=3):
+    """The same MoELayer weights trained on the card (kernel 10) and on
+    the CPU (its plain version), fp32, H=256, F=512, E=8, top-2, T=512."""
+    import os
+
+    from paddle_tpu_torch.models import CompiledTrainStep
+
+    counters = _moe_counters()
+    x = np.random.RandomState(2).randn(2, 256, 256).astype(np.float32)
+    old = os.environ.get("PT_GROUPED_GEMM")
+    os.environ["PT_GROUPED_GEMM"] = "pallas"
+    losses = {}
+    try:
+        for dev in (device, torch.device("cpu")):
+            model = MoETrain("cpu", H=256, F=512, seed=3, moe_impl="fused")
+            step = CompiledTrainStep(model, lr=1e-3, device=dev)
+            before = counters["grouped_ffn"].launches
+            losses[dev.type] = [float(step.step(x)) for _ in range(steps)]
+            launched = counters["grouped_ffn"].launches - before
+            log(f"[moe-parity] {dev.type}: losses {losses[dev.type]}, "
+                f"kernel-10 launches {launched}")
+            if dev.type == "cuda" and launched != steps:
+                raise AssertionError("[moe-parity] the card run did not take "
+                                     f"kernel 10 once per step: {launched}")
+    finally:
+        if old is None:
+            del os.environ["PT_GROUPED_GEMM"]
+        else:
+            os.environ["PT_GROUPED_GEMM"] = old
+    got, want = np.array(losses[device.type]), np.array(losses["cpu"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f"[moe-parity] {steps} fp32 steps, H=256, F=512, E=8, top-2, T=512: "
+        f"max relative loss difference card vs CPU {rel:.3e} (limit 1e-4: "
+        f"fp32 on both, TF32 off, scatter-add atomics and other summation "
+        f"orders)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"[moe-parity] losses differ: {losses}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1545,6 +2025,7 @@ def main():
     train_rows = phase_train_kernels(device)
     quant_rows = phase_quant_kernels(device)
     short_rows = phase_short_kernels(device)
+    grouped_rows = phase_grouped_kernels(device)
     launches, engine = phase_serve(device)
     rows[0]["launches"] = launches["paged_decode"]
     phase_profile(engine, device)
@@ -1579,6 +2060,15 @@ def main():
     del step, batch
     torch.cuda.empty_cache()
     phase_bert_parity(device)
+    launches, step, batch = phase_moe_train(device, limit)
+    grouped_rows[0]["launches"] = launches["grouped_ffn"]
+    phase_moe_profile(step, batch)
+    del step, batch
+    torch.cuda.empty_cache()
+    grouped_rows[1]["launches"] = phase_moe_int8(device, limit)
+    torch.cuda.empty_cache()
+    phase_moe_parity(device)
+    rows += grouped_rows
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

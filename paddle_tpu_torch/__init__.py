@@ -19,7 +19,13 @@ are the hand-written CUDA kernels ``ops.kernels.rms_norm`` and
 QA, classification and MLM heads, on the ``nn`` transformer encoder),
 fine-tuned through the same train step, whose attention for S <= 1024
 (forward and backward, with ``paddle_tpu``'s hash dropout) is the
-hand-written CUDA kernel ``ops.kernels.short_attention``.
+hand-written CUDA kernel ``ops.kernels.short_attention``; and the MoE
+block (``incubate.distributed.models.moe.MoELayer`` with its gates, and
+``distributed.utils.moe_utils`` with the sort dispatch and the
+single-device ``ep_moe_local`` body), trained through the same step and
+run forward with int8 experts, whose grouped expert FFN
+(``ops.grouped_ffn``) is the hand-written CUDA kernel
+``ops.kernels.grouped_gemm``, for dense and for int8 expert weights.
 
 Importing the package is light: it pulls in neither ``triton`` nor the
 kernel build, and never ``jax`` or ``paddle_tpu``.

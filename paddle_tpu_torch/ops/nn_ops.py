@@ -31,6 +31,16 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
+def einsum(eq, *operands):
+    """``torch.einsum`` with jnp's promotion of mixed float dtypes (a bf16
+    operand meeting an fp32 one computes in fp32); ``torch.einsum``
+    refuses mixed dtypes."""
+    dt = operands[0].dtype
+    for o in operands[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in operands))
+
+
 def _rotate_half(x):
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([-x2, x1], dim=-1)
