@@ -9,13 +9,18 @@ result):
              fp32 means fp32 in every comparison below.
 2. build   — every kernel under paddle_tpu_torch/csrc, one nvcc each,
              all started together; registers, shared memory and spills
-             of every kernel as ptxas reports them.
+             of every kernel as ptxas reports them; then cuobjdump -sass
+             of the attention library must show HGMMA (wgmma) in each of
+             the six bf16 tensor-core attention instantiations.
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA tensors, at the shapes the serving and training paths
-             give it (and at S=1024, in fp32, and with fused RoPE for
-             attention), then its time (CUDA events, L2 flushed before
-             each launch) beside its bound, the plain version's time and
-             one library call's.
+             give it, then its time (CUDA events, L2 flushed before each
+             launch) beside its bound, the plain version's time and one
+             library call's.  3b holds attention at [4, 32, 2048, 128]
+             bf16 causal, at S=1024, in fp32, with fused RoPE, with GQA
+             32/8 at S=4096, not causal, and at S=4096, and times it at
+             the training shape and in the flash region (S=4096 causal,
+             with and without GQA 32/8; SDPA with enable_gqa beside it).
 3c. quant kernels — the int8-weight matmul at every Llama-2-7B
              projection shape for M = 8 (decode) and M = 512 (prefill),
              bf16 and f32 x, and paged decode over int8 pages at the
@@ -53,6 +58,12 @@ result):
              must be finite and fall; each kernel must launch exactly as
              often per step as full recompute implies.  6b profiles one
              step with torch.profiler.
+6d. train S=4096 — Llama-2-7B width x 4 layers at its published 4096-token
+             context, B=2 (the same 8192 tokens a step as 6), bf16
+             compute, fp32 master, full recompute, attention_impl="auto"
+             (the stock-flash region: S > 2048 takes long_attention): 3
+             timed steps, exactly 2L forward and L backward attention
+             launches per step.
 6c. train S=512 — Llama-2-7B width x 2 layers at B=4, S=512 (the short
              kernel's causal region), full recompute: 2 timed steps with
              exactly 2L forward and L backward short-attention launches
@@ -163,6 +174,32 @@ def phase_build():
     log(f"[build] dynamic shared memory per block: "
         f"{long_attention.smem_bytes()} (long_attention), "
         f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096)")
+    check_tensor_cores(_build)
+
+
+def check_tensor_cores(build):
+    """The bf16 attention kernels run on the tensor cores: every
+    instantiation of ``attn_wg_*`` in the built library's SASS holds
+    ``HGMMA`` (wgmma) instructions.  Raises if one holds none, or if
+    there are not the six instantiations (fwd, dK/dV, dQ; causal or
+    not)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    so = build._target("long_attention")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = {}
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.search(r"(attn_wg_\w+?_kernel)I(Lb[01])E", chunk.split()[0])
+        if m:
+            found[m.group(1) + "<" + m.group(2) + ">"] = chunk.count("HGMMA")
+    log(f"[build] HGMMA instructions per tensor-core attention "
+        f"instantiation (cuobjdump -sass): {found}")
+    if len(found) != 6 or not all(found.values()):
+        raise AssertionError(f"[build] expected HGMMA in the six attn_wg "
+                             f"instantiations, found {found}")
 
 
 def _ptxas_entries(text):
@@ -389,17 +426,20 @@ def rms_norm_bounds(N, h, x_bytes, w_bytes):
     return out
 
 
-def attention_bounds(B, H, S, D, elem_bytes, causal=True):
+def attention_bounds(B, H, S, D, elem_bytes, causal=True, Hkv=None):
     """(fwd, bwd) (bound_ms, bound_by): the multiply-adds of the causal
-    (i, j <= i) pairs, two products forward and five backward, over the
-    bf16 tensor-core rate (fp32 inputs: the fp32 rate), against q, k, v,
-    out (and g, dq, dk, dv) moved once over HBM rate."""
+    (i, j <= i) pairs (all pairs when not causal), two products forward
+    and five backward, over the bf16 tensor-core rate (fp32 inputs: the
+    fp32 rate), against q, k, v, out (and g, dq, dk, dv) moved once over
+    HBM rate; k, v, dk, dv have Hkv heads."""
+    Hkv = H if Hkv is None else Hkv
     pairs = S * (S + 1) // 2 if causal else S * S
     rate = BF16_FLOPS if elem_bytes == 2 else FP32_FLOPS
     one = B * H * S * D * elem_bytes
+    kv = B * Hkv * S * D * elem_bytes
     out = []
-    for n_products, nbytes in ((2, 4 * one + 4 * B * H * S),
-                               (5, 8 * one + 4 * B * H * S)):
+    for n_products, nbytes in ((2, 2 * one + 2 * kv + 4 * B * H * S),
+                               (5, 4 * one + 4 * kv + 4 * B * H * S)):
         to = n_products * 2 * B * H * pairs * D / rate * 1e3
         tb = nbytes / HBM_BYTES_PER_S * 1e3
         out.append((to, "operations") if to >= tb else (tb, "bytes"))
@@ -447,19 +487,28 @@ def phase_train_kernels(device, iters=20):
         norm_err.setdefault("fwd", e1)
         norm_err.setdefault("bwd", e2)
 
-    # attention: (B, H, S, dtype, rope_base)
-    attn_cases = [(B, H, S, bf16, None), (B, H, 1024, bf16, None),
-                  (B, H, S, f32, None), (B, H, S, bf16, 10000.0)]
+    # attention: (B, H, Hkv, S, dtype, rope_base, causal); bf16 without
+    # RoPE takes the tensor-core kernels, the rest the fp32-core ones
+    attn_cases = [(B, H, H, S, bf16, None, True),
+                  (B, H, H, 1024, bf16, None, True),
+                  (B, H, H, S, f32, None, True),
+                  (B, H, H, S, bf16, 10000.0, True),
+                  (2, H, 8, 4096, bf16, None, True),     # GQA 32/8
+                  (B, H, H, S, bf16, None, False),       # not causal
+                  (2, H, H, 4096, bf16, None, True)]     # S = 4096
     attn_err = {}
     scale = 1.0 / np.sqrt(D)
-    for b, hh, s, dt, rb in attn_cases:
-        q, k, v, g = (torch.randn(b, hh, s, D, generator=gen,
-                                  device=device).to(dt) for _ in range(4))
-        out, lse = la.attention_fwd(q, k, v, scale, True, rb)
-        grads = la.attention_bwd(q, k, v, out, lse, g, scale, True, rb)
+    for b, hh, hkv, s, dt, rb, causal in attn_cases:
+        q, g = (torch.randn(b, hh, s, D, generator=gen,
+                            device=device).to(dt) for _ in range(2))
+        k, v = (torch.randn(b, hkv, s, D, generator=gen,
+                            device=device).to(dt) for _ in range(2))
+        out, lse = la.attention_fwd(q, k, v, scale, causal, rb)
+        grads = la.attention_bwd(q, k, v, out, lse, g, scale, causal, rb)
         torch.cuda.synchronize()
-        wout, wlse = la.attention_fwd_reference(q, k, v, scale, True, rb)
-        tag = f"B={b} H={hh} S={s} D={D} {dt} rope_base={rb}"
+        wout, wlse = la.attention_fwd_plain(q, k, v, scale, causal, rb)
+        tag = (f"B={b} H={hh} Hkv={hkv} S={s} D={D} {dt} rope_base={rb} "
+               f"causal={causal}")
         if dt == f32:
             tol = dict(out=(2e-5, 0.0), lse=(2e-5, 0.0), grad=(1e-4, 0.0))
             why = "fp32 throughout, other summation order"
@@ -468,14 +517,15 @@ def phase_train_kernels(device, iters=20):
             tol = dict(out=(2e-3, 2 ** -7), lse=(1e-3, 0.0),
                        grad=(5e-3, 2 ** -6))
             why = BF16_WHY
-            gwhy = "bf16 outputs of sums over up to 2048 fp32 terms"
+            gwhy = ("bf16 outputs of sums over up to 4 x 4096 fp32 terms "
+                    "(P and dS enter the tensor cores as bf16 hi + lo)")
         e1 = _hold(f"attention_fwd out {tag}", out, wout, *tol["out"], why)
         _hold(f"attention_fwd lse {tag}", lse, wlse, *tol["lse"],
               "fp32, other summation order")
         del wout, wlse
         torch.cuda.empty_cache()
-        wgrads = la.attention_bwd_reference(q, k, v, out, lse, g, scale,
-                                            True, rb)
+        wgrads = la.attention_bwd_plain(q, k, v, out, lse, g, scale,
+                                        causal, rb)
         errs = [_hold(f"attention_bwd {n} {tag}", a, w_, *tol["grad"], gwhy)
                 for n, a, w_ in zip(("dq", "dk", "dv"), grads, wgrads)]
         attn_err.setdefault("fwd", e1)
@@ -524,7 +574,10 @@ def phase_train_kernels(device, iters=20):
     }
     for name, fns in t.items():
         times[name] = [time_ms(f, flush, iters=iters) for f in fns]
-    del q, k, v, g, out, lse, ql, kl, vl, ol, flush
+    del q, k, v, g, out, lse, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+    flash_region_times(la, gen, flush, iters)
+    del flush
     torch.cuda.empty_cache()
     for f, n in before.items():        # checks and timing do not count
         f.launches = n
@@ -561,6 +614,58 @@ def phase_train_kernels(device, iters=20):
                      "bound_ms": bound, "bound_by": by,
                      "library_ms": library_ms})
     return rows
+
+
+FLASH_SHAPES = [  # (label, B, H, Hkv): the stock-flash region, S = 4096
+    ("causal S=4096", 2, 32, 32),
+    ("causal S=4096, GQA 32/8 (Llama-3-8B's head layout)", 2, 32, 8)]
+
+
+def flash_region_times(la, gen, flush, iters, S=4096, D=128):
+    """Kernel, plain and SDPA times (forward, backward) at the flash
+    region's shapes, bf16 causal, beside the bound; logged, not rows of
+    the kernels line (the rows time the training shape)."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    scale = 1.0 / np.sqrt(D)
+    for label, B, H, Hkv in FLASH_SHAPES:
+        q, g = (torch.randn(B, H, S, D, generator=gen, device=flush.device)
+                .to(bf16) for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, generator=gen, device=flush.device)
+                .to(bf16) for _ in range(2))
+        out, lse = la.attention_fwd(q, k, v, scale, True)
+        gqa = Hkv != H
+        ql, kl, vl = (a.detach().requires_grad_(True) for a in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=gqa)
+        fns = {
+            "attention_fwd": (
+                lambda: la.attention_fwd(q, k, v, scale, True),
+                lambda: la.attention_fwd_plain(q, k, v, scale, True),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=gqa)),
+            "attention_bwd": (
+                lambda: la.attention_bwd(q, k, v, out, lse, g, scale, True),
+                lambda: la.attention_bwd_plain(q, k, v, out, lse, g, scale,
+                                               True),
+                lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
+                                            retain_graph=True))}
+        bounds = attention_bounds(B, H, S, D, 2, True, Hkv)
+        for (name, (kern, plain, lib)), (bound, by) in zip(fns.items(),
+                                                           bounds):
+            ms = time_ms(kern, flush, iters=iters)
+            plain_ms = time_ms(plain, flush, iters=2, warmup=1)
+            lib_ms = time_ms(lib, flush, iters=iters)
+            torch.cuda.empty_cache()
+            log(f"[kernels] {name} time at {label} [{B}, {H}/{Hkv}, {S}, "
+                f"{D}] bf16: kernel {ms:.4f} ms | bound {bound:.4f} ms "
+                f"({by}) | plain {plain_ms:.4f} ms | library_ms "
+                f"{lib_ms:.4f} ms (SDPA{', enable_gqa' if gqa else ''}"
+                f"{'' if name == 'attention_fwd' else ', autograd'}) | "
+                f"{100 * bound / ms:.1f}% of bound | {ms / lib_ms:.2f}x "
+                f"SDPA")
+        del q, k, v, g, out, lse, ql, kl, vl, ol
+        torch.cuda.empty_cache()
 
 
 # -- phase 3c: the int8 serving kernels ----------------------------------------
@@ -1018,8 +1123,9 @@ def _train_counters():
 def phase_train(device, limit, cfg=None, run=None, tag="train"):
     """Llama-2-7B width x 8 layers: one warm-up step and ``steps`` timed
     ones.  Returns ({kernel: launches over all steps}, step, batch).
-    Attention takes the long kernel at S >= 1024 and the short one
-    below, 2L forward and L backward launches per step either way."""
+    Attention takes the long_attention kernels at S >= 1024 (the long
+    route up to 2048, the flash route above) and the short one below,
+    2L forward and L backward launches per step either way."""
     from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.models import (
         CompiledTrainStep, LlamaConfig, LlamaForCausalLM,
@@ -1116,8 +1222,10 @@ def phase_train_profile(step, batch, device):
         name = ev.key.lower()
         kind = ("rms_norm_fwd" if "rms_norm_fwd" in name else
                 "rms_norm_bwd" if "rms_norm_bwd" in name else
-                "attention_fwd" if "attn_fwd" in name else
-                "attention_bwd" if ("attn_bwd" in name
+                "attention_fwd" if ("attn_fwd" in name
+                                    or "attn_wg_fwd" in name) else
+                "attention_bwd" if ("attn_bwd" in name or "attn_wg_dkdv"
+                                    in name or "attn_wg_dq" in name
                                     or "attn_delta" in name) else
                 "gemm" if any(k in name for k in ("gemm", "cutlass", "xmma",
                                                   "nvjet", "sm90_"))
@@ -2045,6 +2153,13 @@ def main():
     rows += train_rows + quant_rows
     phase_train_profile(step, batch, device)
     del step, batch
+    torch.cuda.empty_cache()
+    phase_train(device, limit, tag="train-s4096",
+                cfg=LlamaConfig.llama2_7b(num_hidden_layers=4,
+                                          recompute=True,
+                                          recompute_policy="full",
+                                          attention_impl="auto"),
+                run=dict(batch=2, seq=4096, steps=3))
     torch.cuda.empty_cache()
     phase_train(device, limit, tag="train-s512",
                 cfg=LlamaConfig.llama2_7b(num_hidden_layers=2,

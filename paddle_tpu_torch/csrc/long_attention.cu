@@ -1,53 +1,107 @@
-// Causal attention, forward and backward, for Hopper (sm_90a), with a
-// plain C interface and optional fused RoPE.
+// Causal (or full) attention, forward and backward, for Hopper (sm_90a),
+// with a plain C interface, GQA and optional fused RoPE.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_kernels/
-// long_attention.py: _fwd_call (_fwd_kernel) and _bwd_call (_bwd_kernel).
-// Per (batch, head), with q/k/v [S, D] (D = 128) and s = (q . k) * scale:
+// long_attention.py: _fwd_call (_fwd_kernel) and _bwd_call (_bwd_kernel),
+// and serves the region paddle_tpu/ops/nn_ops.py sends to the stock
+// Pallas flash kernel (_flash_attention_tpu: GQA, S > 2048, non-causal).
+// Per (batch, q head h) with kv head h / G (G = H / Hkv q heads share one
+// K/V head), q/k/v [S, D] (D = 128) and s = (q . k) * scale:
 //
 //     fwd:  lse = logsumexp_j s[i, j]  (j <= i when causal)   fp32
 //           out = softmax(s) @ v                              q's dtype
 //     bwd:  p  = exp(s - lse);  dp = dout @ v^T
 //           ds = p * (dp - delta) * scale,  delta_i = sum_d dout * out
 //           dv = p^T @ dout;  dq = ds @ k;  dk = ds^T @ q
+//           (dk, dv of a kv head summed over its G q heads)
 //
-// With RoPE, q and k rotate on load (half-split pairs, angle pos * inv_freq
-// from fp32 cos/sin tables [S, D/2] the wrapper builds), and dq/dk
-// de-rotate with the transposed rotation before the store.
-//
-// Bound: operations.  The causal half of QK^T and PV is S^2 * D
+// Bound: operations.  The causal half of QK^T and PV is S^2 * D / 2
 // multiply-adds per head and product: 1.37e11 flops in the forward at
 // B=4, H=32, S=2048, D=128 (0.139 ms at 989 TFLOP/s bf16), five such
 // products in the backward (0.347 ms).  The bytes (q, k, v, out once
 // each, bf16) are 268 MB, 0.080 ms at 3.35 TB/s.
 //
-// Design (simple first; wgmma, TMA and pipelining come later):
-//   * The TPU kernel holds one head's whole K/V and a [block_q, S] score
-//     row in VMEM.  A Hopper block has at most 227 KB of shared memory, so
-//     this is a flash-style kernel instead: 64-row q tiles against 64-row
-//     K/V tiles, fp32 online softmax (running max and sum per row), fp32
-//     accumulation, K tiles above the diagonal never loaded.
-//   * Tiles sit in shared memory as fp32 with a padded row stride (129 /
-//     65 floats), so both row-wise and column-wise reads are free of bank
-//     conflicts; 256 threads in a 16 x 16 grid each own a 4 x 4 block of
-//     scores (rows ty + 16 i, columns tx + 16 j) and a 4 x 8 block of the
-//     [64, 128] outputs.  Products run on the fp32 cores; bf16 inputs are
-//     widened on load, exactly as the TPU kernel does.
-//   * Backward: dK/dV are summed over q tiles by a SEPARATE pass over K
-//     tiles (one block owns a K tile and loops over the q tiles at or
-//     below the diagonal), and dQ by a pass over q tiles.  That costs two
-//     extra products (7 instead of 5) but needs no atomics: the sums are
-//     deterministic run to run, and nothing is written twice.  A small
-//     first kernel forms delta = rowsum(dout * out).
-//   * Causal tiles do unequal work; blocks are numbered so the longest
-//     loops start first.
-// S must be a multiple of 64.
+// Two families of kernels, chosen by dtype (one kernel per case, no
+// fallback between them):
+//
+// 1. bf16 q/k/v without RoPE: the tensor-core kernels (wg::attn_wg_*), a
+//    FlashAttention-3-shaped design.
+//    * Work split.  Forward: one block per (128-row q tile, batch * q
+//      head); 384 threads, three warpgroups: two consumers of 64 q rows
+//      each (one wgmma m64 tile) and a producer whose one thread issues
+//      every load.  setmaxnreg gives the producer 24 registers and each
+//      consumer 240 (the block launches at 168).  Q tiles are numbered
+//      so the longest causal loops start first.
+//    * Loads.  TMA (tensor maps of [rows, 128] bf16, boxes of 64 columns
+//      = 128-byte rows, 128-byte swizzle, so a tile is two regions): Q
+//      once, then K and V tiles of 128 rows into a ring of two
+//      buffers, each guarded by a full and an empty mbarrier (K and V
+//      apart, so Q.K^T starts before V lands).  The tensor maps are
+//      encoded on the host by cuTensorMapEncodeTiled, reached through
+//      cudaGetDriverEntryPoint(ByVersion): the library is loaded with
+//      ctypes and not linked against -lcuda.
+//    * S = Q.K^T: wgmma m64n128k16, both operands in shared memory
+//      (K-major), fp32 sums in registers.
+//    * Softmax: online, in registers (running max and sum per row, the
+//      sum reduced across the row's four lanes once at the end), exp2f
+//      with scale * log2(e) folded in.  Causal: K tiles wholly above the
+//      diagonal are never loaded; only diagonal tiles are masked, with
+//      the TPU kernel's mask value (-2.3819763e38).
+//    * O += P.V: P stays in registers as wgmma's A operand (the fp32
+//      accumulator's layout is the bf16 A fragment's, two columns per
+//      register), V is read from shared memory MN-major (transposed B).
+//    * The rounding point.  P is carried as two bf16 terms, hi = bf16(p)
+//      and lo = bf16(p - hi), each its own product (about 16 bits of p),
+//      never rounded once; the backward carries P and dS the same way.
+//      Rounded once (2^-8 relative), out, dq, dk and dv leave the
+//      tolerances the kernels are held to in causal cases (early rows
+//      average few keys); paddle_tpu_torch/testing/attention_rounding.py
+//      shows it on the card.
+//    * Backward: a small kernel forms delta = rowsum(dout * out) (the
+//      port's delta rule), then a dK/dV pass and a dQ pass.  dK/dV: one
+//      block per 64 K rows and kv head, looping over the group's q heads
+//      and their 64-row q tiles at or below the diagonal, streamed with
+//      their lse and delta rows by TMA.  Warpgroup 0 sums dV (S^T =
+//      K.Q^T, dV += P^T.dO), warpgroup 1 sums dK (S^T, dP^T = V.dO^T,
+//      dK += dS^T.Q): one 64-register fp32 sum per warpgroup.  Both sums
+//      in one warpgroup (128 of its registers) made ptxas serialize
+//      the wgmmas, which cost more than forming S^T twice.  dQ: one
+//      block per 128 q rows, looping over 64-row K/V tiles: S = Q.K^T,
+//      dP = dO.V^T, dQ += dS.K.  Deterministic: no atomics, every output
+//      written once, the GQA sum over q heads inside one block.
+//    * Products: the forward runs 3 (S, P_hi.V, P_lo.V) where the bound
+//      counts 2; the backward 11 (dK/dV 7, dQ 4) where it counts 5.
+//    * GQA by indexing: q head h reads kv head h / G; K/V are never
+//      repeated in memory.
+//    * Shared memory (dynamic, + 1 KB to align tiles to 1024 bytes):
+//      forward Q 32 KB + 2 x (K 32 + V 32) = 160 KB; dK/dV K 16 + V 16 +
+//      2 x (Q 16 + dO 16 + lse, delta 0.5) = 97 KB; dQ Q 32 + dO 32 +
+//      2 x (K 16 + V 16) = 128 KB.
+//    * Shapes: D = 128, S a multiple of 128, H a multiple of Hkv.  D =
+//      256 is not instantiated: a warpgroup's [64, 256] fp32 sum takes
+//      128 of its 240 registers, so every pass would need 64-row K
+//      tiles and the forward 192 KB of shared memory; the wrapper raises
+//      (ROADMAP.md Queue 3).
+//
+// 2. fp32 inputs, and bf16 with fused RoPE: the fp32-core kernels (attn_*)
+//    of the first port, exact for fp32 (the card-vs-CPU fp32 training
+//    parity runs through them) and rotating q/k in fp32 on load, which a
+//    bf16 tensor-core operand cannot hold (one bf16 rounding of the
+//    rotated q and k would move the scores, and lse with them, by about
+//    2e-3, twice the lse tolerance: an estimate, not measured).  64-row
+//    q tiles against 64-row K/V tiles
+//    in padded fp32 shared memory (strides 129 / 65), 256 threads each
+//    owning a 4 x 4 block of scores, a separate dK/dV pass and dQ pass.
+//    They take Hkv == H (the wrapper repeats K/V for GQA) and S a
+//    multiple of 64.
 
+#include <cuda.h>  // CUtensorMap and its enums only; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -522,39 +576,951 @@ cudaError_t bwd_by_flags(const A& a, int causal, int rope) {
   return bwd<T, false, false>(a);
 }
 
+
+// ===========================================================================
+// Hopper tensor-core kernels: bf16 q/k/v, no RoPE
+
+namespace wg {
+
+constexpr int kD = 128;            // head dim: two 64-column regions
+constexpr int kRow = 128;          // bytes of one swizzled region row
+constexpr int kThreads = 384;      // two consumer warpgroups + producer
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNeg = -2.3819763e38f;  // the TPU kernel's mask value
+
+constexpr int kFM = 128, kFN = 128;  // forward: q rows, kv rows per tile
+constexpr int kBN = 64, kBM = 64;    // dK/dV: kv rows, q rows per tile
+constexpr int kQM = 128, kQN = 64;   // dQ: q rows, kv rows per tile
+
+// A [rows, 128] bf16 tile is two regions of [rows, 64] (128-byte rows,
+// 128-byte swizzle), region r at r * rows * kRow bytes.
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * kD * 2;
+}
+
+constexpr int kStages = 2;  // ring depth of the streamed tiles
+
+constexpr int kFwdSmem = 1024 + tile_bytes(kFM) +
+                         2 * kStages * tile_bytes(kFN) +
+                         8 * (1 + 4 * kStages);
+constexpr int kDkdvSmem = 1024 + 2 * tile_bytes(kBN) +
+                          kStages * (2 * tile_bytes(kBM) + 2 * kBM * 4) +
+                          8 * (1 + 2 * kStages);
+constexpr int kDqSmem = 1024 + 2 * tile_bytes(kQM) +
+                        2 * kStages * tile_bytes(kQN) +
+                        8 * (1 + 2 * kStages);
+
+__device__ __forceinline__ uint32_t su32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (su32(p) & 1023u)) & 1023u);
+}
+
+// -- mbarriers and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void bar_init(uint64_t* b, uint32_t n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(su32(b)),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          su32(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(su32(b))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of parity `parity` to complete.  A phase still open
+// after 4 s (a bug: a tile takes microseconds) traps, so a fault ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
+  uint32_t done, polls = 0;
+  uint64_t t0 = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(su32(b)), "r"(parity)
+        : "memory");
+    if (!done && (++polls & 1023u) == 0) {
+      const uint64_t t = now_ns();
+      if (t0 == 0)
+        t0 = t;
+      else if (t - t0 > 4000000000ull)
+        __trap();
+    }
+  } while (!done);
+}
+
+// One lane per consumer warp tells the producer a stage is free.
+__device__ __forceinline__ void release(uint64_t* b, int lane) {
+  __syncwarp();
+  if (lane == 0) bar_arrive(b);
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       uint64_t* b, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(su32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(su32(b)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// Rows [row, row + rows) of a [*, 128] tensor, as two swizzled regions.
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* b, int row, int rows) {
+  tma_2d(dst, map, b, 0, row);
+  tma_2d(dst + rows * kRow, map, b, 64, row);
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(su32(dst)),
+      "l"(src), "r"(bytes), "r"(su32(b))
+      : "memory");
+}
+
+// -- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((su32(p) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (rows = M or N, the 128 columns = K), 8-row groups
+// 1024 bytes apart: kdesc(tile) describes k step 0, and k step kk
+// (columns 16 kk .. 16 kk + 15, regions `rows` rows apart) is that plus
+// kstep(rows, kk), a constant added to the start address field (tiles
+// lie below 256 KB, so the 14-bit field never carries).
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* tile) {
+  return gdesc(tile, 16, 1024);
+}
+__host__ __device__ constexpr uint64_t kstep(int rows, int kk) {
+  return static_cast<uint64_t>(((kk / 4) * rows * kRow + (kk % 4) * 32) >>
+                               4);
+}
+
+// MN-major B operand (rows = K, the 128 columns = N): the two 64-column
+// regions `rows` rows apart (leading byte offset), 8-row groups 1024
+// bytes apart; k step kk (rows 16 kk .. 16 kk + 15) is tdesc + tstep.
+__device__ __forceinline__ uint64_t tdesc(const uint8_t* tile, int rows) {
+  return gdesc(tile, rows * kRow, 1024);
+}
+__host__ __device__ constexpr uint64_t tstep(int kk) {
+  return static_cast<uint64_t>(kk * 16 * kRow >> 4);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads of wgmma results above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A * B, m64nNk16 with N = 2 x the accumulator's length (64 or
+// 128), A and B from shared memory (both K-major, 128-byte swizzle);
+// `acc` 0 overwrites d.
+
+// m64n64k16
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// m64n128k16
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[0..63] += A * B, m64n128k16, A from registers (four bf16x2
+// per thread, mma.sync's m16k16 layout per warp), B from shared memory
+// MN-major (transposed, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_n128t(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Register budgets after the split (setmaxnreg): the block launches with
+// 168 a thread (384 threads in 64K registers); the producer warpgroup
+// gives all but 24 back and each consumer warpgroup takes 240 for its
+// 64-register fp32 sum, its score tiles and their bf16 hi + lo
+// fragments: 128 x 24 + 256 x 240 = 384 x 168.
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+__device__ __forceinline__ void regs_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void regs_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+}
+
+// -- small helpers ------------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// (x0, x1) as two bf16x2 terms, hi = bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ int kv_head(int bh, int H, int G) {
+  return (bh / H) * (H / G) + (bh % H) / G;
+}
+
+// A consumer thread's place in an m64 accumulator: warpgroup `wgi`, rows
+// `row` and row + 8 of the warpgroup's 64, columns 8 j + 2 t (+1).  For
+// m64nN, d[4 j + e] is (row + 8 (e >> 1), 8 j + 2 t + (e & 1)); the A
+// fragment of k step kk takes d[8 kk .. 8 kk + 7] in that order.
+
+// Store a warpgroup's [64, 128] fp32 sum as bf16 rows r0 and r0 + 8.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst0,
+                                           const float (&d)[64], float s0,
+                                           float s1) {
+  __nv_bfloat16* dst1 = dst0 + 8 * kD;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(dst0 + 8 * j) =
+        __floats2bfloat162_rn(d[4 * j] * s0, d[4 * j + 1] * s0);
+    *reinterpret_cast<__nv_bfloat162*>(dst1 + 8 * j) =
+        __floats2bfloat162_rn(d[4 * j + 2] * s1, d[4 * j + 3] * s1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (128-row q tile, batch * q head)
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_wg_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int S, int H, int G, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sK = sQ + tile_bytes(kFM);
+  uint8_t* sV = sK + kStages * tile_bytes(kFN);
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(sV + kStages * tile_bytes(kFN));
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  const int qt = S / kFM - 1 - blockIdx.x;  // longest causal loops first
+  const int bh = blockIdx.y;
+  const int nk = kCausal ? (qt + 1) * kFM / kFN : S / kFN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(k_full + s, 1);
+      bar_init(v_full + s, 1);
+      bar_init(k_empty + s, 8);
+      bar_init(v_empty + s, 8);
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {  // producer warpgroup: one thread issues the loads
+    regs_producer();
+    if (threadIdx.x == 256) {
+      const int kvrow = kv_head(bh, H, G) * S;
+      bar_expect(q_full, tile_bytes(kFM));
+      load_tile(sQ, &tq, q_full, bh * S + qt * kFM, kFM);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        if (i >= kStages) bar_wait(k_empty + s, ph ^ 1);
+        bar_expect(k_full + s, tile_bytes(kFN));
+        load_tile(sK + s * tile_bytes(kFN), &tk, k_full + s, kvrow + i * kFN,
+                  kFN);
+        if (i >= kStages) bar_wait(v_empty + s, ph ^ 1);
+        bar_expect(v_full + s, tile_bytes(kFN));
+        load_tile(sV + s * tile_bytes(kFN), &tv, v_full + s, kvrow + i * kFN,
+                  kFN);
+      }
+    }
+  } else {  // consumer warpgroups 0 and 1
+    regs_consumer();
+    const int wgi = warp / 4, t = lane % 4;
+    const int r0 = qt * kFM + wgi * 64 + (warp % 4) * 16 + lane / 4;
+    const float sl2 = scale * kLog2e;
+    const uint8_t* qa = sQ + wgi * 64 * kRow;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    bar_wait(q_full, 0);
+    __syncwarp();
+
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const uint8_t* kb = sK + s * tile_bytes(kFN);
+      const uint8_t* vb = sV + s * tile_bytes(kFN);
+      float sc[kFN / 2];
+      bar_wait(k_full + s, ph);
+      __syncwarp();
+      wg_fence();
+      const uint64_t q_km = kdesc(qa), k_km = kdesc(kb);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(sc, q_km + kstep(kFM, kk), k_km + kstep(kFN, kk), kk);
+      wg_commit();
+      wg_wait0();
+      fence_regs(sc);
+      release(k_empty + s, lane);
+
+      // online softmax in log2 units
+      const int c0 = i * kFN;
+      const bool edge = kCausal && c0 + kFN - 1 > qt * kFM;
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < kFN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * sl2;
+          if (edge && c0 + 8 * j + 2 * t + (e & 1) > r0 + 8 * (e >> 1))
+            x = kNeg;
+          sc[4 * j + e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);  // 0 at first
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= a0;
+      l1 *= a1;
+      uint32_t phi[kFN / 16][4], plo[kFN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kFN / 16; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = 2 * kk + (f >> 1), e = (f & 1) * 2;
+          const float m = e ? m1 : m0;
+          const float p0 = exp2f(sc[4 * j + e] - m);
+          const float p1 = exp2f(sc[4 * j + e + 1] - m);
+          if (e)
+            l1 += p0 + p1;
+          else
+            l0 += p0 + p1;
+          split_bf16(p0, p1, phi[kk][f], plo[kk][f]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
+      }
+
+      bar_wait(v_full + s, ph);
+      __syncwarp();
+      wg_fence();
+      const uint64_t v_mn = tdesc(vb, kFN);
+#pragma unroll
+      for (int kk = 0; kk < kFN / 16; ++kk) {
+        wgmma_rs_n128t(o, phi[kk], v_mn + tstep(kk));
+        wgmma_rs_n128t(o, plo[kk], v_mn + tstep(kk));
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(o);
+      release(v_empty + s, lane);
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    store_rows(out + ((size_t)bh * S + r0) * kD + 2 * t, o, 1.f / l0,
+               1.f / l1);
+    if (t == 0) {
+      lse[(size_t)bh * S + r0] = (m0 + log2f(l0)) * kLn2;
+      lse[(size_t)bh * S + r0 + 8] = (m1 + log2f(l1)) * kLn2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, dK and dV: one block per (64 K rows, batch * kv head); loops
+// over the group's q heads and their kBM-row q tiles.  Warpgroup 0 sums
+// dV (S^T, then dV += P^T.dO), warpgroup 1 sums dK (S^T and dP^T, then
+// dK += dS^T.Q): one 64-register accumulator each, so neither runs short
+// of registers (both sums in one warpgroup made ptxas serialize its
+// wgmmas), at the price of S^T computed twice.
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_wg_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int S, int H, int G,
+                    float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);
+  uint8_t* sV = sK + tile_bytes(kBN);
+  uint8_t* sQ = sV + tile_bytes(kBN);            // kStages tiles
+  uint8_t* sO = sQ + kStages * tile_bytes(kBM);  // dout, kStages tiles
+  float* sL = reinterpret_cast<float*>(sO + kStages * tile_bytes(kBM));
+  float* sD = sL + kStages * kBM;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sD + kStages * kBM);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int kt = blockIdx.x;  // causal: G (S - 64 kt) / kBM steps
+  const int kvh = blockIdx.y;
+  const int Hkv = H / G;
+  const int b = kvh / Hkv, hk = kvh % Hkv;
+  const int q0 = kCausal ? kt * kBN / kBM : 0;
+  const int per = S / kBM - q0;
+  const int n = G * per;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 8);
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {  // producer warpgroup: one thread issues the loads
+    regs_producer();
+    if (threadIdx.x == 256) {
+      bar_expect(kv_full, 2 * tile_bytes(kBN));
+      load_tile(sK, &tk, kv_full, kvh * S + kt * kBN, kBN);
+      load_tile(sV, &tv, kv_full, kvh * S + kt * kBN, kBN);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int row =
+            (b * H + hk * G + i / per) * S + (q0 + i % per) * kBM;
+        if (i >= kStages) bar_wait(empty + s, ph ^ 1);
+        bar_expect(full + s, 2 * tile_bytes(kBM) + 2 * kBM * 4);
+        load_tile(sQ + s * tile_bytes(kBM), &tq, full + s, row, kBM);
+        load_tile(sO + s * tile_bytes(kBM), &tdo, full + s, row, kBM);
+        bulk_copy(sL + s * kBM, lse + row, kBM * 4, full + s);
+        bulk_copy(sD + s * kBM, delta + row, kBM * 4, full + s);
+      }
+    }
+  } else {  // consumer warpgroups: 0 sums dV, 1 sums dK
+    regs_consumer();
+    const bool sums_dk = role == 1;
+    const int t = lane % 4;
+    const int c0 = kt * kBN + (warp % 4) * 16 + lane / 4;  // K position
+    const float sl2 = scale * kLog2e;
+    const uint64_t k_km = kdesc(sK), v_km = kdesc(sV);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    bar_wait(kv_full, 0);
+    __syncwarp();
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const int qp = (q0 + i % per) * kBM;  // first q position of the tile
+      const uint8_t* qb = sQ + s * tile_bytes(kBM);
+      const uint8_t* ob = sO + s * tile_bytes(kBM);
+      const float* L = sL + s * kBM;
+      const float* Dl = sD + s * kBM;
+      float st[kBM / 2], dpt[kBM / 2];  // S^T, dP^T: rows K, columns q
+      bar_wait(full + s, ph);
+      __syncwarp();
+      const uint64_t q_km = kdesc(qb), o_km = kdesc(ob);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(st, k_km + kstep(kBN, kk), q_km + kstep(kBM, kk), kk);
+      if (sums_dk) {
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss(dpt, v_km + kstep(kBN, kk), o_km + kstep(kBM, kk), kk);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(st);
+      if (sums_dk) fence_regs(dpt);
+
+      // P^T (dV) or dS^T (dK) as bf16 hi + lo A fragments
+      const bool edge = kCausal && qp < kt * kBN + kBN - 1;
+      uint32_t hi[kBM / 16][4], lo[kBM / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBM / 16; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = 2 * kk + (f >> 1), e = (f & 1) * 2;
+          const int qc = 8 * j + 2 * t;
+          const int kp = c0 + 8 * (e >> 1);
+          const float2 lv = *reinterpret_cast<const float2*>(L + qc);
+          float p0 = exp2f(st[4 * j + e] * sl2 - lv.x * kLog2e);
+          float p1 = exp2f(st[4 * j + e + 1] * sl2 - lv.y * kLog2e);
+          if (edge && kp > qp + qc) p0 = 0.f;
+          if (edge && kp > qp + qc + 1) p1 = 0.f;
+          if (sums_dk) {
+            const float2 dl = *reinterpret_cast<const float2*>(Dl + qc);
+            p0 *= (dpt[4 * j + e] - dl.x) * scale;
+            p1 *= (dpt[4 * j + e + 1] - dl.y) * scale;
+          }
+          split_bf16(p0, p1, hi[kk][f], lo[kk][f]);
+        }
+      }
+      const uint64_t b_mn = tdesc(sums_dk ? qb : ob, kBM);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBM / 16; ++kk) {
+        wgmma_rs_n128t(acc, hi[kk], b_mn + tstep(kk));
+        wgmma_rs_n128t(acc, lo[kk], b_mn + tstep(kk));
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
+      release(empty + s, lane);
+    }
+
+    store_rows((sums_dk ? dk : dv) + ((size_t)kvh * S + c0) * kD + 2 * t,
+               acc, 1.f, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, dQ: one block per (128-row q tile, batch * q head); loops over
+// 64-row K/V tiles
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int S, int H, int G,
+                  float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sO = sQ + tile_bytes(kQM);
+  uint8_t* sK = sO + tile_bytes(kQM);            // kStages tiles
+  uint8_t* sV = sK + kStages * tile_bytes(kQN);  // kStages tiles
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(sV + kStages * tile_bytes(kQN));
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int qt = S / kQM - 1 - blockIdx.x;  // longest causal loops first
+  const int bh = blockIdx.y;
+  const int nk = kCausal ? (qt + 1) * kQM / kQN : S / kQN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 8);
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {  // producer warpgroup: one thread issues the loads
+    regs_producer();
+    if (threadIdx.x == 256) {
+      const int kvrow = kv_head(bh, H, G) * S;
+      bar_expect(q_full, 2 * tile_bytes(kQM));
+      load_tile(sQ, &tq, q_full, bh * S + qt * kQM, kQM);
+      load_tile(sO, &tdo, q_full, bh * S + qt * kQM, kQM);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        if (i >= kStages) bar_wait(empty + s, ph ^ 1);
+        bar_expect(full + s, 2 * tile_bytes(kQN));
+        load_tile(sK + s * tile_bytes(kQN), &tk, full + s, kvrow + i * kQN,
+                  kQN);
+        load_tile(sV + s * tile_bytes(kQN), &tv, full + s, kvrow + i * kQN,
+                  kQN);
+      }
+    }
+  } else {  // consumer warpgroups 0 and 1
+    regs_consumer();
+    const int wgi = warp / 4, t = lane % 4;
+    const int r0 = qt * kQM + wgi * 64 + (warp % 4) * 16 + lane / 4;
+    const size_t rb = (size_t)bh * S;
+    const float sl2 = scale * kLog2e;
+    const float L0 = lse[rb + r0] * kLog2e, L1 = lse[rb + r0 + 8] * kLog2e;
+    const float D0 = delta[rb + r0], D1 = delta[rb + r0 + 8];
+    const uint8_t* qa = sQ + wgi * 64 * kRow;
+    const uint8_t* oa = sO + wgi * 64 * kRow;
+    float gq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) gq[i] = 0.f;
+    bar_wait(q_full, 0);
+    __syncwarp();
+
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      const uint32_t ph = (i / kStages) & 1;
+      const uint8_t* kb = sK + s * tile_bytes(kQN);
+      const uint8_t* vb = sV + s * tile_bytes(kQN);
+      float sc[kQN / 2], dp[kQN / 2];
+      bar_wait(full + s, ph);
+      __syncwarp();
+      wg_fence();
+      const uint64_t q_km = kdesc(qa), o_km = kdesc(oa);
+      const uint64_t k_km = kdesc(kb), v_km = kdesc(vb);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(sc, q_km + kstep(kQM, kk), k_km + kstep(kQN, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(dp, o_km + kstep(kQM, kk), v_km + kstep(kQN, kk), kk);
+      wg_commit();
+      wg_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const int c0 = i * kQN;
+      const bool edge = kCausal && c0 + kQN - 1 > qt * kQM;
+      uint32_t shi[kQN / 16][4], slo[kQN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQN / 16; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = 2 * kk + (f >> 1), e = (f & 1) * 2;
+          const int c = c0 + 8 * j + 2 * t, r = r0 + 8 * (e >> 1);
+          const float L = e ? L1 : L0, Dr = e ? D1 : D0;
+          float p0 = exp2f(sc[4 * j + e] * sl2 - L);
+          float p1 = exp2f(sc[4 * j + e + 1] * sl2 - L);
+          if (edge && c > r) p0 = 0.f;
+          if (edge && c + 1 > r) p1 = 0.f;
+          split_bf16(p0 * (dp[4 * j + e] - Dr) * scale,
+                     p1 * (dp[4 * j + e + 1] - Dr) * scale, shi[kk][f],
+                     slo[kk][f]);
+        }
+      }
+      wg_fence();
+      const uint64_t k_mn = tdesc(kb, kQN);
+#pragma unroll
+      for (int kk = 0; kk < kQN / 16; ++kk) {
+        wgmma_rs_n128t(gq, shi[kk], k_mn + tstep(kk));
+        wgmma_rs_n128t(gq, slo[kk], k_mn + tstep(kk));
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(gq);
+      release(empty + s, lane);
+    }
+
+    store_rows(dq + (rb + r0) * kD + 2 * t, gq, 1.f, 1.f);
+  }
+}
+
+// -- host: tensor maps and launches ----------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    if (e != cudaSuccess || got != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [rows, 128] bf16 tensor read in boxes of `box` rows x 64 columns.
+bool make_map(CUtensorMap* map, const void* base, size_t rows, int box) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)kD, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kD * 2};
+  const cuuint32_t boxd[2] = {64, (cuuint32_t)box};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, boxd, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  const void *q, *k, *v, *out, *dout;
+  float *lse, *delta;
+  void *o, *dq, *dk, *dv;
+  int B, H, Hkv, S;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <bool kCausal>
+cudaError_t fwd(const Args& a) {
+  CUtensorMap mq, mk, mv;
+  const size_t nq = (size_t)a.B * a.H * a.S, nkv = (size_t)a.B * a.Hkv * a.S;
+  if (!make_map(&mq, a.q, nq, kFM) || !make_map(&mk, a.k, nkv, kFN) ||
+      !make_map(&mv, a.v, nkv, kFN))
+    return cudaErrorNotSupported;
+  auto kernel = attn_wg_fwd_kernel<kCausal>;
+  cudaError_t e = allow_smem(kernel, kFwdSmem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(a.S / kFM, a.B * a.H), kThreads, kFwdSmem, a.stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.S, a.H,
+      a.H / a.Hkv, a.scale);
+  return cudaGetLastError();
+}
+
+template <bool kCausal>
+cudaError_t bwd(const Args& a) {
+  const size_t rows = (size_t)a.B * a.H * a.S;
+  const int per = ::kThreads / 32;
+  attn_delta_kernel<__nv_bfloat16>
+      <<<(unsigned)((rows + per - 1) / per), ::kThreads, 0, a.stream>>>(
+          static_cast<const __nv_bfloat16*>(a.out),
+          static_cast<const __nv_bfloat16*>(a.dout), a.delta, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const size_t nkv = (size_t)a.B * a.Hkv * a.S;
+  const int G = a.H / a.Hkv;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, a.q, rows, kBM) || !make_map(&mk, a.k, nkv, kBN) ||
+      !make_map(&mv, a.v, nkv, kBN) || !make_map(&mo, a.dout, rows, kBM))
+    return cudaErrorNotSupported;
+  auto dkdv = attn_wg_dkdv_kernel<kCausal>;
+  e = allow_smem(dkdv, kDkdvSmem);
+  if (e != cudaSuccess) return e;
+  dkdv<<<dim3(a.S / kBN, a.B * a.Hkv), kThreads, kDkdvSmem, a.stream>>>(
+      mq, mk, mv, mo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.S, a.H, G, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  if (!make_map(&mq, a.q, rows, kQM) || !make_map(&mk, a.k, nkv, kQN) ||
+      !make_map(&mv, a.v, nkv, kQN) || !make_map(&mo, a.dout, rows, kQM))
+    return cudaErrorNotSupported;
+  auto dq = attn_wg_dq_kernel<kCausal>;
+  e = allow_smem(dq, kDqSmem);
+  if (e != cudaSuccess) return e;
+  dq<<<dim3(a.S / kQM, a.B * a.H), kThreads, kDqSmem, a.stream>>>(
+      mq, mk, mv, mo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.S, a.H, G, a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Both launch on `stream`, whose device must be the calling thread's
 // current one (the Python wrapper selects it), and return 0 on success,
 // else the CUDA error code of the refused launch (cudaErrorInvalidValue
-// for a shape or dtype this kernel does not take).  dtype code: 0 =
-// float32, 1 = bfloat16, the same for every q/k/v/out/dout/dq/dk/dv.
-// Layout [BH, S, 128] contiguous; lse and delta [BH, S] fp32; cos/sin
-// [S, 64] fp32 (read only when use_rope; may be null otherwise).  The
-// backward's `delta` is scratch the caller allocates.
+// for a shape or dtype these kernels do not take, cudaErrorNotSupported
+// when a tensor map cannot be encoded).  dtype code: 0 = float32, 1 =
+// bfloat16, the same for every q/k/v/out/dout/dq/dk/dv.  q, out, dout,
+// dq [B, H, S, 128] and k, v, dk, dv [B, Hkv, S, 128], contiguous; lse
+// and delta [B, H, S] fp32; cos/sin [S, 64] fp32 (read only when
+// use_rope; may be null otherwise).  bf16 without RoPE takes the
+// tensor-core kernels (S % 128 == 0, H % Hkv == 0); fp32, and bf16 with
+// RoPE, the fp32-core kernels (S % 64 == 0, Hkv == H).  The backward's
+// `delta` is scratch the caller allocates.
 extern "C" int long_attention_fwd_launch(const void* q, const void* k,
                                          const void* v, const void* cos,
                                          const void* sin, void* out,
-                                         void* lse, int BH, int S, int D,
-                                         float scale, int causal,
-                                         int use_rope, int dtype,
-                                         void* stream) {
-  if (D != kD || S <= 0 || S % kB || BH <= 0) return cudaErrorInvalidValue;
+                                         void* lse, int B, int H, int Hkv,
+                                         int S, int D, float scale,
+                                         int causal, int use_rope,
+                                         int dtype, void* stream) {
+  if (D != kD || S <= 0 || B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && !use_rope) {
+    if (S % wg::kFM) return cudaErrorInvalidValue;
+    const wg::Args a{q,       k,       v,       nullptr, nullptr,
+                     static_cast<float*>(lse), nullptr, out, nullptr,
+                     nullptr, nullptr, B,       H,       Hkv,     S,
+                     scale,   st};
+    return causal ? wg::fwd<true>(a) : wg::fwd<false>(a);
+  }
+  if (S % kB || Hkv != H) return cudaErrorInvalidValue;
   const FwdArgs a{q,   k,  v, static_cast<const float*>(cos),
                   static_cast<const float*>(sin),
-                  out, static_cast<float*>(lse), BH, S, scale,
-                  static_cast<cudaStream_t>(stream)};
+                  out, static_cast<float*>(lse), B * H, S, scale, st};
   if (dtype == 0) return fwd_by_flags<float>(a, causal, use_rope);
-  if (dtype == 1) return fwd_by_flags<__nv_bfloat16>(a, causal, use_rope);
+  if (dtype == 1) return causal ? fwd<__nv_bfloat16, true, true>(a)
+                                : fwd<__nv_bfloat16, false, true>(a);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int long_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* cos, const void* sin, const void* lse,
-    void* delta, void* dq, void* dk, void* dv, int BH, int S, int D,
-    float scale, int causal, int use_rope, int dtype, void* stream) {
-  if (D != kD || S <= 0 || S % kB || BH <= 0) return cudaErrorInvalidValue;
+    void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv,
+    int S, int D, float scale, int causal, int use_rope, int dtype,
+    void* stream) {
+  if (D != kD || S <= 0 || B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && !use_rope) {
+    if (S % wg::kQM) return cudaErrorInvalidValue;
+    const wg::Args a{q,
+                     k,
+                     v,
+                     out,
+                     dout,
+                     const_cast<float*>(static_cast<const float*>(lse)),
+                     static_cast<float*>(delta),
+                     nullptr,
+                     dq,
+                     dk,
+                     dv,
+                     B,
+                     H,
+                     Hkv,
+                     S,
+                     scale,
+                     st};
+    return causal ? wg::bwd<true>(a) : wg::bwd<false>(a);
+  }
+  if (S % kB || Hkv != H) return cudaErrorInvalidValue;
   const BwdArgs a{q,
                   k,
                   v,
@@ -567,11 +1533,12 @@ extern "C" int long_attention_bwd_launch(
                   dq,
                   dk,
                   dv,
-                  BH,
+                  B * H,
                   S,
                   scale,
-                  static_cast<cudaStream_t>(stream)};
+                  st};
   if (dtype == 0) return bwd_by_flags<float>(a, causal, use_rope);
-  if (dtype == 1) return bwd_by_flags<__nv_bfloat16>(a, causal, use_rope);
+  if (dtype == 1) return causal ? bwd<__nv_bfloat16, true, true>(a)
+                                : bwd<__nv_bfloat16, false, true>(a);
   return cudaErrorInvalidValue;
 }

@@ -6,8 +6,9 @@ Counterparts of ``paddle_tpu/ops/nn_ops.py`` (``_rms_norm_plain``,
 ``paddle_tpu/ops/activation.py`` (``_swiglu_plain``, ``gelu``), with the
 same dtype rules, so a bf16 stream rounds at the same places in both
 packages.  Of these, only attention reaches a kernel here (``sdpa``
-routes long causal sequences to ``ops.kernels.long_attention`` and
-short ones to ``ops.kernels.short_attention``); the rest is plain
+routes long sequences, and the region JAX gives its stock flash kernel,
+to ``ops.kernels.long_attention`` and short ones to
+``ops.kernels.short_attention``); the rest is plain
 PyTorch in both packages (XLA ops in ``paddle_tpu``).  Every random draw
 (dropout) takes an explicit ``torch.Generator`` on the tensor's device.
 """
@@ -149,15 +150,6 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train",
 
 # -- attention ----------------------------------------------------------------
 
-#: where ``sdpa`` sends each region JAX gives to a Pallas kernel that is
-#: not ported yet (ROADMAP.md, Queue 2)
-_NOT_PORTED = {
-    "flash": "the stock Pallas flash-attention path (S % 512 == 0, "
-             "D % 128 == 0) is not ported yet: ROADMAP.md Queue 2, "
-             "'stock flash attention'",
-}
-
-
 def attention_route(Sq, Sk, H, Hkv, D, causal, has_mask=False,
                     impl="auto", accelerated=True, has_dropout=False):
     """Which attention ``_sdpa_plain`` would run for these shapes:
@@ -219,14 +211,17 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
     Routes as ``_sdpa_plain`` does, with "a CUDA tensor" in place of "on
     a TPU": causal S in [1024, 2048] without dropout (S % 256 == 0,
     D % 128 == 0, the same heads for q and k/v, no mask) goes to the
-    hand-written ``long_attention`` kernel; Sq == Sk <= 1024 (S % 128 ==
+    hand-written ``long_attention`` kernels; Sq == Sk <= 1024 (S % 128 ==
     0, D 64 or 128, no GQA, no mask) to the hand-written
     ``short_attention`` kernel, whose hash dropout takes an int32 seed
-    drawn from the generator; on CUDA, the stock-flash region raises
-    ``NotImplementedError``; the rest is the einsum path, grouped for
-    GQA: scores in q's dtype, then fp32 times the scale, masked, fp32
-    softmax, probabilities cast to q's dtype, then dropped with a
-    Bernoulli mask from the generator and divided by ``1 - p``."""
+    drawn from the generator; the stock-flash region (``impl="flash"``,
+    or causal S >= 1024 with GQA or S > 2048; S % 512 == 0, D % 128 ==
+    0, no mask, no dropout) to ``long_attention`` too, with GQA by
+    indexing and causal or not (JAX's ``_flash_attention_tpu``); the
+    rest is the einsum path, grouped for GQA: scores in q's dtype, then
+    fp32 times the scale, masked, fp32 softmax, probabilities cast to
+    q's dtype, then dropped with a Bernoulli mask from the generator and
+    divided by ``1 - p``."""
     B, Sq, H, D = q.shape
     Hkv, Sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -238,7 +233,7 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
                             accelerated=_accelerated(q.device),
                             has_dropout=dropout_p > 0.0)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # B H S D
-    if route == "long":
+    if route in ("long", "flash"):
         from .kernels.long_attention import long_attention
 
         out = long_attention(qt, kt, vt, float(scale), bool(causal))
@@ -250,8 +245,6 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
         out = short_attention(qt, kt, vt, seed, float(scale), dropout_p,
                               bool(causal))
         return out.transpose(1, 2)
-    if route in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[route])
     grouped = Hkv != H
     if grouped:
         qt = qt.reshape(B, Hkv, H // Hkv, Sq, D)

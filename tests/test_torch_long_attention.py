@@ -8,6 +8,9 @@
   running ``_sdpa_plain`` with its kernels replaced by spies and
   ``jax.devices()`` reporting a TPU (only inside ``nn_ops``).
 * The einsum path against ``_sdpa_plain`` with GQA, causal and not.
+* The stock-flash region (GQA, non-causal, S > 2048, ``impl="flash"``)
+  through ``long_attention``'s plain version against ``_sdpa_plain``'s
+  einsum route, forward and backward.
 
 Tolerances: out/lse fp32 atol 2e-5; bf16 out
 2^-7 * |want| + 2e-3 (one bf16 rounding of an fp32 result), lse atol
@@ -189,7 +192,8 @@ def test_sdpa_on_card_routes(monkeypatch):
     the long region goes through ``long_attention`` and the short region
     (causal S = 512) through ``short_attention`` (here their plain
     versions), each agreeing with the einsum path; the flash region
-    raises NotImplementedError, naming ROADMAP.md."""
+    (causal S = 1024 with GQA, 2 q heads over 1 kv head) goes through
+    ``long_attention`` too and agrees with the grouped einsum path."""
     from paddle_tpu_torch.ops.kernels import short_attention as sa
 
     rng = np.random.RandomState(5)
@@ -198,6 +202,7 @@ def test_sdpa_on_card_routes(monkeypatch):
     einsum = nn_ops.sdpa(q, k, v, causal=True)
     einsum_short = nn_ops.sdpa(q[:, :512], k[:, :512], v[:, :512],
                                causal=True)
+    einsum_gqa = nn_ops.sdpa(q, k[:, :, :1], v[:, :, :1], causal=True)
     monkeypatch.setattr(nn_ops, "_accelerated", lambda device: True)
     calls = []
     for mod, name in ((la, "long_attention"), (sa, "short_attention")):
@@ -211,8 +216,56 @@ def test_sdpa_on_card_routes(monkeypatch):
     assert calls == ["long_attention", "short_attention"]
     np.testing.assert_allclose(_np(short), _np(einsum_short), rtol=0,
                                atol=2e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        nn_ops.sdpa(q, k[:, :, :1], v[:, :, :1], causal=True)
+    gqa = nn_ops.sdpa(q, k[:, :, :1], v[:, :, :1], causal=True)
+    assert calls == ["long_attention", "short_attention", "long_attention"]
+    np.testing.assert_allclose(_np(gqa), _np(einsum_gqa), rtol=0, atol=2e-5)
+
+
+FLASH_CASES = {
+    # id: (B, S, H, Hkv, causal, impl)
+    "gqa-4over2": (1, 1024, 4, 2, True, "auto"),
+    "noncausal": (1, 512, 2, 2, False, "flash"),
+    "s2560": (1, 2560, 1, 1, True, "auto"),
+    "impl-flash-gqa": (2, 512, 4, 1, True, "flash"),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_route_matches_sdpa_plain(monkeypatch, case):
+    """The stock-flash region on the port, with the CPU standing in for
+    the card (``_accelerated`` patched): ``attention_route`` says
+    "flash", ``sdpa`` goes through ``long_attention`` (its plain version
+    here, K/V repeated to the q heads) and matches ``_sdpa_plain``'s
+    einsum route on the CPU (x64 off), out and dq/dk/dv, in fp32 at atol
+    2e-5 (out) and 1e-4 (gradients, sums over up to 2560 terms in
+    another order).  JAX's own flash kernel runs only on a TPU, so the
+    einsum route is the reference (ROADMAP.md, Queue 3)."""
+    B, S, H, Hkv, causal, impl = FLASH_CASES[case]
+    D = 128
+    assert nn_ops.attention_route(S, S, H, Hkv, D, causal,
+                                  impl=impl) == "flash"
+    rng = np.random.RandomState(11)
+    q = rng.randn(B, S, H, D).astype(np.float32)
+    k, v = (rng.randn(B, S, Hkv, D).astype(np.float32) for _ in range(2))
+    g = rng.randn(B, S, H, D).astype(np.float32)
+    with jax.enable_x64(False):
+        want, vjp = jax.vjp(lambda a, b, c: jnn_ops._sdpa_plain(
+            a, b, c, None, None, 0.0, causal), *(jnp.asarray(a)
+                                                 for a in (q, k, v)))
+        wgrads = vjp(jnp.asarray(g))
+    monkeypatch.setattr(nn_ops, "_accelerated", lambda device: True)
+    calls = []
+    real = la.long_attention
+    monkeypatch.setattr(la, "long_attention", lambda *a, **kw:
+                        calls.append(1) or real(*a, **kw))
+    T = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    got = nn_ops.sdpa(*T, causal=causal, impl=impl)
+    got.backward(torch.from_numpy(g))
+    assert calls == [1]
+    _check(got, want, 2e-5)
+    for a, w in zip((t.grad for t in T), wgrads):
+        assert a.shape == w.shape
+        _check(a, w, 1e-4)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -250,28 +303,61 @@ def cuda_device():
     return torch.device("cuda")
 
 
+CARD_SHAPES = {
+    # id: (B, H, Hkv, S, causal)
+    "causal": (2, 4, 4, 1024, True),
+    "gqa": (2, 8, 2, 1024, True),
+    "noncausal": (1, 4, 4, 1536, False),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
 @pytest.mark.parametrize("rope_base", [None, 10000.0], ids=["norope", "rope"])
 @pytest.mark.parametrize("name", list(DTYPES))
-def test_kernels_match_plain_on_card(cuda_device, name, rope_base):
+def test_kernels_match_plain_on_card(cuda_device, name, rope_base, shape):
+    """The kernels (bf16 without RoPE: the tensor-core ones) against the
+    plain versions on the card, with GQA (dk/dv summed over each group in
+    fp32, then rounded once) and without the causal mask; the bf16
+    tolerances are chip_smoke.py phase 3b's."""
     _, td = DTYPES[name]
+    B, H, Hkv, S, causal = CARD_SHAPES[shape]
     rng = np.random.RandomState(9)
-    q, k, v, g = (torch.from_numpy(rng.randn(2, 4, 1024, 128).astype(
-        np.float32)).to(cuda_device, td) for _ in range(4))
+
+    def make(h):
+        return torch.from_numpy(rng.randn(B, h, S, 128).astype(
+            np.float32)).to(cuda_device, td)
+
+    q, k, v, g = make(H), make(Hkv), make(Hkv), make(H)
     scale = 1.0 / math.sqrt(128)
-    out, lse = la.attention_fwd(q, k, v, scale, True, rope_base)
-    grads = la.attention_bwd(q, k, v, out, lse, g, scale, True, rope_base)
+    out, lse = la.attention_fwd(q, k, v, scale, causal, rope_base)
+    grads = la.attention_bwd(q, k, v, out, lse, g, scale, causal, rope_base)
     torch.cuda.synchronize()
-    wout, wlse = la.attention_fwd_reference(q, k, v, scale, True, rope_base)
-    wgrads = la.attention_bwd_reference(q, k, v, out, lse, g, scale, True,
-                                        rope_base)
+    wout, wlse = la.attention_fwd_plain(q, k, v, scale, causal, rope_base)
+    wq, wk, wv = la.attention_bwd_plain(q, k, v, out, lse, g, scale,
+                                        causal, rope_base)
     if name == "fp32":
         _check(out.cpu(), wout.cpu(), 2e-5)
         _check(lse.cpu(), wlse.cpu(), 2e-5)
-        for a, b in zip(grads, wgrads):
+        for a, b in zip(grads, (wq, wk, wv)):
             _check(a.cpu(), b.cpu(), 1e-4)
     else:
         _check(out.cpu(), wout.cpu(), 2e-3, 2 ** -7)
         _check(lse.cpu(), wlse.cpu(), 1e-3)
-        for a, b in zip(grads, wgrads):
+        for a, b in zip(grads, (wq, wk, wv)):
             _check(a.cpu(), b.cpu(), 5e-3, 2 ** -6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_kernels_refuse_d256_on_card(cuda_device, name):
+    """D = 256 is not instantiated (a [64, 256] fp32 sum takes 128 of a
+    consumer thread's 240 registers): both kernels raise, naming
+    ROADMAP.md."""
+    _, td = DTYPES[name]
+    q = torch.zeros(1, 2, 512, 256, device=cuda_device, dtype=td)
+    lse = torch.zeros(1, 2, 1, 512, device=cuda_device)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 3"):
+        la.attention_fwd(q, q, q, 0.0625, True)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 3"):
+        la.attention_bwd(q, q, q, q, lse, q, 0.0625, True)
