@@ -10,8 +10,9 @@ result):
 2. build   — every kernel under paddle_tpu_torch/csrc, one nvcc each,
              all started together; registers, shared memory and spills
              of every kernel as ptxas reports them; then cuobjdump -sass
-             of the attention library must show HGMMA (wgmma) in each of
-             the six bf16 tensor-core attention instantiations.
+             must show HGMMA (wgmma) in each of the six bf16 tensor-core
+             attention instantiations and in each of the four grouped
+             expert FFN GEMMs (GEMM 1 and GEMM 2, bf16 and int8 weights).
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA tensors, at the shapes the serving and training paths
              give it, then its time (CUDA events, L2 flushed before each
@@ -91,8 +92,11 @@ result):
              C = 20 (a 64-token decode batch), fp32 [4, 256, 256] x 512,
              relu and silu, C = 130, [2, 7, 8, 8], H and F off the
              multiples of 128 through impl="pallas", H above 2048; int8
-             at [8, 2560, 2048] and [8, 20, 2048] x 5504.  Timed beside
-             the bound, the plain version and the einsum route.
+             at [8, 2560, 2048] and [8, 20, 2048] x 5504, and int8 with H
+             and F off the multiples of 128 (and 16) through
+             impl="pallas".  Timed beside the bound, the plain version
+             and the einsum route; at the bench bucket also GEMM 1 and
+             GEMM 2 of the tensor-core route alone.
 10. moe train — bench.py's `moe` config (bench.py:1832-1939): its body,
              ep_moe_local forward and backward at T = 8192, H = 2048,
              E = 8, top-2, F = 5504, C = 2560, bf16 tokens and experts,
@@ -178,28 +182,34 @@ def phase_build():
 
 
 def check_tensor_cores(build):
-    """The bf16 attention kernels run on the tensor cores: every
-    instantiation of ``attn_wg_*`` in the built library's SASS holds
-    ``HGMMA`` (wgmma) instructions.  Raises if one holds none, or if
-    there are not the six instantiations (fwd, dK/dV, dQ; causal or
-    not)."""
+    """The bf16 kernels run on the tensor cores: every instantiation of
+    ``attn_wg_*`` (attention) and of ``gffn_wg_kernel`` (the grouped
+    expert FFN's two GEMMs, bf16 and int8 weights) in the built libraries'
+    SASS holds ``HGMMA`` (wgmma) instructions.  Raises if one holds none,
+    or if there are not six attention and four grouped instantiations."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    so = build._target("long_attention")
-    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    found = {}
-    for chunk in sass.split("Function : ")[1:]:
-        m = re.search(r"(attn_wg_\w+?_kernel)I(Lb[01])E", chunk.split()[0])
-        if m:
-            found[m.group(1) + "<" + m.group(2) + ">"] = chunk.count("HGMMA")
-    log(f"[build] HGMMA instructions per tensor-core attention "
-        f"instantiation (cuobjdump -sass): {found}")
-    if len(found) != 6 or not all(found.values()):
-        raise AssertionError(f"[build] expected HGMMA in the six attn_wg "
-                             f"instantiations, found {found}")
+    expect = {"long_attention": (r"(attn_wg_\w+?_kernel)I(Lb[01])E", 6),
+              "grouped_gemm": (r"(gffn_wg_kernel)I(\w+?Li[12])E", 4)}
+    for lib, (pattern, count) in expect.items():
+        so = build._target(lib)
+        sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        found = {}
+        for chunk in sass.split("Function : ")[1:]:
+            m = re.search(pattern, chunk.split()[0])
+            if m:
+                args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+                args = re.sub(r"^aLi", "int8,Li", args)
+                found[f"{m.group(1)}<{args}>"] = chunk.count("HGMMA")
+        log(f"[build] HGMMA instructions per tensor-core instantiation of "
+            f"{lib} (cuobjdump -sass): {found}")
+        if len(found) != count or not all(found.values()):
+            raise AssertionError(f"[build] expected HGMMA in the {count} "
+                                 f"tensor-core instantiations of {lib}, "
+                                 f"found {found}")
 
 
 def _ptxas_entries(text):
@@ -1701,6 +1711,16 @@ GROUPED_CASES = [
      "pallas"),
 ]
 GROUPED_Q_CASES = [("int8 bench bucket", 8, 2560), ("int8 decode C=20", 8, 20)]
+#: (E, C, H, F) of the int8 case off the multiples of 128 (and of 16)
+GROUPED_Q_RAGGED = (4, 64, 200, 300)
+
+
+def _time_halves(gg, args, act, flush, iters):
+    """Milliseconds of GEMM 1 alone and GEMM 2 alone of the tensor-core
+    route on ``args`` (x, w1, s1, b1, w2, s2, b2)."""
+    return tuple(time_ms(lambda p=p: gg._launch(*args, act, "halves",
+                                                passes=p), flush, iters)
+                 for p in (1, 2))
 
 
 def _moe_weights(gen, E, H, F, dtype, device, scale=0.02):
@@ -1732,7 +1752,7 @@ def phase_grouped_kernels(device, iters=10):
     gen.manual_seed(97531)
     before = (gg.grouped_ffn.launches, gg.grouped_ffn_q.launches)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
-    errs, timed = {"grouped_ffn": 0.0, "grouped_ffn_q": 0.0}, {}
+    errs, timed, halves = {"grouped_ffn": 0.0, "grouped_ffn_q": 0.0}, {}, {}
     bench_w = None
     for label, E, C, H, F, dt, act, impl in GROUPED_CASES:
         x = torch.randn(E, C, H, generator=gen, device=device).to(dt)
@@ -1756,6 +1776,8 @@ def phase_grouped_kernels(device, iters=10):
                                   w1.element_size()), tag)
         if label == "bench bucket":
             bench_w = (w1, b1, w2, b2)
+            halves[("grouped_ffn", label)] = _time_halves(
+                gg, (x, w1, None, b1, w2, None, b2), act, flush, iters)
         del x, got, want
         if label != "bench bucket":
             del w1, b1, w2, b2
@@ -1784,10 +1806,29 @@ def phase_grouped_kernels(device, iters=10):
                 lambda: gg.grouped_ffn_q_reference(*args),
                 lambda: gg.einsum_ffn(x, dq1, b1, dq2, b2))],
             grouped_ffn_bound(E, C, H, F, 2, 1, scales=True), tag)
+        if label == "int8 bench bucket":
+            halves[("grouped_ffn_q", label)] = _time_halves(
+                gg, args, "gelu", flush, iters)
         del x, args, got, want
         torch.cuda.empty_cache()
     del q1, q2, dq1, dq2, flush
     torch.cuda.empty_cache()
+
+    # int8 weights whose H and F TMA cannot describe unpadded, through the
+    # router with the kernel route forced (the wrapper zero-pads them)
+    E, C, H, F = GROUPED_Q_RAGGED
+    x = torch.randn(E, C, H, generator=gen, device=device).bfloat16()
+    w1, b1, w2, b2 = _moe_weights(gen, E, H, F, torch.float32, device)
+    q1, q2 = tq.quantize_linear(w1), tq.quantize_linear(w2)
+    got = gg.grouped_ffn(x, q1, b1, q2, b2, "sigmoid", impl="pallas")
+    torch.cuda.synchronize()
+    want = gg.grouped_ffn_q_reference(x, q1["qweight"], q1["scale"], b1,
+                                      q2["qweight"], q2["scale"], b2,
+                                      "sigmoid")
+    errs["grouped_ffn_q"] = max(errs["grouped_ffn_q"], _hold_grouped(
+        f"grouped_ffn_q int8, H and F not multiples of 128 [{E}, {C}, {H}] "
+        f"x F={F} bf16 sigmoid, impl=pallas", got, want))
+    del x, w1, b1, w2, b2, q1, q2, got, want
     gg.grouped_ffn.launches, gg.grouped_ffn_q.launches = before
 
     lib = {"grouped_ffn": "einsum_ffn: torch.bmm + bias + activation + "
@@ -1800,6 +1841,10 @@ def phase_grouped_kernels(device, iters=10):
             f"{bound:.4f} ms ({by}) | plain {plain:.4f} ms | library_ms "
             f"{library:.4f} ms ({lib[name]}) | {100 * bound / ms:.1f}% of "
             f"bound")
+    for (name, label), (t1, t2) in halves.items():
+        log(f"[kernels] {name} GEMM halves at {label}: GEMM 1 (x @ w1, s1, "
+            f"b1, activation, h as bf16 hi + lo) {t1:.4f} ms | GEMM 2 "
+            f"(h_hi @ w2 + h_lo @ w2, s2, b2) {t2:.4f} ms")
     rows = []
     for name, label, line in (("grouped_ffn", "bench bucket", 110),
                               ("grouped_ffn_q", "int8 bench bucket", 184)):

@@ -95,13 +95,14 @@
 //    They take Hkv == H (the wrapper repeats K/V for GQA) and S a
 //    multiple of 64.
 
-#include <cuda.h>  // CUtensorMap and its enums only; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -582,6 +583,8 @@ cudaError_t bwd_by_flags(const A& a, int causal, int rope) {
 
 namespace wg {
 
+using namespace hopper;
+
 constexpr int kD = 128;            // head dim: two 64-column regions
 constexpr int kRow = 128;          // bytes of one swizzled region row
 constexpr int kThreads = 384;      // two consumer warpgroups + producer
@@ -611,84 +614,6 @@ constexpr int kDqSmem = 1024 + 2 * tile_bytes(kQM) +
                         2 * kStages * tile_bytes(kQN) +
                         8 * (1 + 2 * kStages);
 
-__device__ __forceinline__ uint32_t su32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (su32(p) & 1023u)) & 1023u);
-}
-
-// -- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void bar_init(uint64_t* b, uint32_t n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(su32(b)),
-               "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          su32(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(su32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of parity `parity` to complete.  A phase still open
-// after 4 s (a bug: a tile takes microseconds) traps, so a fault ends the
-// launch with an error instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
-  uint32_t done, polls = 0;
-  uint64_t t0 = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(su32(b)), "r"(parity)
-        : "memory");
-    if (!done && (++polls & 1023u) == 0) {
-      const uint64_t t = now_ns();
-      if (t0 == 0)
-        t0 = t;
-      else if (t - t0 > 4000000000ull)
-        __trap();
-    }
-  } while (!done);
-}
-
-// One lane per consumer warp tells the producer a stage is free.
-__device__ __forceinline__ void release(uint64_t* b, int lane) {
-  __syncwarp();
-  if (lane == 0) bar_arrive(b);
-}
-
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       uint64_t* b, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(su32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(su32(b)), "r"(x), "r"(y)
-      : "memory");
-}
-
 // Rows [row, row + rows) of a [*, 128] tensor, as two swizzled regions.
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t* b, int row, int rows) {
@@ -696,24 +621,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
   tma_2d(dst + rows * kRow, map, b, 64, row);
 }
 
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(su32(dst)),
-      "l"(src), "r"(bytes), "r"(su32(b))
-      : "memory");
-}
-
 // -- wgmma ------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo,
-                                          uint32_t sbo) {
-  return static_cast<uint64_t>((su32(p) & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
 
 // K-major operand (rows = M or N, the 128 columns = K), 8-row groups
 // 1024 bytes apart: kdesc(tile) describes k step 0, and k step kk
@@ -736,23 +644,6 @@ __device__ __forceinline__ uint64_t tdesc(const uint8_t* tile, int rows) {
 }
 __host__ __device__ constexpr uint64_t tstep(int kk) {
   return static_cast<uint64_t>(kk * 16 * kRow >> 4);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving reads of wgmma results above the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A * B, m64nNk16 with N = 2 x the accumulator's length (64 or
@@ -832,20 +723,6 @@ __device__ __forceinline__ void wgmma_rs_n128t(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Register budgets after the split (setmaxnreg): the block launches with
-// 168 a thread (384 threads in 64K registers); the producer warpgroup
-// gives all but 24 back and each consumer warpgroup takes 240 for its
-// 64-register fp32 sum, its score tiles and their bf16 hi + lo
-// fragments: 128 x 24 + 256 x 240 = 384 x 168.
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-
-__device__ __forceinline__ void regs_producer() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-}
-__device__ __forceinline__ void regs_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-}
-
 // -- small helpers ------------------------------------------------------------
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -856,16 +733,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// (x0, x1) as two bf16x2 terms, hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 __device__ __forceinline__ int kv_head(int bh, int H, int G) {
@@ -1336,31 +1203,6 @@ attn_wg_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- host: tensor maps and launches ----------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    if (e != cudaSuccess || got != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A [rows, 128] bf16 tensor read in boxes of `box` rows x 64 columns.
 bool make_map(CUtensorMap* map, const void* base, size_t rows, int box) {
   const EncodeTiled fn = encode_fn();
@@ -1384,13 +1226,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
 
 template <bool kCausal>
 cudaError_t fwd(const Args& a) {

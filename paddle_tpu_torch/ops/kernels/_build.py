@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` and load them via ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/<name>-<hash>.so``, where the hash covers the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+into ``_build/<name>-<hash>.so``, where the hash covers the source, every
+shared header ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 Nothing is built when a module is imported: a kernel's wrapper calls
 :func:`load` on its first launch, and ``build_all`` starts one ``nvcc``
 per source at once for scripts that want every kernel ready up front.
@@ -45,6 +46,8 @@ def sources() -> list:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{h[:16]}.so"
 

@@ -8,32 +8,28 @@ grouped_gemm.py``: ``_pallas_ffn`` (kernel 10)
 
 for every expert over sort-dispatched buckets ``x [E, C, H]`` (w1
 ``[E, H, F]``, b1 ``[E, 1, F]``, w2 ``[E, F, H]``, b2 ``[E, 1, H]``), with
-x and the weights widened to f32, the hidden ``h`` kept in f32 and never
-written to device memory, and one cast of the f32 sum to x's dtype; and
-``_pallas_ffn_q`` (kernel 11), the same over int8 weights with per-output
-channel f32 scales ``s1 [E, 1, F]`` and ``s2 [E, 1, H]``:
-``h = act((x @ q1) * s1 + b1)``, ``out = (h @ q2) * s2 + b2``.  The
-kernels are ``csrc/grouped_gemm.cu``.
+x and the weights widened to f32, the hidden ``h`` kept in f32 and one
+cast of the f32 sum to x's dtype; and ``_pallas_ffn_q`` (kernel 11), the
+same over int8 weights with per-output channel f32 scales ``s1 [E, 1, F]``
+and ``s2 [E, 1, H]``: ``h = act((x @ q1) * s1 + b1)``,
+``out = (h @ q2) * s2 + b2``.  The kernels are ``csrc/grouped_gemm.cu``.
 
 What bounds them on an H100: ``4 * E * C * H * F`` flops at the bf16
 tensor-core rate at MoE training sizes; the weight bytes at a decode-sized
-C (int8: a quarter of f32's).  The TPU kernel accumulated a ``[bc, H]``
-f32 row block in VMEM across F blocks; at bc = 64 and H = 2048 that is
-512 KB, and an SM has 227 KB of shared memory.  So the CUDA kernel gives
-a block 16 rows and keeps their ``[16, 2048]`` f32 sum in registers
-(128 a thread), streams w1 and w2 panels through a 4-stage ``cp.async``
-ring, and multiplies with ``mma.sync`` bf16 tiles: the first product
-exactly (bf16 x bf16 products are exact in f32), the second from ``h``
-split into two bf16 terms (hi + lo), so ``h`` is never rounded to bf16
-once.  f32 x takes f32 FMA tiles.  Int8 panels are widened to bf16 in
-shared memory (exact), s1 scales the f32 first product before b1 and the
-activation, s2 each F block's contribution before it is added, as
-``_qkernel`` does.  H above 2048 is cut into 2048-column slices, each
-recomputing h; a C too small to fill the card (decode) splits the F
-blocks over blocks, whose f32 partial sums a second kernel adds in a
-fixed order (no atomics).  On an H100 the 16-row blocks move each weight
-byte through shared memory for only 16 rows of products, which bounds
-the kernel well before the tensor cores (the .cu's note has the numbers).
+C (int8: half of bf16's).  bf16 x takes two warp-specialised grouped GEMMs
+on the tensor cores (``wgmma`` m64n256 tiles of 128 rows fed by TMA
+through an mbarrier ring): GEMM 1 ``x @ w1`` with s1, b1 and the
+activation in f32, ``h`` stored as two bf16 terms ``hi + lo`` (about 16
+bits, never rounded to bf16 once) to scratch the wrapper allocates;
+GEMM 2 ``h_hi @ w2 + h_lo @ w2`` with s2 on the f32 sum, b2 and one
+cast.  Int8 weights arrive raw and are widened to bf16 in shared memory
+(exact); no bf16 copy of them is made.  A C too small to fill the card
+splits GEMM 2's F over blocks, whose f32 partial sums a second kernel adds
+in a fixed order (no atomics).  TMA needs 16-byte row strides, so H and
+F off the multiples of 8 (16 for int8) are zero-padded here first
+(:func:`pad_operands`: exact).  f32 x takes the f32 FMA kernel (the
+tensor cores would round x to TF32), as the first port wrote it.  The
+.cu's note has the design and its reasons.
 
 Routing (:func:`grouped_ffn`, as ``grouped_gemm.grouped_ffn`` routes):
 ``impl`` / ``PT_GROUPED_GEMM`` in {auto, pallas, einsum}.  ``auto`` takes
@@ -42,9 +38,10 @@ the kernel for CUDA tensors when H and F are multiples of 128, and
 TPU).  ``pallas`` forces the kernel route: CUDA tensors launch the
 kernel, CPU tensors take its plain version.  The kernel route's VJP is
 ``_fused_b``'s: plain f32 matmuls (:class:`GroupedFFN`).
-``grouped_ffn.launches`` and ``grouped_ffn_q.launches`` count launches
-of kernels 10 and 11.  The TPU's tile autotuning (``blocks()``) has no
-counterpart: the CUDA kernel's tiles are its own, for any C, H and F.
+``grouped_ffn.launches`` and ``grouped_ffn_q.launches`` count calls of
+kernels 10 and 11 (one per call, though a call launches two or three
+CUDA kernels).  The TPU's tile autotuning (``blocks()``) has no
+counterpart: the CUDA kernels' tiles are their own, for any C, H and F.
 """
 from __future__ import annotations
 
@@ -61,9 +58,11 @@ from ..quant import dequantize, is_quantized
 #: the .cu's activation codes
 ACTIVATIONS = {"gelu": 0, "relu": 1, "silu": 2, "sigmoid": 3, "tanh": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 16        # kRows in the .cu: rows of x per block
-COLS = 2048      # kCols: output columns per block
-F_BLOCK = 64     # kFB: the F block
+ROWS = 16        # kRows in the .cu: rows of x per f32 block
+COLS = 2048      # kCols: output columns per f32 block
+F_BLOCK = 64     # kFB: the f32 kernel's F block; the unit of F splits
+TILE_M = 128     # kBM: rows per tensor-core tile
+TILE_N = 256     # kBN: columns per tensor-core tile
 
 
 def _gelu(x):
@@ -124,7 +123,7 @@ def _lib():
     lib = _build.load("grouped_gemm")
     fn = lib.grouped_ffn_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -149,17 +148,57 @@ def _check(x, w1, b1, w2, b2, name):
     return E, C, H, F
 
 
-def _splits(E, C, H, F, device):
-    """F-block splits: 1 when the (row block, expert, column slice)
-    blocks fill the SMs, else enough to fill them (at most one F block
-    each)."""
-    base = -(-C // ROWS) * E * -(-H // COLS)
+def _splits(E, C, H, F, device, tensor_cores):
+    """Splits of F: 1 when the blocks that own output tiles fill the SMs,
+    else enough to fill them (at most one 64-wide F chunk each).  Those
+    blocks are (16 rows, 2048 columns) on the f32 kernel and GEMM 2's
+    (128 rows, 256 columns) on the tensor cores."""
+    if tensor_cores:
+        base = -(-C // TILE_M) * E * -(-H // TILE_N)
+    else:
+        base = -(-C // ROWS) * E * -(-H // COLS)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-F // F_BLOCK), sms // base))
 
 
-def _launch(x, w1, s1, b1, w2, s2, b2, activation, name):
-    """Launch the kernel on CUDA tensors (s1/s2 None for dense weights)."""
+def tma_padding(H, F, int8):
+    """``(H, F)`` rounded up to what the tensor-core kernels' TMA row
+    strides take: multiples of 8 (16 bytes of bf16), 16 for int8 weights
+    (16 bytes of int8)."""
+    m = 16 if int8 else 8
+    return -(-H // m) * m, -(-F // m) * m
+
+
+def pad_operands(x, w1, s1, b1, w2, s2, b2, Hp, Fp):
+    """Zero-pad the operands to ``H = Hp`` and ``F = Fp``: x ``[E, C,
+    Hp]``, w1 ``[E, Hp, Fp]``, w2 ``[E, Fp, Hp]``, biases and scales
+    ``[E, Fp]`` / ``[E, Hp]`` (s1, s2 None for dense weights).  Exact:
+    padded H columns of x meet zero rows of w1 and give output columns
+    that the caller slices off; padded F columns give ``act(0 + 0)``,
+    which need not be zero (sigmoid: 0.5), times zero rows of w2."""
+    E, _, H = x.shape
+    F = w1.shape[-1]
+    dh, df = Hp - H, Fp - F
+    pad = torch.nn.functional.pad
+
+    def vec(t, n, d):
+        return None if t is None else pad(t.reshape(E, n), (0, d))
+
+    return (pad(x, (0, dh)), pad(w1, (0, df, 0, dh)), vec(s1, F, df),
+            vec(b1, F, df), pad(w2, (0, dh, 0, df)), vec(s2, H, dh),
+            vec(b2, H, dh))
+
+
+def _aligned(t):
+    """``t``, or a copy of it when its data does not start on 16 bytes
+    (TMA's rule for a tensor's base)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w1, s1, b1, w2, s2, b2, activation, name, passes=3):
+    """Launch the kernels on CUDA tensors (s1/s2 None for dense weights).
+    ``passes`` (bf16 x only): 1 runs GEMM 1 alone, 2 GEMM 2 alone (on
+    whatever its h scratch holds), 3 both; 1 and 2 serve timing only."""
     E, C, H, F = x.shape[0], x.shape[1], x.shape[2], w1.shape[-1]
     _act_fn(activation)              # raises on an unknown activation
     tensors = [("x", x), ("w1", w1), ("w2", w2), ("b1", b1), ("b2", b2)]
@@ -175,23 +214,41 @@ def _launch(x, w1, s1, b1, w2, s2, b2, activation, name):
         raise ValueError(f"{name}: empty shape E={E} C={C} H={H} F={F}")
     f32 = torch.float32
     b1, b2 = b1.to(f32).contiguous(), b2.to(f32).contiguous()
-    out = torch.empty((E, C, H), dtype=x.dtype, device=x.device)
-    nsplit = _splits(E, C, H, F, x.device)
-    work = (torch.empty((nsplit, E, C, H), dtype=f32, device=x.device)
+    dev = x.device
+    tensor_cores = x.dtype == torch.bfloat16
+    h_hi = h_lo = None
+    H0 = H
+    if tensor_cores:
+        Hp, Fp = tma_padding(H, F, s1 is not None)
+        if (Hp, Fp) != (H, F):
+            x, w1, s1, b1, w2, s2, b2 = pad_operands(x, w1, s1, b1, w2, s2,
+                                                     b2, Hp, Fp)
+            H, F = Hp, Fp
+        x, w1, w2, b1, b2 = (_aligned(t) for t in (x, w1, w2, b1, b2))
+        if s1 is not None:
+            s1, s2 = _aligned(s1), _aligned(s2)
+        h_hi = torch.empty((E, C, F), dtype=torch.bfloat16, device=dev)
+        h_lo = torch.empty_like(h_hi)
+    out = torch.empty((E, C, H), dtype=x.dtype, device=dev)
+    nsplit = _splits(E, C, H, F, dev, tensor_cores)
+    work = (torch.empty((nsplit, E, C, H), dtype=f32, device=dev)
             if nsplit > 1 else None)
     launch = _lib()
-    with torch.cuda.device(x.device):        # the C side launches on the
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):              # the C side launches on the
         stream = torch.cuda.current_stream()  # current device's stream
-        rc = launch(x.data_ptr(), w1.data_ptr(),
-                    None if s1 is None else s1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), None if s2 is None else s2.data_ptr(),
-                    b2.data_ptr(), out.data_ptr(),
-                    None if work is None else work.data_ptr(),
-                    E, C, H, F, _DTYPE_CODE[x.dtype], int(s1 is not None),
-                    ACTIVATIONS[activation], nsplit, stream.cuda_stream)
+        rc = launch(x.data_ptr(), w1.data_ptr(), ptr(s1), b1.data_ptr(),
+                    w2.data_ptr(), ptr(s2), b2.data_ptr(), out.data_ptr(),
+                    ptr(work), ptr(h_hi), ptr(h_lo), E, C, H, F,
+                    _DTYPE_CODE[x.dtype], int(s1 is not None),
+                    ACTIVATIONS[activation], nsplit, passes,
+                    stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    return out
+    return out if H == H0 else out[..., :H0].contiguous()
 
 
 def grouped_ffn_fwd(x, w1, b1, w2, b2, activation="gelu"):

@@ -43,7 +43,8 @@ def build_hi_only():
     out.mkdir(parents=True, exist_ok=True)
     (out / "long_attention_hi.cu").write_text(src)
     so = out / "long_attention_hi.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                    f"-I{_build.CSRC}", "-o", str(so),
                     str(out / "long_attention_hi.cu")], check=True,
                    capture_output=True)
     return ctypes.CDLL(str(so))

@@ -250,6 +250,90 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     assert (gg.grouped_ffn.launches, gg.grouped_ffn_q.launches) == before
 
 
+# -- the tensor-core kernels' rounding points -------------------------------------
+
+def _seq_mm(a, b):
+    """``a [E, M, K] @ b [E, K, N]`` in f32 with each sum taken over k in
+    order (``cumsum``), so trailing zero terms leave it bit for bit."""
+    return (a.unsqueeze(-1) * b.unsqueeze(1)).cumsum(2)[:, :, -1]
+
+
+def tensor_core_model(x, w1, b1, w2, b2, activation="gelu", s1=None,
+                      s2=None):
+    """The arithmetic of the bf16-x CUDA kernels: bf16 (or int8) products
+    exact in f32, summed in f32; s1 on the first product before b1 and
+    the activation; h carried as two bf16 terms hi = bf16(h), lo =
+    bf16(h - hi), each multiplied by w2; s2 once on the f32 sum over F,
+    then b2; one cast to x's dtype.  Biases and scales ``[E, n]``."""
+    f = torch.float32
+    E = x.shape[0]
+    p = _seq_mm(x.to(f), w1.to(f))
+    if s1 is not None:
+        p = p * s1.to(f).reshape(E, 1, -1)
+    h = gg._act_fn(activation)(p + b1.to(f).reshape(E, 1, -1))
+    hi = h.bfloat16().to(f)
+    lo = (h - hi).bfloat16().to(f)
+    acc = _seq_mm(hi, w2.to(f)) + _seq_mm(lo, w2.to(f))
+    if s2 is not None:
+        acc = acc * s2.to(f).reshape(E, 1, -1)
+    return (acc + b2.to(f).reshape(E, 1, -1)).to(x.dtype)
+
+
+@pytest.mark.parametrize("act", ["gelu", "sigmoid"])
+def test_tensor_core_model_matches_pallas_interpret_at_f5504(act):
+    """At the MoE config's real F = 5504 (small E, C, H), the kernels'
+    rounding points (h as bf16 hi + lo, products exact in f32) stay
+    within the file's bf16 tolerance of ``_pallas_ffn``, which keeps h
+    in f32."""
+    arrs = _operands(2, 16, 128, 5504, seed=43)
+    want = _jax(jgg.grouped_ffn, *_jax_args(arrs, "bfloat16"),
+                activation=act, impl="pallas")
+    got = tensor_core_model(*_torch_args(arrs, "bfloat16"), activation=act)
+    _close(got, want, "bfloat16")
+
+
+def test_int8_tensor_core_model_matches_pallas_q_interpret_at_f5504():
+    """The same for ``_pallas_ffn_q``: int8 weights widened to bf16
+    (exact), s1 before b1, s2 once on the f32 sum over F where the TPU
+    kernel scales each F block's contribution."""
+    arrs = _operands(2, 16, 128, 5504, seed=47)
+    (jq1, jq2), (tq1, tq2) = _quantized(arrs)
+    jx, _, jb1, _, jb2 = _jax_args(arrs, "bfloat16")
+    tx, _, tb1, _, tb2 = _torch_args(arrs, "bfloat16")
+    want = _jax(jgg.grouped_ffn, jx, jq1, jb1, jq2, jb2, impl="pallas")
+    got = tensor_core_model(tx, tq1["qweight"], tb1, tq2["qweight"], tb2,
+                            s1=tq1["scale"], s2=tq2["scale"])
+    _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu", "sigmoid", "tanh"])
+def test_padding_for_tma_is_exact(act, int8):
+    """H, F off the multiples TMA takes are zero-padded by the wrapper;
+    the padded F columns give act(0) (0.5 for sigmoid) times zero rows of
+    w2, the padded H columns are sliced off: the padded model sliced back
+    equals the unpadded one bit for bit."""
+    E, C, H, F = 2, 9, 20, 30
+    arrs = _torch_args(_operands(E, C, H, F, seed=53), "bfloat16")
+    x, w1, b1, w2, b2 = arrs
+    s1 = s2 = None
+    if int8:
+        _, (q1, q2) = _quantized(_operands(E, C, H, F, seed=53))
+        w1, s1, w2, s2 = q1["qweight"], q1["scale"], q2["qweight"], \
+            q2["scale"]
+    Hp, Fp = gg.tma_padding(H, F, int8)
+    assert (Hp, Fp) == ((32, 32) if int8 else (24, 32))
+    padded = gg.pad_operands(x, w1, s1, b1.float(), w2, s2, b2.float(), Hp,
+                             Fp)
+    px, pw1, ps1, pb1, pw2, ps2, pb2 = padded
+    assert tuple(px.shape) == (E, C, Hp) and tuple(pw1.shape) == (E, Hp, Fp)
+    assert tuple(pw2.shape) == (E, Fp, Hp) and pw1.dtype == w1.dtype
+    got = tensor_core_model(px, pw1, pb1, pw2, pb2, act, ps1, ps2)[..., :H]
+    want = tensor_core_model(x, w1, b1.float(), w2, b2.float(), act, s1,
+                             s2)
+    assert torch.equal(got, want)
+
+
 # -- on the card ----------------------------------------------------------------
 
 @pytest.fixture
@@ -320,3 +404,32 @@ def test_kernel_route_backward_on_card(cuda_device):
         grads.append([t.grad.cpu() for t in ta])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [2560, 20])
+def test_tensor_core_kernels_at_moe_shapes_on_card(cuda_device, C, int8):
+    """Kernels 10 and 11 at the MoE bench bucket (C = 2560) and a decode
+    bucket (C = 20, where GEMM 2 splits F), E = 8, H = 2048, F = 5504,
+    against the plain version on the card."""
+    E, H, F = 8, 2048, 5504
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(59 + C)
+    x = torch.randn(E, C, H, generator=gen, device=cuda_device).bfloat16()
+    w1, w2 = (torch.randn(E, a, b, generator=gen, device=cuda_device) * 0.02
+              for a, b in ((H, F), (F, H)))
+    b1 = torch.randn(E, 1, F, generator=gen, device=cuda_device) * 0.02
+    b2 = torch.randn(E, 1, H, generator=gen, device=cuda_device) * 0.02
+    if int8:
+        q1, q2 = tq.quantize_linear(w1), tq.quantize_linear(w2)
+        args = (x, q1["qweight"], q1["scale"], b1, q2["qweight"],
+                q2["scale"], b2)
+        got, want = gg.grouped_ffn_q(*args), gg.grouped_ffn_q_reference(
+            *args)
+    else:
+        args = (x, w1.bfloat16(), b1, w2.bfloat16(), b2)
+        got, want = gg.grouped_ffn_fwd(*args), gg.grouped_ffn_reference(
+            *args)
+    torch.cuda.synchronize()
+    _hold_on_card(got, want, "bfloat16")
