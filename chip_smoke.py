@@ -11,8 +11,10 @@ result):
              all started together; registers, shared memory and spills
              of every kernel as ptxas reports them; then cuobjdump -sass
              must show HGMMA (wgmma) in each of the six bf16 tensor-core
-             attention instantiations and in each of the four grouped
-             expert FFN GEMMs (GEMM 1 and GEMM 2, bf16 and int8 weights).
+             attention instantiations, in each of the twelve bf16
+             short-attention ones (forward, dK/dV and dQ; D = 64 and 128;
+             causal or not) and in each of the four grouped expert FFN
+             GEMMs (GEMM 1 and GEMM 2, bf16 and int8 weights).
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA tensors, at the shapes the serving and training paths
              give it, then its time (CUDA events, L2 flushed before each
@@ -35,7 +37,8 @@ result):
              itself (S = D = 128, p = 0.5, v = I and g = I: the zero
              patterns of out and dv equal the plain version's exactly);
              timed at the BERT shape beside the bound, the plain version
-             and SDPA with dropout.
+             and SDPA with dropout, and the BERT shape's times at p = 0.1
+             beside p = 0 (the cost of the mask).
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
              from seed 0 made on the card, 16 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
@@ -183,15 +186,18 @@ def phase_build():
 
 def check_tensor_cores(build):
     """The bf16 kernels run on the tensor cores: every instantiation of
-    ``attn_wg_*`` (attention) and of ``gffn_wg_kernel`` (the grouped
-    expert FFN's two GEMMs, bf16 and int8 weights) in the built libraries'
-    SASS holds ``HGMMA`` (wgmma) instructions.  Raises if one holds none,
-    or if there are not six attention and four grouped instantiations."""
+    ``attn_wg_*`` (attention), ``sattn_*_wg_kernel`` (short attention)
+    and ``gffn_wg_kernel`` (the grouped expert FFN's two GEMMs, bf16 and
+    int8 weights) in the built libraries' SASS holds ``HGMMA`` (wgmma)
+    instructions.  Raises if one holds none, or if there are not six
+    attention, twelve short-attention and four grouped instantiations."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     expect = {"long_attention": (r"(attn_wg_\w+?_kernel)I(Lb[01])E", 6),
+              "short_attention": (r"(sattn_\w+?_wg_kernel)I(Li\d+ELb[01])E",
+                                  12),
               "grouped_gemm": (r"(gffn_wg_kernel)I(\w+?Li[12])E", 4)}
     for lib, (pattern, count) in expect.items():
         so = build._target(lib)
@@ -203,6 +209,7 @@ def check_tensor_cores(build):
             if m:
                 args = m.group(2).replace("13__nv_bfloat16", "bf16,")
                 args = re.sub(r"^aLi", "int8,Li", args)
+                args = re.sub(r"^Li(\d+)E", r"\1,", args)
                 found[f"{m.group(1)}<{args}>"] = chunk.count("HGMMA")
         log(f"[build] HGMMA instructions per tensor-core instantiation of "
             f"{lib} (cuobjdump -sass): {found}")
@@ -1391,6 +1398,13 @@ def phase_short_kernels(device, iters=20):
             f"{100 * bb[0] / kernel_ms[label][1]:.1f}%)")
         del q, k, v, g, out, lse, out32, grads
         torch.cuda.empty_cache()
+
+    f1, b1 = kernel_ms["bert-base p=0.1"]
+    f0, b0 = kernel_ms["bert-base p=0"]
+    log(f"[kernels] short_attention mask cost at [48, 12, 384, 64] bf16: "
+        f"fwd {f1:.4f} ms at p=0.1 vs {f0:.4f} ms at p=0 "
+        f"({100 * (f1 / f0 - 1):+.1f}%), bwd {b1:.4f} vs {b0:.4f} ms "
+        f"({100 * (b1 / b0 - 1):+.1f}%)")
 
     # the mask itself: v = I makes out the dropped probability matrix, and
     # g = I makes dv its transpose

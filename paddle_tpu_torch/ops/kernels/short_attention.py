@@ -19,20 +19,24 @@ the caller's generator on that device and the kernel reads it from device
 memory, so no host sync is needed per layer; the autograd function saves
 it for the backward.
 
-What bounds the kernels on an H100: operations (two [S, S, D] products
-forward, five backward, halved when causal).  The TPU kernel kept one
+What bounds the kernels on an H100: at BERT-base's shape, bytes (q, k, v,
+out once each) ahead of the two [S, S, D] products forward and five
+backward, with the mask's integer hash besides.  The TPU kernel kept one
 head's whole [S, S] score matrix in VMEM; S = 1024 fp32 scores are 4 MB
 and an SM has 227 KB of shared memory, so the CUDA kernels are
-flash-style: 64-row q tiles against 64-row K/V tiles with an fp32 online
-softmax whose sum ``l`` takes the undropped exponentials, the mask and
-``1/(1-p)`` multiplying only the numerator (equal to the TPU's
-``p = e/l`` followed by the mask).  The backward sums dK/dV in a pass over
-K tiles and dQ in a pass over q tiles (no atomics, deterministic).  The
-backward's ``delta = rowsum(g · out)`` reads the forward's output in
-fp32, which the forward keeps beside a bf16 ``out``: from the bf16 output
-it would miss the TPU's ``rowsum(dp · p)`` by a rounding of ``out``,
-enough to put early causal rows of dq outside the bf16 tolerance.  The
-products run on the fp32 cores; tensor cores come later.
+flash-style, with an fp32 online softmax whose sum ``l`` takes the
+undropped exponentials, the mask and ``1/(1-p)`` multiplying only the
+numerator (equal to the TPU's ``p = e/l`` followed by the mask).  bf16
+inputs run on the tensor cores (``wgmma`` fed by TMA, two consumer
+warpgroups and a producer; the dropped numerator and ``ds`` enter the
+products as bf16 hi + lo); fp32 inputs on the fp32 cores.  The dtype
+picks one family, with no fallback between them.  The backward sums
+dK/dV in a pass over K tiles and dQ in a pass over q tiles (no atomics,
+deterministic).  Its ``delta = rowsum(g · out)`` reads the forward's
+output in fp32, which the forward keeps beside a bf16 ``out``: from the
+bf16 output it would miss the TPU's ``rowsum(dp · p)`` by a rounding of
+``out``, enough to put early causal rows of dq outside the bf16
+tolerance.
 
 Routing: CPU tensors take the plain versions; CUDA tensors launch the
 kernels or raise.  ``short_attention_fwd.launches`` /
@@ -50,7 +54,7 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)          # the .cu's instantiations
-TILE = 64                      # kB in the .cu: S must be a multiple
+TILE = 128                     # S must be a multiple (the .cu's tiles)
 _NEG = -1e30                   # the TPU kernel's causal mask value
 _U32 = 0xFFFFFFFF
 
@@ -237,7 +241,7 @@ def short_attention_fwd(q, k, v, seed, scale, dropout_p=0.0, causal=False):
     tensors take :func:`short_attention_fwd_reference`; CUDA tensors
     launch the kernel, or raise on what it does not take: dtypes other
     than f32 or bf16 (the same for q, k, v), D not 64 or 128, S not a
-    multiple of 64, a non-contiguous input."""
+    multiple of :data:`TILE` (128), a non-contiguous input."""
     dropout_p = float(dropout_p)
     _check("short_attention_fwd", q, seed, dropout_p, k, v)
     if k.shape != q.shape or v.shape != q.shape:

@@ -15,6 +15,13 @@
 * ``sdpa``'s routing against ``_sdpa_plain``'s own choice with dropout on
   and off (its kernels replaced by spies, ``jax.devices()`` reporting a
   TPU), and the short route and the einsum route's dropout on the CPU.
+* A plain model of the bf16 tensor-core kernels' rounding points (fp32
+  sums over 128-key tiles in log2 units, the dropped numerator ``e·M·inv``
+  and ``ds`` split into bf16 hi + lo before each product) against the
+  Pallas kernel in interpret mode at BERT's S = 384, D = 64, p = 0.1 and
+  Llama's S = 512, D = 128 causal, within ``chip_smoke.py`` phase 3e's
+  bf16 tolerances (out 2e-3 + 2^-7 |want|, out32 and lse 2e-5, grads
+  5e-3 + 2^-6 |want|).
 
 Tolerances: out/lse fp32 atol 2e-5; bf16 out 2^-7 * |want| + 2e-3 (one
 bf16 rounding of an fp32 result), lse atol 1e-3; dq/dk/dv fp32 atol
@@ -105,20 +112,26 @@ KERNEL_CASES = [
 ]
 
 
+def _pallas(q, k, v, g, jd, scale, p, causal):
+    """The Pallas kernel in interpret mode on numpy inputs cast to ``jd``:
+    (out, lse, (dq, dk, dv)) at ``SEED``."""
+    J = [jnp.asarray(a, jd) for a in (q, k, v, g)]
+    with jax.enable_x64(False), pltpu.force_tpu_interpret_mode():
+        jout, jlse = _fwd_call_impl(*J[:3], jnp.asarray([SEED], jnp.int32),
+                                    scale, p, causal)
+        _, vjp = jax.vjp(lambda a, b, c: jax_short_attention(
+            a, b, c, jnp.int32(SEED), None, p, causal), *J[:3])
+        return jout, jlse, vjp(J[3])
+
+
 @pytest.mark.parametrize("S,D,causal,p,name", KERNEL_CASES)
 def test_matches_pallas_kernel_in_interpret_mode(S, D, causal, p, name):
     jd, td = DTYPES[name]
     rng = np.random.RandomState(S + D + int(causal))
     q, k, v, g = (rng.randn(1, 2, S, D).astype(np.float32)
                   for _ in range(4))
-    J = [jnp.asarray(a, jd) for a in (q, k, v, g)]
     scale = 1.0 / math.sqrt(D)
-    with jax.enable_x64(False), pltpu.force_tpu_interpret_mode():
-        jout, jlse = _fwd_call_impl(*J[:3], jnp.asarray([SEED], jnp.int32),
-                                    scale, p, causal)
-        _, vjp = jax.vjp(lambda a, b, c: jax_short_attention(
-            a, b, c, jnp.int32(SEED), None, p, causal), *J[:3])
-        jgrads = vjp(J[3])
+    jout, jlse, jgrads = _pallas(q, k, v, g, jd, scale, p, causal)
 
     T = [torch.from_numpy(a).to(td) for a in (q, k, v)]
     seed = torch.tensor([SEED], dtype=torch.int32)
@@ -148,6 +161,109 @@ def test_matches_pallas_kernel_in_interpret_mode(S, D, causal, p, name):
     for got, want in zip((t.grad for t in T), jgrads):
         assert got.dtype == td
         _check(got, want, *tol)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _hi_lo(x):
+    """fp32 ``x`` as the two bf16 terms the kernels feed ``wgmma``, hi =
+    bf16(x) and lo = bf16(x - hi), widened back to fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _two_term(a, b):
+    """``a @ b`` with ``a`` entering as bf16 hi + lo: two products, fp32
+    sums."""
+    hi, lo = _hi_lo(a)
+    return torch.matmul(hi, b) + torch.matmul(lo, b)
+
+
+def _kept(seed, p, B, H, S):
+    """The keep mask times the fp32 ``1/(1-p)`` (ones without dropout)."""
+    if p <= 0.0:
+        return torch.ones(B, H, S, S)
+    _, inv = sa.dropout_constants(p)
+    return sa.keep_mask(seed, B, H, S, 1.0 - p).float() * inv
+
+
+def _tc_fwd_model(q, k, v, seed, scale, p, causal, tile=128):
+    """The bf16 tensor-core forward's rounding points: fp32 scores of the
+    bf16 inputs in log2 units (causal: -1e30 above the diagonal), an
+    online softmax over 128-key tiles whose sum ``l`` takes the undropped
+    exponentials, the dropped numerator ``e·M·inv`` as bf16 hi + lo
+    against v, fp32 sums; out32 = o / l."""
+    B, H, S, _ = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        scale * _LOG2E)
+    if causal:
+        s = torch.where(torch.ones(S, S, dtype=torch.bool).tril(), s,
+                        torch.tensor(-1e30))
+    kept = _kept(seed, p, B, H, S)
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros(B, H, S, 1)
+    o = torch.zeros(B, H, S, q.shape[-1])
+    for c in range(0, S, tile):
+        st = s[..., c:c + tile]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        a = torch.exp2(m - mn)
+        e = torch.exp2(st - mn)
+        l = l * a + e.sum(-1, keepdim=True)
+        o = o * a + _two_term(e * kept[..., c:c + tile],
+                              v[..., c:c + tile, :].float())
+        m = mn
+    out32 = o / l
+    lse = (m + torch.log2(l)) / _LOG2E
+    return out32.to(q.dtype), lse[..., 0][:, :, None, :], out32
+
+
+def _tc_bwd_model(q, k, v, out32, lse, g, seed, scale, p, causal):
+    """The bf16 tensor-core backward's rounding points: ``p = exp2(s ·
+    scale·log2e - lse·log2e)``, ``delta`` from the fp32 output, ``pd =
+    p·M·inv`` and ``ds = p (dp·M·inv - delta)·scale`` each as bf16 hi + lo
+    before their products, fp32 sums, one bf16 rounding at the end."""
+    B, H, S, _ = q.shape
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    pr = torch.exp2(s * (scale * _LOG2E) - lse[:, :, 0, :, None] * _LOG2E)
+    if causal:
+        pr = pr * torch.ones(S, S).tril()
+    kept = _kept(seed, p, B, H, S)
+    delta = (gf * out32).sum(-1, keepdim=True)
+    ds = pr * (torch.matmul(gf, vf.transpose(-1, -2)) * kept - delta) * scale
+    dv = _two_term((pr * kept).transpose(-1, -2), gf)
+    dq = _two_term(ds, kf)
+    dk = _two_term(ds.transpose(-1, -2), qf)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("S,D,causal,p", [(384, 64, False, 0.1),
+                                          (512, 128, True, 0.0)],
+                         ids=["bert", "llama-s512"])
+def test_tensor_core_rounding_model_matches_pallas(S, D, causal, p):
+    """The bf16 kernels' rounding points (the model above) keep out, out32,
+    lse and the gradients inside phase 3e's bf16 tolerances against the
+    Pallas kernel in interpret mode, and out32 inside 2e-5 of the plain
+    version's fp32 output."""
+    rng = np.random.RandomState(S + D)
+    q, k, v, g = (rng.randn(1, 2, S, D).astype(np.float32)
+                  for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    jout, jlse, jgrads = _pallas(q, k, v, g, jnp.bfloat16, scale, p, causal)
+    T = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g)]
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    out, lse, out32 = _tc_fwd_model(*T[:3], seed, scale, p, causal)
+    _, wlse, wout32 = sa.short_attention_fwd_reference(*T[:3], seed, scale,
+                                                       p, causal)
+    np.testing.assert_array_equal(_np(out) == 0, _np(jout) == 0)
+    _check(out, jout, 2e-3, 2 ** -7)
+    _check(lse, jlse, 2e-5)
+    _check(out32, wout32, 2e-5)
+    _check(lse, wlse, 2e-5)
+    grads = _tc_bwd_model(*T[:3], out32, lse, T[3], seed, scale, p, causal)
+    for got, want in zip(grads, jgrads):
+        _check(got, want, 5e-3, 2 ** -6)
 
 
 def test_identity_v_exposes_the_mask():
@@ -441,3 +557,21 @@ def test_kernels_match_plain_on_card(cuda_device, name, S, D, causal, p):
         _check(out.cpu(), wout.cpu(), 2e-3, 2 ** -7)
         for a, b in zip(grads, wgrads):
             _check(a.cpu(), b.cpu(), 5e-3, 2 ** -6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_kernels_refuse_s_off_the_tile_on_card(cuda_device, name):
+    """The kernels take S a multiple of 128 (``TILE``, the tensor-core
+    tiles; the route sends nothing else): S = 192 raises before a launch."""
+    _, td = DTYPES[name]
+    q = torch.zeros(1, 2, 192, 64, device=cuda_device, dtype=td)
+    lse = torch.zeros(1, 2, 1, 192, device=cuda_device)
+    before = (sa.short_attention_fwd.launches,
+              sa.short_attention_bwd.launches)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sa.short_attention_fwd(q, q, q, None, 0.125)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sa.short_attention_bwd(q, q, q, q.float(), lse, q, None, 0.125)
+    assert (sa.short_attention_fwd.launches,
+            sa.short_attention_bwd.launches) == before
