@@ -14,21 +14,30 @@ result):
              attention instantiations, in each of the twelve bf16
              short-attention ones (forward, dK/dV and dQ; D = 64 and 128;
              causal or not) and in each of the four grouped expert FFN
-             GEMMs (GEMM 1 and GEMM 2, bf16 and int8 weights).
+             GEMMs (GEMM 1 and GEMM 2, bf16 and int8 weights), and
+             UBLKCP (cp.async.bulk, the page copies) in each of the 55
+             paged-decode split-kernel instantiations (bf16 and int8
+             pools, D = 64, 128, 256, q-row tiles of 1 to 8).
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA tensors, at the shapes the serving and training paths
              give it, then its time (CUDA events, L2 flushed before each
              launch) beside its bound, the plain version's time and one
-             library call's.  3b holds attention at [4, 32, 2048, 128]
-             bf16 causal, at S=1024, in fp32, with fused RoPE, with GQA
-             32/8 at S=4096, not causal, and at S=4096, and times it at
-             the training shape and in the flash region (S=4096 causal,
-             with and without GQA 32/8; SDPA with enable_gqa beside it).
+             library call's.  Paged decode also at the shapes its first
+             kernel refused (G = 8 at an 8192-token window, MQA G = 32,
+             D = 256), with 128-token pages (streamed in tiles), at
+             lengths on, one past and inside the 256-token split
+             boundary and 0, and timed at phase 4b's decode step (B = 8,
+             every length 522) too.  3b holds attention at [4, 32, 2048,
+             128] bf16 causal, at S=1024, in fp32, with fused RoPE, with
+             GQA 32/8 at S=4096, not causal, and at S=4096, and times it
+             at the training shape and in the flash region (S=4096
+             causal, with and without GQA 32/8; SDPA with enable_gqa
+             beside it).
 3c. quant kernels — the int8-weight matmul at every Llama-2-7B
              projection shape for M = 8 (decode) and M = 512 (prefill),
              bf16 and f32 x, and paged decode over int8 pages at the
-             decode shapes of 3, each against its plain version, then
-             timed as in 3.
+             decode shapes of 3 and its new shapes, each against its
+             plain version, then timed as in 3.
 3e. short kernels — short-sequence attention forward (out, its fp32
              copy, lse) and backward against the plain version at the
              BERT-base shape [48, 12, 384, 64] bf16 with p = 0.1 and 0,
@@ -181,25 +190,32 @@ def phase_build():
     log(f"[build] dynamic shared memory per block: "
         f"{long_attention.smem_bytes()} (long_attention), "
         f"{rms_norm.smem_bytes(4096)} (rms_norm at h=4096)")
-    check_tensor_cores(_build)
+    check_sass(_build)
 
 
-def check_tensor_cores(build):
-    """The bf16 kernels run on the tensor cores: every instantiation of
-    ``attn_wg_*`` (attention), ``sattn_*_wg_kernel`` (short attention)
-    and ``gffn_wg_kernel`` (the grouped expert FFN's two GEMMs, bf16 and
-    int8 weights) in the built libraries' SASS holds ``HGMMA`` (wgmma)
-    instructions.  Raises if one holds none, or if there are not six
-    attention, twelve short-attention and four grouped instantiations."""
+def check_sass(build):
+    """What the built libraries' SASS (cuobjdump -sass) must hold:
+    ``HGMMA`` (wgmma) in every instantiation of ``attn_wg_*``
+    (attention), ``sattn_*_wg_kernel`` (short attention) and
+    ``gffn_wg_kernel`` (the grouped expert FFN's two GEMMs, bf16 and int8
+    weights), and ``UBLKCP`` (cp.async.bulk, the page copies) in every
+    instantiation of ``paged_decode_split_kernel`` and
+    ``paged_decode_quant_split_kernel``.  Raises if one holds none, or if
+    there are not six attention, twelve short-attention, four grouped and
+    55 paged-decode instantiations."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    expect = {"long_attention": (r"(attn_wg_\w+?_kernel)I(Lb[01])E", 6),
+    expect = {"long_attention": (r"(attn_wg_\w+?_kernel)I(Lb[01])E", 6,
+                                 "HGMMA"),
               "short_attention": (r"(sattn_\w+?_wg_kernel)I(Li\d+ELb[01])E",
-                                  12),
-              "grouped_gemm": (r"(gffn_wg_kernel)I(\w+?Li[12])E", 4)}
-    for lib, (pattern, count) in expect.items():
+                                  12, "HGMMA"),
+              "grouped_gemm": (r"(gffn_wg_kernel)I(\w+?Li[12])E", 4,
+                               "HGMMA"),
+              "paged_decode": (r"\d(paged_decode\w*?_split_kernel)I(\w+?)EEv",
+                               55, "UBLKCP")}
+    for lib, (pattern, count, instr) in expect.items():
         so = build._target(lib)
         sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                               text=True, timeout=120, check=True).stdout
@@ -207,16 +223,40 @@ def check_tensor_cores(build):
         for chunk in sass.split("Function : ")[1:]:
             m = re.search(pattern, chunk.split()[0])
             if m:
-                args = m.group(2).replace("13__nv_bfloat16", "bf16,")
-                args = re.sub(r"^aLi", "int8,Li", args)
-                args = re.sub(r"^Li(\d+)E", r"\1,", args)
-                found[f"{m.group(1)}<{args}>"] = chunk.count("HGMMA")
-        log(f"[build] HGMMA instructions per tensor-core instantiation of "
-            f"{lib} (cuobjdump -sass): {found}")
+                found[f"{m.group(1)}<{_template_args(m.group(2))}>"] = \
+                    chunk.count(instr)
+        log(f"[build] {instr} instructions per instantiation of {lib} "
+            f"(cuobjdump -sass): {found}")
         if len(found) != count or not all(found.values()):
-            raise AssertionError(f"[build] expected HGMMA in the {count} "
-                                 f"tensor-core instantiations of {lib}, "
-                                 f"found {found}")
+            raise AssertionError(f"[build] expected {instr} in the {count} "
+                                 f"instantiations of {lib}, found {found}")
+
+
+def _template_args(mangled):
+    """'f13__nv_bfloat16Li128ELi1' -> 'f32,bf16,128,1' (Itanium
+    mangling of the types and integers our kernels are templated on)."""
+    import re
+
+    names = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8"}
+    out = []
+    while mangled:
+        tok = next((t for t in names if mangled.startswith(t)), None)
+        if tok:
+            out.append(names[tok])
+            mangled = mangled[len(tok):]
+            continue
+        m = re.match(r"S\d*_", mangled)     # a type named before
+        if m and out:
+            out.append(out[-1])
+            mangled = mangled[m.end():]
+            continue
+        m = re.match(r"L[ib](\d+)E?", mangled)
+        if not m:
+            out.append(mangled)
+            break
+        out.append(m.group(1))
+        mangled = mangled[m.end():]
+    return ",".join(out)
 
 
 def _ptxas_entries(text):
@@ -345,6 +385,41 @@ def paged_decode_bound(q, k_pages, lengths, page_indices):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: shapes the first paged-decode kernel refused, and lengths on, one past
+#: and inside the 256-token split boundary and 0 (phases 3 and 3c)
+PAGED_NEW_CASES = [
+    ("G=8 window 8192", dict(B=2, KV=4, G=8, D=128, ps=16, pps=512,
+                             lengths=[8192, 6500])),
+    ("MQA G=32 window 4096", dict(B=4, KV=1, G=32, D=128, ps=16, pps=256,
+                                  lengths=[4096, 3000, 17, 1])),
+    ("D=256 G=2", dict(B=3, KV=4, G=2, D=256, ps=16, pps=64,
+                       lengths=[1024, 700, 5])),
+    ("split boundaries, length 0", dict(B=6, KV=8, G=1, D=128, ps=16,
+                                        pps=64, lengths=[256, 257, 512, 513,
+                                                         0, 255])),
+    # pages wider than a ring stage's 16 KB stream in tiles of rows
+    ("pages of 128 tokens, D=256", dict(B=2, KV=2, G=2, D=256, ps=128,
+                                        pps=4, lengths=[500, 129])),
+]
+#: phase 4b's decode step: batch 8, every sequence 522 tokens long
+PAGED_SERVING = dict(B=8, KV=32, G=1, D=128, ps=16, pps=128,
+                     lengths=[522] * 8)
+
+
+def _paged_library_ms(q, kd, vd, lens, flush, iters=50):
+    """SDPA (bf16) over dense caches kd / vd [B, KV, T, D] already
+    gathered, masked to the lengths: the library yardstick."""
+    B, _, T, _ = kd.shape
+    valid = torch.arange(T, device=q.device)[None] < lens[:, None]
+    kd = torch.where(valid[:, None, :, None], kd, 0).to(torch.bfloat16)
+    vd = torch.where(valid[:, None, :, None], vd, 0).to(torch.bfloat16)
+    qs, mask = q.to(torch.bfloat16)[:, :, None], valid[:, None, None, :]
+    F = torch.nn.functional
+    return time_ms(
+        lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask),
+        flush, iters=iters)
+
+
 def phase_kernels(device):
     from paddle_tpu_torch.ops.kernels import paged_decode as pdmod
 
@@ -372,6 +447,12 @@ def phase_kernels(device):
         ("gqa G=2 D=64", dict(B=3, KV=4, G=2, D=64, ps=16, pps=32,
                               lengths=[512, 9, 100]),
          (f32, f32), 2e-5, 0.0, "fp32 throughout, other summation order"),
+    ] + [(label, shape, (f32, bf16), 2e-5, 0.0, "fp32 math on bf16-exact "
+          "values, other summation order")
+         for label, shape in PAGED_NEW_CASES] + [
+        ("D=256 G=2 bf16", dict(B=3, KV=4, G=2, D=256, ps=16, pps=64,
+                                lengths=[1024, 700, 5]),
+         (bf16, bf16), 1e-4, 2 ** -7, BF16_WHY),
     ]
     main_row = None
     for label, shape, (qd, kd), atol, rtol, why in cases:
@@ -391,33 +472,37 @@ def phase_kernels(device):
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
                         device=device)
     before = pdmod.paged_decode.launches
+
+    def dense(pages):
+        B, _, D = q.shape
+        T = table.shape[1] * pages.shape[2]
+        return pages[:, table.long()].transpose(0, 1).reshape(B, -1, T, D)
+
     ms = time_ms(lambda: pdmod.paged_decode(*args), flush)
     plain_ms = time_ms(lambda: pdmod.paged_decode_reference(*args), flush)
     # library yardstick: SDPA over the dense cache ALREADY gathered
     # (the gather is excluded), bf16 q, boolean length mask
-    B, H, D = q.shape
-    T = table.shape[1] * kp.shape[2]
-    kd = kp[:, table.long()].transpose(0, 1).reshape(B, -1, T, D)
-    vd = vp[:, table.long()].transpose(0, 1).reshape(B, -1, T, D)
-    valid = torch.arange(T, device=device)[None] < lens[:, None]
-    kd = torch.where(valid[:, None, :, None], kd, 0)
-    vd = torch.where(valid[:, None, :, None], vd, 0)
-    qs = q.to(kd.dtype)[:, :, None]
-    mask = valid[:, None, None, :]
-    F = torch.nn.functional
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask),
-        flush)
-    pdmod.paged_decode.launches = before   # timing launches do not count
+    library_ms = _paged_library_ms(q, dense(kp), dense(vp), lens, flush)
     bound_ms, bound_by = paged_decode_bound(q, kp, lens, table)
+    plan = pdmod.split_plan(8, 32, 1, 128, 16, 128)
     log(f"[kernels] paged_decode time at B=8 KV=32 D=128 ps=16 pps=128, "
-        f"lengths {[int(x) for x in lens.cpu()]}, q f32 / pool bf16: "
+        f"lengths {[int(x) for x in lens.cpu()]}, q f32 / pool bf16 "
+        f"({plan['n_split']} splits of {plan['split_pages']} pages): "
         f"kernel {ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}: "
         f"K/V read over {HBM_BYTES_PER_S / 1e12:g} TB/s) | plain "
         f"{plain_ms:.4f} ms | library_ms {library_ms:.4f} ms "
         f"(scaled_dot_product_attention, bf16, over the gathered dense "
-        f"cache, gather excluded) | {100 * bound_ms / ms:.1f}% of bound")
-    del flush, kd, vd
+        f"cache, gather excluded) | {100 * bound_ms / ms:.1f}% of bound | "
+        f"{library_ms / ms:.2f}x faster than the library")
+    sargs = make_paged_case(gen, q_dtype=f32, kv_dtype=bf16, device=device,
+                            **PAGED_SERVING)
+    s_ms = time_ms(lambda: pdmod.paged_decode(*sargs), flush)
+    s_bound, _ = paged_decode_bound(sargs[0], sargs[1], sargs[3], sargs[4])
+    log(f"[kernels] paged_decode time at phase 4b's decode step (B=8, every "
+        f"length 522, q f32 / pool bf16): kernel {s_ms:.4f} ms | bound "
+        f"{s_bound:.4f} ms | {100 * s_bound / s_ms:.1f}% of bound")
+    pdmod.paged_decode.launches = before   # timing launches do not count
+    del flush, sargs
     return {"name": "paged_decode", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels/paged_decode.py:118",
@@ -819,6 +904,11 @@ def phase_quant_kernels(device, iters=50):
         ("gqa G=2 D=64", dict(B=3, KV=4, G=2, D=64, ps=16, pps=32,
                               lengths=[512, 9, 100]), f32, 2e-5, 0.0,
          "fp32 math, other summation order"),
+    ] + [(label, shape, f32, 2e-5, 0.0, "fp32 math on the same dequantized "
+          "values, other summation order")
+         for label, shape in PAGED_NEW_CASES] + [
+        ("MQA G=32 q bf16", dict(PAGED_NEW_CASES[1][1]), bf16, 1e-4,
+         2 ** -7, BF16_WHY),
     ]
     main_case = None
     for label, shape, qd, atol, rtol, why in cases:
@@ -843,22 +933,26 @@ def phase_quant_kernels(device, iters=50):
         w = pages[:, idx].float() * scales[:, idx][..., None, None]
         return w.transpose(0, 1).reshape(B, -1, T, D)
 
-    valid = torch.arange(T, device=device)[None] < lens[:, None]
-    kd, vd = (torch.where(valid[:, None, :, None], dense(p, sc_), 0)
-              .to(bf16) for p, sc_ in ((kq, ks), (vq, vs)))
-    qs, mask = q.to(bf16)[:, :, None], valid[:, None, None, :]
-    F = torch.nn.functional
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask),
-        flush, iters=iters)
+    library_ms = _paged_library_ms(q, dense(kq, ks), dense(vq, vs), lens,
+                                   flush, iters=iters)
     pdq_bound, pdq_by = paged_decode_quant_bound(q, kq, lens, table)
     log(f"[kernels] paged_decode_quant time at B=8 KV=32 D=128 ps=16 "
         f"pps=128, lengths {l7b}, q f32 / pool int8: kernel {ms:.4f} ms | "
         f"bound {pdq_bound:.4f} ms ({pdq_by}) | plain {plain_ms:.4f} ms | "
         f"library_ms {library_ms:.4f} ms (scaled_dot_product_attention, "
         f"bf16, over the gathered and dequantized cache, gather and "
-        f"dequantization excluded) | {100 * pdq_bound / ms:.1f}% of bound")
-    del flush, kd, vd, args, q, kq, vq
+        f"dequantization excluded) | {100 * pdq_bound / ms:.1f}% of bound | "
+        f"{library_ms / ms:.2f}x faster than the library")
+    sargs = make_quant_paged_case(gen, q_dtype=f32, device=device,
+                                  **PAGED_SERVING)
+    s_ms = time_ms(lambda: pdmod.paged_decode_quant(*sargs), flush,
+                   iters=iters)
+    s_bound, _ = paged_decode_quant_bound(sargs[0], sargs[1], sargs[3],
+                                          sargs[4])
+    log(f"[kernels] paged_decode_quant time at phase 4d's decode step (B=8, "
+        f"every length 522, q f32 / pool int8): kernel {s_ms:.4f} ms | "
+        f"bound {s_bound:.4f} ms | {100 * s_bound / s_ms:.1f}% of bound")
+    del flush, args, q, kq, vq, sargs
     torch.cuda.empty_cache()
     qm.quant_matmul.launches, pdmod.paged_decode_quant.launches = before
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// long_attention.cu, short_attention.cu and grouped_gemm.cu: mbarriers,
-// TMA copies, wgmma descriptors, fences and the attention kernels' m64
-// products, the producer / consumer register split, the
-// bf16 hi + lo split, and the host-side tensor-map encoder.
+// long_attention.cu, short_attention.cu and grouped_gemm.cu and by the
+// paged-decode kernels of paged_decode.cu: mbarriers, TMA and bulk copies,
+// programmatic dependent launch, wgmma descriptors, fences and the
+// attention kernels' m64 products, the producer / consumer register split,
+// the bf16 hi + lo split, and the host-side tensor-map encoder.
 //
 // A source that includes this header is rebuilt when it changes: the
 // build hashes every csrc/*.cuh into each library's name
@@ -113,6 +114,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(su32(dst)),
       "l"(src), "r"(bytes), "r"(su32(b))
       : "memory");
+}
+
+// -- programmatic dependent launch -----------------------------------------
+
+// Lets the next kernel on the stream, launched as a programmatic dependent,
+// be scheduled once every block of this grid has called this or exited.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// In a programmatic dependent: waits until the grids it depends on have
+// completed and their memory is visible (a no-op otherwise).
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // -- wgmma ------------------------------------------------------------------

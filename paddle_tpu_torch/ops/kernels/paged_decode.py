@@ -1,37 +1,60 @@
-"""Paged-decode attention: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Paged-decode attention: the hand-written CUDA kernels and their plain
+PyTorch versions.
 
 Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas_kernels/
 paged_decode.py`` (``paged_decode`` -> ``_call`` -> ``_kernel``), the
 decode attention that ``PagedExecutor`` launches once per layer per
-decode step.  The kernel is ``csrc/paged_decode.cu``: one block of
-8 warps per (sequence, kv head), K/V read through the page table for
-the pages under the length only, fp32 two-pass softmax with the scores
-in shared memory, fp32 accumulation, output in q's dtype.
+decode step.  The kernels are in ``csrc/paged_decode.cu``.
 
 What bounds it on an H100: the bytes of K and V it must read,
-``2 * sum(lengths) * KV * D * itemsize``, at 3.35 TB/s; at 4 flops per
-bf16 K/V byte it is far below the compute ridge.  What the design does
-about that: every K/V row is read once and serves all ``G = H / KV``
-query rows of its head, pages past the length are never read, and
-scores and probabilities stay in shared memory (the dense version
-writes the gathered cache and the score matrix to device memory).
-Split-K over pages, TMA and wider loads are left to later work.
+``2 * sum(lengths) * KV * D * itemsize``, at 3.35 TB/s; at 2-4 flops per
+K/V byte it is far below the compute ridge, so the math stays fp32 on
+the CUDA cores and the design keeps bytes in flight on every SM.  The
+TPU kernel DMAs a head's whole page window into VMEM; an SM's shared
+memory holds a fraction of a window, so the work is split-K
+flash-decoding over pages:
+
+- the grid is (sequence x kv head, split, q-row tile); a split is a
+  fixed run of whole pages (:func:`split_plan`, taken from the shapes
+  alone: the wrapper never reads ``lengths`` on the host, so the launch
+  can be captured by a CUDA graph); a block whose split starts at or
+  past its sequence's length returns at once;
+- one producer thread brings the split's K and V pages into a ring of
+  shared-memory stages with ``cp.async.bulk`` (a page of one kv head is
+  contiguous in the pool) through mbarriers that expect the bytes, only
+  the rows under the length, so several pages are in flight per block;
+- four consumer warps take one pass over the pages, a warp per page
+  (so the warps work on different stages at once): lane groups of one
+  token row each, fp32 online softmax (running max, sum and accumulator
+  per query row, rescaled when the max grows), rows at or past the
+  length skipped; then each block writes its split's partial (m, l,
+  acc) to f32 scratch;
+- a second kernel, launched as a programmatic dependent of the first,
+  merges the partials under each length in fixed split order
+  (deterministic) and casts once to q's dtype.
+
+No cap on the window (shared memory holds only the ring), on the group
+(q-row tiles of at most 8 rows on the grid) or on the page count; D is
+64, 128 or 256.  :func:`paged_decode_split_model` in
+``testing/paged_split.py`` is the plain model of the split rule the
+tests hold against ``paddle_tpu``.
 
 The int8 twin, :func:`paged_decode_quant`, replaces the Pallas
 kernel's int8 variant (``paged_decode_quant`` -> ``_call_quant`` ->
-``_kernel_quant``, ``PT_QUANT=int8``): the same body
-(``paged_decode_quant_kernel`` in the same ``.cu``) over int8 pools,
-each K/V row multiplied by its page's f32 scale as it is widened.  It
-reads half the bytes of a bf16 pool, ``2 * sum(lengths) * KV * D`` plus
-a scale per page.  The TPU gate ``page_size % 32 == 0`` (int8 sublane
-tiling) does not carry over: any page size works.
+``_kernel_quant``, ``PT_QUANT=int8``): the same kernels
+(``paged_decode_quant_split_kernel`` and
+``paged_decode_quant_combine_kernel``) over int8 pages, the page's k
+scale multiplying the dot and its v scale the probability.  It reads
+half the bytes of a bf16 pool, ``2 * sum(lengths) * KV * D`` plus a
+scale per page.  The TPU gate ``page_size % 32 == 0`` (int8 sublane
+tiling) does not carry over.
 
 Routing: :func:`paged_decode` and :func:`paged_decode_quant` take the
-kernel for CUDA tensors and the plain version for CPU tensors — decided
-by where the tensors lie, never by catching a failure.
+kernels for CUDA tensors and the plain version for CPU tensors —
+decided by where the tensors lie, never by catching a failure.
 ``paged_decode.launches`` and ``paged_decode_quant.launches`` count
-kernel launches (only those; the plain versions do not count).
+wrapper calls that launched the kernels (one per call: the split kernel
+and its combine; the plain versions do not count).
 """
 from __future__ import annotations
 
@@ -50,10 +73,11 @@ _DTYPE_PAIRS = {(torch.float32, torch.float32),
 #: (q dtype, pool dtype) pairs of the int8 twin
 _QUANT_DTYPE_PAIRS = {(torch.float32, torch.int8),
                       (torch.bfloat16, torch.int8)}
-_HEAD_DIMS = (64, 128)
-_MAX_GROUP = 8
-_WARPS = 8                      # kWarps in the .cu
-_SMEM_LIMIT = 232448            # bytes of shared memory a block may use
+_HEAD_DIMS = (64, 128, 256)
+#: tokens a split covers, rounded down to whole pages (the variants
+#: script in ``testing/paged_variants.py`` times other values)
+SPLIT_TOKENS = 256
+MAX_SPLIT_PAGES = 64            # kMaxSplitPages in the .cu
 
 
 def paged_decode_reference(q, k_pages, v_pages, lengths, page_indices,
@@ -123,7 +147,7 @@ def _lib():
     lib = _build.load("paged_decode")
     fn = lib.paged_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -134,15 +158,32 @@ def _lib_quant():
     lib = _build.load("paged_decode")
     fn = lib.paged_decode_quant_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(group, head_dim, window) -> int:
-    """Dynamic shared memory one block takes (mirrors the .cu)."""
-    return 4 * (group * head_dim * (1 + _WARPS) + group * window)
+def split_plan(B, KV, G, D, ps, pps, split_tokens=None) -> dict:
+    """How the kernels cut the work, from the shapes alone (the lengths
+    are not an argument: the host never reads them).
+
+    A split is ``split_pages`` whole pages of the window, ``split_tokens``
+    (default :data:`SPLIT_TOKENS`) rounded down to whole pages, at least
+    one page and at most the window and ``MAX_SPLIT_PAGES``; ``n_split``
+    splits cover the window's ``pps`` pages (the last may run past it).
+    The group's G query rows go in tiles of ``q_tile`` rows (the next
+    power of two, at most 8, at most 4 at D = 256) on ``n_qtile`` tiles of
+    the grid; ``scratch_floats`` are the f32 partials (acc, m, l) the
+    split kernel writes."""
+    split_tokens = SPLIT_TOKENS if split_tokens is None else split_tokens
+    split_pages = max(1, min(split_tokens // ps, MAX_SPLIT_PAGES, pps))
+    n_split = max(1, -(-pps // split_pages))
+    q_tile = min(1 << max(G - 1, 0).bit_length(), 8 if D <= 128 else 4)
+    n_qtile = -(-G // q_tile)
+    return {"split_pages": split_pages, "split_tokens": split_pages * ps,
+            "n_split": n_split, "q_tile": q_tile, "n_qtile": n_qtile,
+            "scratch_floats": B * KV * n_split * G * (D + 2)}
 
 
 def _check(q, k_pages, v_pages, lengths, page_indices, what="paged_decode"):
@@ -170,11 +211,14 @@ def _check(q, k_pages, v_pages, lengths, page_indices, what="paged_decode"):
     return B, H, D, KV, ps
 
 
-def _check_cuda(what, tensors, q, k_pages, v_pages, lengths, page_indices,
-                dtype_pairs):
-    """What the kernel refuses on the card; returns (G, pps)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
+def _gate(what, tensors, q, k_pages, v_pages, lengths, page_indices,
+          dtype_pairs):
+    """What the kernels refuse, from shapes, dtypes, strides and
+    pointers alone (nothing is launched and no value is read): a
+    non-contiguous tensor, lengths or indices not int32, a (q, pool)
+    dtype pair outside ``dtype_pairs``, a page whose bytes are not a
+    multiple of 16 or a pool not 16-byte aligned (the bulk copies' unit),
+    D not in (64, 128, 256).  Returns :func:`split_plan`'s plan."""
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
@@ -185,21 +229,27 @@ def _check_cuda(what, tensors, q, k_pages, v_pages, lengths, page_indices,
         raise TypeError(
             f"{what}: dtypes q={q.dtype}, pools={k_pages.dtype}/"
             f"{v_pages.dtype} not supported by the kernel")
-    _, H, D = q.shape
+    B, H, D = q.shape
     KV, _, ps, _ = k_pages.shape
+    page = ps * D * k_pages.element_size()
+    if page % 16:
+        raise ValueError(f"{what}: a page is {page} bytes, not a multiple "
+                         "of 16 (the bulk copy's unit)")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     if D not in _HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} not in {_HEAD_DIMS}")
-    G = H // KV
-    if G > _MAX_GROUP:
-        raise ValueError(f"{what}: {G} query heads per kv head > "
-                         f"{_MAX_GROUP}")
-    pps = page_indices.shape[1]
-    if smem_bytes(G, D, pps * ps) > _SMEM_LIMIT:
-        raise ValueError(
-            f"{what}: window of {pps * ps} tokens x {G} query rows "
-            f"needs {smem_bytes(G, D, pps * ps)} bytes of shared memory "
-            f"(> {_SMEM_LIMIT})")
-    return G, pps
+    return split_plan(B, KV, H // KV, D, ps, page_indices.shape[1])
+
+
+def _check_cuda(what, tensors, q, k_pages, v_pages, lengths, page_indices,
+                dtype_pairs):
+    """:func:`_gate` for tensors on the card; returns the plan."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    return _gate(what, tensors, q, k_pages, v_pages, lengths, page_indices,
+                 dtype_pairs)
 
 
 def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None):
@@ -211,28 +261,32 @@ def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None):
     page; entries past it are never read.
 
     CPU tensors take :func:`paged_decode_reference`.  CUDA tensors
-    launch the kernel, or raise on what it does not take: a
+    launch the kernels, or raise on what they do not take: a
     non-contiguous input, lengths or indices not int32, a dtype pair
     other than (f32, f32), (f32, bf16) or (bf16, bf16) for (q, pools),
-    D not in (64, 128), more than 8 query heads per kv head, or a
-    window whose scores overflow shared memory."""
+    pools not 16-byte aligned, or D not in (64, 128, 256).  Any group
+    size and any window."""
     B, H, D, KV, ps = _check(q, k_pages, v_pages, lengths, page_indices)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, lengths,
                                       page_indices, scale)
-    G, pps = _check_cuda(
+    plan = _check_cuda(
         "paged_decode", {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                          "lengths": lengths, "page_indices": page_indices},
         q, k_pages, v_pages, lengths, page_indices, _DTYPE_PAIRS)
     out = torch.empty_like(q)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=q.device)
     launch = _lib()
     with torch.cuda.device(q.device):       # the C side launches on the
         stream = torch.cuda.current_stream()  # current device's stream
         rc = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     lengths.data_ptr(), page_indices.data_ptr(),
-                    out.data_ptr(), B, KV, G, D, k_pages.shape[1], ps, pps,
+                    out.data_ptr(), scratch.data_ptr(), B, KV, H // KV, D,
+                    k_pages.shape[1], ps, page_indices.shape[1],
+                    plan["split_pages"], plan["n_split"], plan["q_tile"],
                     float(scale), _DTYPE_CODE[q.dtype],
                     _DTYPE_CODE[k_pages.dtype], stream.cuda_stream)
     if rc != 0:
@@ -252,9 +306,9 @@ def paged_decode_quant(q, k_pages, v_pages, lengths, page_indices,
     As :func:`paged_decode`, with int8 k/v_pages [KV, P, ps, D] and f32
     per-page scales k/v_scales [KV, P].  CPU tensors take
     :func:`paged_decode_quant_reference`.  CUDA tensors launch the
-    kernel, or raise on what it does not take: as :func:`paged_decode`,
-    with (q, pools) dtype pairs (f32, int8) and (bf16, int8) and scales
-    that are float32 [KV, P]."""
+    kernels, or raise on what they do not take: as
+    :func:`paged_decode`, with (q, pools) dtype pairs (f32, int8) and
+    (bf16, int8) and scales that are float32 [KV, P]."""
     what = "paged_decode_quant"
     B, H, D, KV, ps = _check(q, k_pages, v_pages, lengths, page_indices,
                              what)
@@ -272,7 +326,7 @@ def paged_decode_quant(q, k_pages, v_pages, lengths, page_indices,
         return paged_decode_quant_reference(q, k_pages, v_pages, lengths,
                                             page_indices, k_scales,
                                             v_scales, scale)
-    G, pps = _check_cuda(
+    plan = _check_cuda(
         what, {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                "lengths": lengths, "page_indices": page_indices,
                "k_scales": k_scales, "v_scales": v_scales},
@@ -280,13 +334,17 @@ def paged_decode_quant(q, k_pages, v_pages, lengths, page_indices,
     if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
         raise TypeError(f"{what}: scales must be float32")
     out = torch.empty_like(q)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=q.device)
     launch = _lib_quant()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream()
         rc = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     lengths.data_ptr(), page_indices.data_ptr(),
                     k_scales.data_ptr(), v_scales.data_ptr(),
-                    out.data_ptr(), B, KV, G, D, P, ps, pps, float(scale),
+                    out.data_ptr(), scratch.data_ptr(), B, KV, H // KV, D,
+                    P, ps, page_indices.shape[1], plan["split_pages"],
+                    plan["n_split"], plan["q_tile"], float(scale),
                     _DTYPE_CODE[q.dtype], stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_quant kernel launch failed: CUDA "

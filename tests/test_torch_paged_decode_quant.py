@@ -17,9 +17,16 @@ Tolerances:
   sides, so one bf16 ulp (|got - want| <= 2^-7 * |want|) on top of
   atol 2e-5.
 
-The CUDA kernel itself is compared with the plain version on the card
-in ``test_kernel_matches_plain_on_card`` (marked ``cuda``, skipped where
-there is none) and in ``chip_smoke.py``.
+The kernels' split rule over int8 pages (``testing/paged_split.py``:
+split-K over whole pages, the page's k scale on the dot and its v scale
+on the probability, partials merged in split order) is held to
+``_call_quant`` at fp32 atol 2e-5 on lengths at, one past and inside a
+split boundary, 0, the whole window, splits wholly past a length, and
+G = 16 with D = 256; the gate takes those shapes from shapes alone.
+
+The CUDA kernels themselves are compared with the plain version on the
+card in ``test_kernel_matches_plain_on_card`` (marked ``cuda``, skipped
+where there is none) and in ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -32,6 +39,7 @@ from paddle_tpu.ops.pallas_kernels.paged_decode import (
     paged_decode_quant as jax_paged_decode_quant,
 )
 from paddle_tpu_torch.ops.kernels import paged_decode as pd
+from paddle_tpu_torch.testing.paged_split import paged_decode_split_model
 
 ATOL = 2e-5
 
@@ -141,6 +149,61 @@ def test_wrapper_rejects_bad_scales():
               fn=pd.paged_decode_quant)
 
 
+SPLIT_CASES = {
+    # name: (seed, shape kwargs, lengths, split_tokens, q dtype)
+    "split_boundaries": (10, dict(B=5, H=8, KV=2, D=128, P=200, ps=16,
+                                  pps=32), [256, 257, 100, 512, 0], None,
+                         "float32"),
+    "small_splits_bf16q": (11, dict(B=6, H=4, KV=4, D=64, P=100, ps=16,
+                                    pps=16), [64, 65, 37, 0, 256, 200], 64,
+                           "bfloat16"),
+    "g16_d256_ps32": (12, dict(B=2, H=32, KV=2, D=256, P=8, ps=32, pps=3),
+                      [96, 33], 32, "float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_model_matches_pallas(case):
+    """The split rule over int8 pages equals ``_call_quant``'s one dense
+    softmax over the dequantized window."""
+    seed, shape, lens, split_tokens, qdtype = SPLIT_CASES[case]
+    rng = np.random.RandomState(seed)
+    q, kp, vp, ks, vs, table = _mk(rng, **shape)
+    lens = np.asarray(lens, np.int32)
+    got = paged_decode_split_model(
+        torch.from_numpy(q).to(getattr(torch, qdtype)), torch.from_numpy(kp),
+        torch.from_numpy(vp), torch.from_numpy(lens),
+        torch.from_numpy(table), torch.from_numpy(ks), torch.from_numpy(vs),
+        split_tokens=split_tokens).float().numpy()
+    want = jax_paged_decode_quant(*_jax_args(q, kp, vp, lens, table, qdtype),
+                                  jnp.asarray(ks), jnp.asarray(vs))
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **_tol(qdtype))
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.parametrize("shape,q_dtype", [
+    (dict(H=32, KV=4, D=128, ps=16, pps=512), torch.float32),   # 8192
+    (dict(H=32, KV=1, D=128, ps=16, pps=256), torch.bfloat16),  # G = 32
+    (dict(H=8, KV=4, D=256, ps=16, pps=64), torch.float32),     # D = 256
+])
+def test_gate_takes_what_the_old_caps_refused(shape, q_dtype):
+    B = 2
+    P = B * shape["pps"] + 1
+    q = torch.empty(B, shape["H"], shape["D"], dtype=q_dtype, device="meta")
+    kp = torch.empty(shape["KV"], P, shape["ps"], shape["D"],
+                     dtype=torch.int8, device="meta")
+    lens = torch.empty(B, dtype=torch.int32, device="meta")
+    table = torch.empty(B, shape["pps"], dtype=torch.int32, device="meta")
+    sc = torch.empty(shape["KV"], P, device="meta")
+    plan = pd._gate("paged_decode_quant", {
+        "q": q, "k_pages": kp, "v_pages": kp, "lengths": lens,
+        "page_indices": table, "k_scales": sc, "v_scales": sc},
+        q, kp, kp, lens, table, pd._QUANT_DTYPE_PAIRS)
+    assert plan == pd.split_plan(B, shape["KV"], shape["H"] // shape["KV"],
+                                 shape["D"], shape["ps"], shape["pps"])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -149,16 +212,32 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: (shape, lengths) of the card test beyond the first kernel's: the
+#: shapes it refused and lengths at, one past and inside a split boundary
+CARD_SHAPES = {
+    "gqa": (dict(B=3, H=8, KV=2, D=128, P=32, pps=8), None),
+    "g8_window8192": (dict(B=2, H=32, KV=4, D=128, pps=512), [8192, 6500]),
+    "mqa_g32": (dict(B=2, H=32, KV=1, D=128, pps=256), [4096, 1000]),
+    "d256_g2": (dict(B=3, H=8, KV=4, D=256, pps=32), [512, 300, 5]),
+    "split_boundaries": (dict(B=5, H=8, KV=8, D=64, pps=32),
+                         [256, 257, 511, 0, 512]),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
 @pytest.mark.parametrize("qdtype,ps", [("float32", 16), ("float32", 32),
                                        ("bfloat16", 16)])
-def test_kernel_matches_plain_on_card(cuda_device, qdtype, ps):
+def test_kernel_matches_plain_on_card(cuda_device, qdtype, ps, shape):
     """fp32 output: the same fp32 arithmetic in another order (atol
     2e-5).  bf16 output: one bf16 ulp (rtol 2^-7) plus atol 1e-4."""
     rng = np.random.RandomState(7)
-    q, kp, vp, ks, vs, table = _mk(rng, B=3, H=8, KV=2, D=128, P=32, ps=ps,
-                                   pps=8)
-    lens = np.array([8 * ps, 1, 40], np.int32)
+    dims, lens = CARD_SHAPES[shape]
+    # the new shapes keep their window at either page size
+    pps = dims["pps"] if lens is None else dims["pps"] * 16 // ps
+    q, kp, vp, ks, vs, table = _mk(rng, **dict(
+        dims, pps=pps, ps=ps, P=dims.get("P", dims["B"] * pps)))
+    lens = np.array(lens or [8 * ps, 1, 40], np.int32)
     args = [torch.from_numpy(q).to(cuda_device, getattr(torch, qdtype))]
     args += [torch.from_numpy(a).to(cuda_device)
              for a in (kp, vp, lens, table, ks, vs)]
