@@ -17,7 +17,9 @@ result):
              GEMMs (GEMM 1 and GEMM 2, bf16 and int8 weights), and
              UBLKCP (cp.async.bulk, the page copies) in each of the 55
              paged-decode split-kernel instantiations (bf16 and int8
-             pools, D = 64, 128, 256, q-row tiles of 1 to 8).
+             pools, D = 64, 128, 256, q-row tiles of 1 to 8); HGMMA in
+             the int8-weight matmul's prefill GEMM and HMMA in its four
+             decode GEMV instantiations, with no I2F in either.
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA tensors, at the shapes the serving and training paths
              give it, then its time (CUDA events, L2 flushed before each
@@ -35,9 +37,15 @@ result):
              beside it).
 3c. quant kernels — the int8-weight matmul at every Llama-2-7B
              projection shape for M = 8 (decode) and M = 512 (prefill),
-             bf16 and f32 x, and paged decode over int8 pages at the
-             decode shapes of 3 and its new shapes, each against its
-             plain version, then timed as in 3.
+             bf16 and f32 x, at gate/up also M = 1, 3, 9, 16, 32, 33, 64
+             and 188 (bf16), with NaN in x's rows past M and garbage past K
+             and N in the same allocations, and off the TMA shape rule
+             (the SIMT kernels); each call must take its route, match
+             the plain version and give the same bits twice.  Then
+             paged decode over int8 pages at the decode shapes of 3 and
+             its new shapes, each against its plain version; timed as
+             in 3 (the matmul at all six shape and M pairs, with its
+             route).
 3e. short kernels — short-sequence attention forward (out, its fp32
              copy, lse) and backward against the plain version at the
              BERT-base shape [48, 12, 384, 64] bf16 with p = 0.1 and 0,
@@ -58,7 +66,8 @@ result):
              request finishes, paged_decode_quant launches once per layer
              per decode step, quant_matmul 7 times per layer per forward
              (decode steps + prefill forwards), the bf16 paged_decode
-             never; 4d profiles its decode steps.
+             never; the matmul's calls by route; 4d profiles its decode
+             steps, quant_matmul's device ms apart from cuBLAS's.
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
              card (the kernels) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
@@ -196,40 +205,59 @@ def phase_build():
 def check_sass(build):
     """What the built libraries' SASS (cuobjdump -sass) must hold:
     ``HGMMA`` (wgmma) in every instantiation of ``attn_wg_*``
-    (attention), ``sattn_*_wg_kernel`` (short attention) and
+    (attention), ``sattn_*_wg_kernel`` (short attention),
     ``gffn_wg_kernel`` (the grouped expert FFN's two GEMMs, bf16 and int8
-    weights), and ``UBLKCP`` (cp.async.bulk, the page copies) in every
+    weights) and ``qmm_wg_kernel`` (the int8-weight matmul's prefill
+    GEMM), ``HMMA`` (mma.sync) in every ``qmm_dec_kernel`` (its decode
+    GEMV), and ``UBLKCP`` (cp.async.bulk, the page copies) in every
     instantiation of ``paged_decode_split_kernel`` and
-    ``paged_decode_quant_split_kernel``.  Raises if one holds none, or if
-    there are not six attention, twelve short-attention, four grouped and
-    55 paged-decode instantiations."""
+    ``paged_decode_quant_split_kernel``; no ``I2F`` (int-to-float) in the
+    two ``qmm_`` tensor-core kernels.  Raises if one holds none, or if
+    there are not six attention, twelve short-attention, four grouped,
+    55 paged-decode, one prefill and four decode instantiations."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    expect = {"long_attention": (r"(attn_wg_\w+?_kernel)I(Lb[01])E", 6,
-                                 "HGMMA"),
-              "short_attention": (r"(sattn_\w+?_wg_kernel)I(Li\d+ELb[01])E",
-                                  12, "HGMMA"),
-              "grouped_gemm": (r"(gffn_wg_kernel)I(\w+?Li[12])E", 4,
-                               "HGMMA"),
-              "paged_decode": (r"\d(paged_decode\w*?_split_kernel)I(\w+?)EEv",
-                               55, "UBLKCP")}
-    for lib, (pattern, count, instr) in expect.items():
-        so = build._target(lib)
-        sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                              text=True, timeout=120, check=True).stdout
-        found = {}
-        for chunk in sass.split("Function : ")[1:]:
+    # (library, kernel pattern, instantiations, instruction that each must
+    # hold, instruction that none may hold)
+    expect = [("long_attention", r"(attn_wg_\w+?_kernel)I(Lb[01])E", 6,
+               "HGMMA", None),
+              ("short_attention", r"(sattn_\w+?_wg_kernel)I(Li\d+ELb[01])E",
+               12, "HGMMA", None),
+              ("grouped_gemm", r"(gffn_wg_kernel)I(\w+?Li[12])E", 4,
+               "HGMMA", None),
+              ("paged_decode", r"\d(paged_decode\w*?_split_kernel)I(\w+?)EEv",
+               55, "UBLKCP", None),
+              # the int8-weight matmul's tensor-core routes: wgmma in the
+              # prefill GEMM, mma.sync in the decode GEMV, and no
+              # quarter-rate int-to-float conversion in either
+              ("quant_matmul", r"\d(qmm_wg_kernel)()E", 1, "HGMMA", "I2F"),
+              ("quant_matmul", r"\d(qmm_dec_kernel)I(Li\d+)E", 4, "HMMA",
+               "I2F")]
+    sass_of = {}
+    for lib, pattern, count, instr, forbid in expect:
+        if lib not in sass_of:
+            sass_of[lib] = subprocess.run(
+                [tool, "-sass", str(build._target(lib))],
+                capture_output=True, text=True, timeout=120,
+                check=True).stdout
+        found, banned = {}, {}
+        for chunk in sass_of[lib].split("Function : ")[1:]:
             m = re.search(pattern, chunk.split()[0])
             if m:
-                found[f"{m.group(1)}<{_template_args(m.group(2))}>"] = \
-                    chunk.count(instr)
+                key = f"{m.group(1)}<{_template_args(m.group(2))}>"
+                found[key] = chunk.count(instr)
+                if forbid:
+                    banned[key] = chunk.count(forbid)
         log(f"[build] {instr} instructions per instantiation of {lib} "
-            f"(cuobjdump -sass): {found}")
+            f"(cuobjdump -sass): {found}"
+            + (f"; {forbid}: {banned}" if forbid else ""))
         if len(found) != count or not all(found.values()):
             raise AssertionError(f"[build] expected {instr} in the {count} "
                                  f"instantiations of {lib}, found {found}")
+        if any(banned.values()):
+            raise AssertionError(f"[build] {forbid} in {lib}: {banned}")
 
 
 def _template_args(mangled):
@@ -849,44 +877,94 @@ def phase_quant_kernels(device, iters=50):
 
     # kernel A: every projection shape, decode and prefill M, both x dtypes
     qmm_err, timed = {}, {}
+    qm.quant_matmul.routes = dict.fromkeys(qm.ROUTES, 0)
+
+    def hold_qmm(label, M, xs, qw, sc, want_route):
+        """One call, which must take ``want_route``, match the plain
+        version and give the same bits when repeated."""
+        before = dict(qm.quant_matmul.routes)
+        got = qm.quant_matmul(xs, qw, sc)
+        took = [r for r in qm.ROUTES
+                if qm.quant_matmul.routes[r] != before[r]]
+        if took != [want_route]:
+            raise AssertionError(f"[kernels] quant_matmul {label}: took "
+                                 f"{took}, expected {want_route}")
+        torch.cuda.synchronize()
+        want = qm.quant_matmul_reference(xs, qw, sc)
+        if xs.dtype == f32:
+            tol = (2e-4, 0.0, "fp32 sums of up to 11008 products "
+                   "in other orders, |out| ~ 2")
+        else:
+            tol = (2e-4, 2 ** -7, BF16_WHY)
+        err = _hold(f"quant_matmul {label} x {xs.dtype} ({want_route})",
+                    got, want, *tol)
+        qmm_err[(M, xs.dtype)] = max(qmm_err.get((M, xs.dtype), 0.0), err)
+        if not torch.equal(qm.quant_matmul(xs, qw, sc), got):
+            raise AssertionError(f"[kernels] quant_matmul {label}: a second "
+                                 "call gave other bits")
+        return err
+
     for label, (K, N) in QMM_SHAPES.items():
         w = torch.randn(K, N, generator=gen, device=device) * 0.02
         qw, sc = tq.quantize_per_channel(w)
         sc = sc.reshape(N)
         w_bf16 = tq.dequantize(qw, sc, bf16)      # the library's weight
         del w
-        for M in (8, 512):
+        # every shape at decode and prefill M; gate/up also at the GEMV's
+        # other row counts, past them, and a prompt's last chunk (188)
+        extra = (1, 3, 9, 16, 32, 33, 64, 188) \
+            if label == "gate/up_proj" else ()
+        for M in (8, 512) + extra:
             x = torch.randn(M, K, generator=gen, device=device)
-            for xd in (bf16, f32):
+            for xd in ((bf16, f32) if M in (8, 512) else (bf16,)):
                 xs = x.to(xd)
-                got = qm.quant_matmul(xs, qw, sc)
-                torch.cuda.synchronize()
-                want = qm.quant_matmul_reference(xs, qw, sc)
-                if xd == f32:
-                    tol = (2e-4, 0.0, "fp32 sums of up to 11008 products "
-                           "in other orders, |out| ~ 2")
-                else:
-                    tol = (2e-4, 2 ** -7, BF16_WHY)
-                err = _hold(f"quant_matmul {label} M={M} K={K} N={N} x "
-                            f"{xd}", got, want, *tol)
-                qmm_err.setdefault((M, xd), 0.0)
-                qmm_err[(M, xd)] = max(qmm_err[(M, xd)], err)
+                hold_qmm(f"{label} M={M} K={K} N={N}", M, xs, qw, sc,
+                         qm.route(M, K, N, xd))
+            if M not in (8, 512):
+                continue
             xb = x.to(bf16)
             timed[(label, M)] = (
                 [time_ms(f, flush, iters=iters) for f in (
                     lambda: qm.quant_matmul(xb, qw, sc),
                     lambda: qm.quant_matmul_reference(xb, qw, sc),
                     lambda: torch.matmul(xb, w_bf16))],
-                quant_matmul_bound(M, K, N, 2))
+                quant_matmul_bound(M, K, N, 2), qm.route(M, K, N, bf16))
             del x, xb
+        if label == "gate/up_proj":
+            # x rows past M, weight rows past K and scales past N hold NaN
+            # or garbage in the same allocations: none may reach out
+            for M in (9, 188):
+                xbig = torch.randn(M + 64, K, generator=gen, device=device)
+                xbig[M:] = float("nan")
+                wbig = torch.full((K + 64, N), 127, dtype=torch.int8,
+                                  device=device)
+                wbig[:K] = qw
+                sbig = torch.full((N + 64,), float("nan"), device=device)
+                sbig[:N] = sc
+                hold_qmm(f"{label} M={M} K={K} N={N}, NaN rows past M",
+                         M, xbig.to(bf16)[:M], wbig[:K], sbig[:N],
+                         qm.route(M, K, N, bf16))
+                del xbig, wbig, sbig
         del qw, sc, w_bf16
         torch.cuda.empty_cache()
-    for (label, M), ((ms, plain_ms, lib_ms), (bound, by)) in timed.items():
-        log(f"[kernels] quant_matmul time at {label} M={M} x bf16: kernel "
-            f"{ms:.4f} ms | bound {bound:.4f} ms ({by}) | plain "
-            f"{plain_ms:.4f} ms | library_ms {lib_ms:.4f} ms (torch.matmul "
-            f"over the weight dequantized to bf16 beforehand) | "
-            f"{100 * bound / ms:.1f}% of bound")
+    # shapes TMA cannot describe take the SIMT kernels (any M, K and N)
+    for M, K, N in ((3, 100, 37), (8, 4100, 4096), (77, 300, 130),
+                    (188, 4096, 4100)):
+        w = torch.randn(K, N, generator=gen, device=device) * 0.02
+        qw, sc = tq.quantize_per_channel(w)
+        x = torch.randn(M, K, generator=gen, device=device).to(bf16)
+        hold_qmm(f"off the TMA rule M={M} K={K} N={N}", M, x, qw,
+                 sc.reshape(N), "simt")
+    log(f"[kernels] quant_matmul routes over the checks: "
+        f"{dict(qm.quant_matmul.routes)}")
+    for (label, M), ((ms, plain_ms, lib_ms), (bound, by), kind) in \
+            timed.items():
+        log(f"[kernels] quant_matmul time at {label} M={M} x bf16 ({kind} "
+            f"route): kernel {ms:.4f} ms | bound {bound:.4f} ms ({by}) | "
+            f"plain {plain_ms:.4f} ms | library_ms {lib_ms:.4f} ms "
+            f"(torch.matmul over the weight dequantized to bf16 "
+            f"beforehand) | {100 * bound / ms:.1f}% of bound | "
+            f"{ms / lib_ms:.2f}x the library's time")
 
     # kernel B: int8 pages at the decode shapes of phase 3
     l7b = [1, 8, 2048, 17, 500, 1024, 1999, 333]
@@ -955,8 +1033,9 @@ def phase_quant_kernels(device, iters=50):
     del flush, args, q, kq, vq, sargs
     torch.cuda.empty_cache()
     qm.quant_matmul.launches, pdmod.paged_decode_quant.launches = before
+    qm.quant_matmul.routes = dict.fromkeys(qm.ROUTES, 0)
 
-    (qmm_ms, qmm_plain, qmm_lib), (qmm_bound, qmm_by) = \
+    (qmm_ms, qmm_plain, qmm_lib), (qmm_bound, qmm_by), _ = \
         timed[("gate/up_proj", 8)]
     return [
         {"name": "quant_matmul", "route": "cuda",
@@ -1031,6 +1110,8 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
     counters = _serve_counters()
     for f in counters.values():
         f.launches = 0
+    qmm = counters["quant_matmul"]
+    qmm.routes = dict.fromkeys(qmm.routes, 0)
     ex = engine.executor
     ex.prefill_events.clear()
     t0 = time.perf_counter()
@@ -1074,6 +1155,8 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
         f"TTFT p50 {st['ttft_ms_p50']} ms p99 {st['ttft_ms_p99']} ms | "
         f"TPOT p50 {st['tpot_ms_p50']} ms p99 {st['tpot_ms_p99']} ms | "
         f"launches {got} ({rule}) | peak memory {peak:.2f} GiB")
+    if quant == "int8":
+        log(f"[{tag}] quant_matmul calls by route: {dict(qmm.routes)}")
     return got, engine
 
 
@@ -1141,6 +1224,10 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
         + f") | idle share {1 - busy / traced_ms:.3f} | weight-read bound "
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step "
         f"({weight_bytes / 1e9:.3f} GB of layer and head weights)")
+    if ex.quant == "int8":
+        log(f"[{tag}] int8 weight GEMMs: quant_matmul (qmm_ kernels) "
+            f"{kinds['quant_matmul']:.3f} ms/step, cuBLAS (the bf16 LM "
+            f"head) {kinds['gemm']:.3f} ms/step")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (ms, calls) in top:
         log(f"[{tag}]   {ms:8.3f} ms/step  {calls:6.1f} launches/step  "
