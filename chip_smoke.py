@@ -5,8 +5,9 @@
 Phases, each fatal on failure (the script exits non-zero and prints no
 result):
 
-1. device  — name and power limit; TF32 off for matmuls and cuDNN, so
-             fp32 means fp32 in every comparison below.
+1. device  — name and power limit, torch's CUDA and the NVIDIA driver
+             version; TF32 off for matmuls and cuDNN, so fp32 means fp32
+             in every comparison below.
 2. build   — every kernel under paddle_tpu_torch/csrc, one nvcc each,
              all started together; registers, shared memory and spills
              of every kernel as ptxas reports them; then cuobjdump -sass
@@ -59,19 +60,33 @@ result):
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
              from seed 0 made on the card, 16 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
-             512-token prefill chunks).  Every request must finish, and
-             the kernel must have launched once per layer per decode step.
-             4b profiles decode steps with torch.profiler.
-4c. int8 serve — the same model and load with quant="int8": every
-             request finishes, paged_decode_quant launches once per layer
-             per decode step, quant_matmul 7 times per layer per forward
-             (decode steps + prefill forwards), the bf16 paged_decode
-             never; the matmul's calls by route; 4d profiles its decode
-             steps, quant_matmul's device ms apart from cuBLAS's.
+             512-token prefill chunks), served twice: decode eager (the
+             forward launched op by op, the A/B baseline) and decode as
+             replayed CUDA graphs (the port's path; one graph per batch
+             size, captured at its first step).  Every request must
+             finish, the kernel must have run once per layer per decode
+             step (replays counted by each graph's capture tally), and
+             the two runs must give identical greedy streams and KV pools
+             bit for bit; TTFT / TPOT p50 and p99 of both, the graphs
+             captured, the replays and the capture seconds.  4b profiles
+             decode steps of each with torch.profiler.
+4c. int8 serve — the same model and load, both ways, with
+             quant="int8": every request finishes, paged_decode_quant
+             launches once per layer per decode step, quant_matmul 7
+             times per layer per forward (decode steps + prefill
+             forwards), the bf16 paged_decode never; the matmul's calls by
+             route; 4d profiles its decode steps both ways, quant_matmul's
+             device ms apart from cuBLAS's.
+4e. aot    — engines with aot="warm" and aot="strict" at phase 4's shape
+             (every decode batch and decode_n at n = 8 captured at
+             build): no failed warmup entry, phase 4's streams from both,
+             AotMissError at a rung with no graph after seal(), and
+             decode_n(8) at batch 8 equal to 8 decode steps, each timed.
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
              card (the kernels) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
-             atol 1e-3, plain (5) and with quant="int8" (5b).
+             atol 1e-3, plain (5) and with quant="int8" (5b), with
+             aot="off" and with aot="warm" (the card's decode replayed).
 6. train   — Llama-2-7B width cut to 8 layers (the only cut: 32 layers of
              fp32 master plus bf16 moments would not fit 80 GB), B=4,
              S=2048, bf16 compute, fp32 master, bf16 moments, full
@@ -140,6 +155,7 @@ of paddle_tpu.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -167,10 +183,15 @@ def phase_device():
         timeout=60)
     limit = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
+    drv = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {name} | {limit} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | TF32 off for matmul and cuDNN")
+        f"cuda {torch.version.cuda} | NVIDIA driver {drv} (stream capture "
+        f"keeps programmatic dependent launches from CUDA 12.3) | TF32 off "
+        f"for matmul and cuDNN")
     return name, limit
 
 
@@ -1070,10 +1091,27 @@ def _serve_counters():
             "quant_matmul": qm.quant_matmul}
 
 
+def _streams(out):
+    return {rid: list(h.tokens) for rid, h in out["handles"].items()}
+
+
+def _first_diff(got, want):
+    """(rid, token index) of the first difference of two stream dicts."""
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        for i in range(max(len(a), len(b))):
+            if i >= len(a) or i >= len(b) or a[i] != b[i]:
+                return rid, i
+    return None
+
+
 def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
-                engine_kw=None, quant="none"):
-    """Serve ``load`` through ServingEngine.  Returns ({kernel: launches
-    in the run}, engine)."""
+                engine_kw=None, quant="none", eager=False, tag=None):
+    """Serve ``load`` through a ServingEngine built on seeded weights.
+    ``eager`` runs decode's forward op by op (the executor's private A/B
+    switch); else decode replays CUDA graphs, captured at each new batch
+    or, with ``aot`` in ``engine_kw``, at build.  Returns ({kernel:
+    launches in the run}, engine, {rid: tokens})."""
     from paddle_tpu_torch.inference.server import RequestState, ServingEngine
     from paddle_tpu_torch.models import LlamaConfig, init_llama_params
     from paddle_tpu_torch.testing.load import (
@@ -1083,7 +1121,9 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
     cfg = LlamaConfig.llama2_7b() if cfg is None else cfg
     load = SERVE_LOAD if load is None else load
     engine_kw = SERVE_KW if engine_kw is None else engine_kw
-    tag = "serve" if quant == "none" else f"serve-{quant}"
+    if tag is None:
+        tag = ("serve" if quant == "none" else f"serve-{quant}") \
+            + (" eager" if eager else " graph")
     t0 = time.perf_counter()
     params = init_llama_params(cfg, seed=0, device=device, dtype=dtype)
     nparams = (sum(t.numel() for t in params["layers"].values())
@@ -1093,6 +1133,8 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
     engine = ServingEngine(cfg, params, dtype=dtype, device=device,
                            quant=quant, **engine_kw)
     del params          # an int8 engine keeps no dense projection
+    ex = engine.executor
+    ex._eager_decode = eager
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1104,15 +1146,27 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
         f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, D "
         f"{cfg.head_dim}, intermediate {cfg.intermediate_size}, vocab "
         f"{cfg.vocab_size}: {nparams / 1e9:.3f} B parameters in {dtype}, "
-        f"quant={quant}, built in {time.perf_counter() - t0:.1f} s; "
-        f"{resident:.2f} GiB resident (weights and KV pool)")
+        f"quant={quant}, aot={engine.aot_mode}, built in "
+        f"{time.perf_counter() - t0:.1f} s; {resident:.2f} GiB resident "
+        f"(weights, KV pool and any warmed graphs)")
+    rep = engine._aot_report
+    if rep is not None:
+        log(f"[{tag}] warmup: {rep['entries']} entries, {rep['capture']} "
+            f"captured, {rep['warm']} warm, {len(rep['failed'])} failed, "
+            f"{rep['seconds']} s; programs {rep['programs']}; ladder "
+            f"{rep['ladder']}; page buckets {rep['page_buckets']}")
+        if rep["failed"]:
+            raise AssertionError(f"[{tag}] warmup entries failed: "
+                                 f"{rep['failed']}")
+    progs = ex.programs
+    before = {k: (p.traces, p.dispatches, p.seconds)
+              for k, p in progs.items()}
     work = generate_load(LoadSpec(**dict(load, vocab=cfg.vocab_size)))
     counters = _serve_counters()
     for f in counters.values():
         f.launches = 0
     qmm = counters["quant_matmul"]
     qmm.routes = dict.fromkeys(qmm.routes, 0)
-    ex = engine.executor
     ex.prefill_events.clear()
     t0 = time.perf_counter()
     out = run_load(engine, work)
@@ -1128,7 +1182,7 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
                 or len(toks) != w["max_new_tokens"] \
                 or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(
-                f"[serve] {w['rid']}: {h.state.value}, {len(toks)} of "
+                f"[{tag}] {w['rid']}: {h.state.value}, {len(toks)} of "
                 f"{w['max_new_tokens']} tokens")
     L, steps = cfg.num_hidden_layers, st["decode_steps"]
     forwards = len(ex.prefill_events)
@@ -1155,9 +1209,74 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
         f"TTFT p50 {st['ttft_ms_p50']} ms p99 {st['ttft_ms_p99']} ms | "
         f"TPOT p50 {st['tpot_ms_p50']} ms p99 {st['tpot_ms_p99']} ms | "
         f"launches {got} ({rule}) | peak memory {peak:.2f} GiB")
+    d = {k: (p.traces - before[k][0], p.dispatches - before[k][1],
+             p.seconds - before[k][2]) for k, p in progs.items()}
+    log(f"[{tag}] programs in the run: " + "; ".join(
+        f"serve.{k} {n} captured in {sec:.3f} s, {r} "
+        + ("eager calls" if device.type != "cuda" else "replays")
+        for k, (n, r, sec) in d.items())
+        + (" (decode eager: no program called)" if eager else ""))
+    if eager and any(r for _, r, _ in d.values()):
+        raise AssertionError(f"[{tag}] the eager A/B ran a program: {d}")
+    if not eager and d["decode"][1] != steps:
+        raise AssertionError(f"[{tag}] {d['decode'][1]} serve.decode "
+                             f"calls for {steps} decode steps")
     if quant == "int8":
         log(f"[{tag}] quant_matmul calls by route: {dict(qmm.routes)}")
-    return got, engine
+    return got, engine, _streams(out)
+
+
+def _live_pools(engine):
+    """The KV pool (and int8 scales) without the scratch page, on the
+    host: what a load wrote, to hold two runs bit for bit."""
+    c = engine.executor.cache
+    ts = [c.k_pages, c.v_pages]
+    if c.k_scales is not None:
+        ts += [c.k_scales, c.v_scales]
+    return [t.cpu() for t in ts]
+
+
+def phase_serve_ab(device, quant="none", **kw):
+    """Phases 4 / 4c with 4b / 4d: the load served with decode eager,
+    then as replayed graphs, each followed by its decode profile.  The
+    greedy streams and the KV pools the load wrote must be identical.
+    Returns (launches of the graph run, its streams)."""
+    _, engine, want = phase_serve(device, quant=quant, eager=True, **kw)
+    pools = _live_pools(engine)
+    if device.type == "cuda":
+        phase_profile(engine, device)
+    del engine
+    _empty(device)
+    got, engine, streams = phase_serve(device, quant=quant, **kw)
+    tag = "serve" if quant == "none" else f"serve-{quant}"
+    if streams != want:
+        raise AssertionError(f"[{tag}] graph decode streams differ from "
+                             f"eager at {_first_diff(streams, want)}")
+    same = all(torch.equal(a, b) for a, b in zip(_live_pools(engine), pools))
+    if not same:
+        raise AssertionError(f"[{tag}] the KV pools of the graph and eager "
+                             f"runs differ")
+    log(f"[{tag}] graph decode = eager decode: identical greedy streams "
+        f"({sum(map(len, streams.values()))} tokens) and KV pools bit for "
+        f"bit")
+    del pools
+    if device.type == "cuda":
+        phase_profile(engine, device)
+    del engine
+    _empty(device)
+    return got, streams
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty(device):
+    gc.collect()         # an executor and its graphs form a cycle
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def phase_profile(engine, device, n_steps=5, prompt=512):
@@ -1175,12 +1294,15 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
                for _ in range(ex.cache.max_seqs)]
     while engine.scheduler.queue or engine.scheduler.prefilling:
         engine.step()
+    engine.step()          # the first step at batch 8 may capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
         engine.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    decode = ex.programs["decode"]
+    replays = decode.dispatches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1188,6 +1310,7 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
             engine.step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    replays = decode.dispatches - replays
     # kinds by kernel name, first match wins
     patterns = (("quant_matmul", ("qmm_",)),
                 ("paged_decode_quant", ("paged_decode_quant",)),
@@ -1215,13 +1338,21 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
     weight_bytes = sum(nbytes(w) for w in ex.layers.values()) \
         + nbytes(ex.tops["head_w"])
     lens = [int(ex.cache.lengths[h._req.sid]) for h in handles]
-    tag = "profile" if ex.quant == "none" else f"profile-{ex.quant}"
+    mode = "eager" if ex._eager_decode else "graph"
+    tag = ("profile" if ex.quant == "none" else f"profile-{ex.quant}") \
+        + f" {mode}"
+    if mode == "graph" and (replays != n_steps or not busy):
+        raise AssertionError(
+            f"[{tag}] {replays} replays in {n_steps} traced steps, "
+            f"{busy:.3f} ms of device time attributed to them")
     log(f"[{tag}] decode step at batch {len(handles)}, lengths "
         f"{min(lens)}-{max(lens)}: {step_ms:.3f} ms untraced, "
         f"{traced_ms:.3f} ms traced | device busy {busy:.3f} ms/step ("
         + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items() if v or
                     k in ("gemm", "other"))
-        + f") | idle share {1 - busy / traced_ms:.3f} | weight-read bound "
+        + f") | idle share {1 - busy / traced_ms:.3f} (of the untraced "
+        f"step {max(0.0, 1 - busy / step_ms):.3f}) | {replays} graph "
+        f"replays traced | weight-read bound "
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step "
         f"({weight_bytes / 1e9:.3f} GB of layer and head weights)")
     if ex.quant == "int8":
@@ -1235,6 +1366,141 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
     for h in handles:
         h.cancel()
     engine.step()
+
+
+# -- phase 4e: the AOT plane -------------------------------------------------
+
+def _fill_slots(engine, prompts, max_new):
+    """Admit one request per prompt and step until every prefill is done;
+    returns the handles (their slots decode next)."""
+    handles = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    while engine.scheduler.queue or engine.scheduler.prefilling:
+        engine.step()
+    return handles
+
+
+def _drain(engine, handles):
+    for h in handles:
+        h.cancel()
+    engine.step()
+
+
+def _agreement(got, want):
+    """(requests whose streams are equal, tokens before each request's
+    first difference, tokens in all)."""
+    same = lead = 0
+    for rid, b in want.items():
+        a = got[rid]
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        lead += n
+        same += a == b
+    return same, lead, sum(map(len, want.values()))
+
+
+def phase_aot(device, phase4, cfg=None, load=None, dtype=torch.bfloat16,
+              engine_kw=None, n=8, rounds=3, prompt=512):
+    """Phase 4e: engines with aot="warm" and aot="strict" (decode at every
+    batch and decode_n at n captured at build) serve phase 4's load with
+    no failed warmup entry.  The ladder floors prefill chunks onto powers
+    of two, so a prompt is prefilled in other chunks than in phase 4:
+    the streams must equal those of an engine with the same ladder and
+    decode eager (the graphs change nothing), and their agreement with
+    phase 4's streams ``phase4`` is reported.  After seal(), a rung with
+    no graph raises AotMissError.  Then every slot of both engines holds
+    the same ``prompt``-token request, and ``rounds`` times the warm
+    engine takes n decode steps while the strict one takes one
+    decode_n(n): the same tokens, each timed."""
+    from paddle_tpu_torch.core.aot import AotMissError
+
+    engine_kw = SERVE_KW if engine_kw is None else engine_kw
+    kw = dict(engine_kw, aot="warm", decode_n_steps=(n,))
+    _, eng, want = phase_serve(device, cfg=cfg, load=load, dtype=dtype,
+                               tag="aot-warm eager", engine_kw=kw,
+                               eager=True)
+    del eng
+    _empty(device)
+    same, lead, total = _agreement(want, phase4)
+    log(f"[aot] ladder-chunked prefill vs phase 4's chunks, decode eager: "
+        f"{same} of {len(phase4)} streams equal, {lead} of {total} tokens "
+        f"before each stream's first difference (other chunk lengths, so "
+        f"other GEMM shapes and bf16 rounding in the prefill)")
+    # the control: no ladder, only another chunk length
+    half = dict(engine_kw, prefill_chunk=engine_kw["prefill_chunk"] // 2)
+    _, eng, other = phase_serve(device, cfg=cfg, load=load, dtype=dtype,
+                                tag="aot control", engine_kw=half)
+    del eng
+    _empty(device)
+    same, lead, total = _agreement(other, phase4)
+    log(f"[aot] control, aot=off with prefill_chunk="
+        f"{half['prefill_chunk']}: {same} of {len(phase4)} streams equal "
+        f"to phase 4's, {lead} of {total} tokens before each stream's "
+        f"first difference")
+    engines = {}
+    for mode in ("warm", "strict"):
+        _, eng, streams = phase_serve(
+            device, cfg=cfg, load=load, dtype=dtype, tag=f"aot-{mode}",
+            engine_kw=dict(kw, aot=mode))
+        if streams != want:
+            raise AssertionError(
+                f"[aot-{mode}] streams differ from the eager run with the "
+                f"same ladder at {_first_diff(streams, want)}")
+        log(f"[aot-{mode}] greedy streams identical to the eager run with "
+            f"the same ladder ({sum(map(len, want.values()))} tokens)")
+        engines[mode] = eng
+    ex = engines["strict"].executor
+    ms = ex.cache.max_seqs
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(1, ex.config.vocab_size, prompt)
+               for _ in range(ms)]
+    hs = {m: _fill_slots(e, prompts, rounds * n + 4)
+          for m, e in engines.items()}
+    sids = {m: sorted(h._req.sid for h in hs[m]) for m in engines}
+    for rung, call in (((ms + 1,), lambda: ex.programs["decode"]((ms + 1,))),
+                       ((ms, n + 1), lambda: ex.decode_n(sids["strict"],
+                                                         n + 1))):
+        try:
+            call()
+        except AotMissError as e:
+            log(f"[aot-strict] sealed: rung {rung} raised AotMissError "
+                f"({str(e)[:80]}...)")
+        else:
+            raise AssertionError(f"[aot-strict] rung {rung} ran after "
+                                 f"seal()")
+    warm = engines["warm"].executor
+    states = {m: ({s: engines[m].executor.last_token[s] for s in sids[m]},
+                  engines[m].executor.cache.lengths[sids[m]].tolist())
+              for m in engines}
+    if states["warm"][1] != states["strict"][1] or \
+            list(states["warm"][0].values()) != \
+            list(states["strict"][0].values()):
+        raise AssertionError(f"[aot] the two engines' slots differ before "
+                             f"decode_n: {states}")
+    t_dec, t_n = [], []
+    for _ in range(rounds):
+        _sync(device)
+        t0 = time.perf_counter()
+        steps = [warm.decode(sids["warm"]) for _ in range(n)]
+        _sync(device)
+        t_dec.append((time.perf_counter() - t0) / n * 1e3)
+        t0 = time.perf_counter()
+        got = ex.decode_n(sids["strict"], n)
+        _sync(device)
+        t_n.append((time.perf_counter() - t0) / n * 1e3)
+        dec = [[st[s] for st in steps] for s in sids["warm"]]
+        if [got[s] for s in sids["strict"]] != dec:
+            raise AssertionError(f"[aot] decode_n({n}) differs from {n} "
+                                 f"decode steps: {got} vs {dec}")
+    log(f"[aot] decode_n({n}) at batch {ms} = {n} decode steps over "
+        f"{rounds} rounds ({rounds * n * ms} tokens, lengths "
+        f"{prompt + 1}-{prompt + rounds * n}): ms per step "
+        f"{', '.join(f'{t:.3f}' for t in t_n)} (decode_n) vs "
+        f"{', '.join(f'{t:.3f}' for t in t_dec)} (decode), host wall, "
+        f"synchronised")
+    for m, e in engines.items():
+        _drain(e, hs[m])
+    del engines, ex, warm
+    _empty(device)
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1280,25 +1546,34 @@ def phase_parity(device, cfg=None, quant="none"):
     if not max_err <= 1e-3:
         raise AssertionError(f"[{tag}] logits differ by {max_err}")
     streams = {}
-    for dev, p in ((device, params), (torch.device("cpu"), cpu_params)):
+    cpu = torch.device("cpu")
+    for dev, p, aot in ((device, params, "off"), (cpu, cpu_params, "off"),
+                        (device, params, "warm"), (cpu, cpu_params, "warm")):
         before = {k: f.launches for k, f in counters.items()}
         eng = ServingEngine(cfg, p, dtype=torch.float32, device=dev,
-                            quant=quant, **PARITY_KW)
+                            quant=quant, aot=aot, **PARITY_KW)
         out = run_load(eng, work)
-        streams[dev.type] = {rid: h.tokens
-                             for rid, h in out["handles"].items()}
+        streams[dev.type, aot] = {rid: h.tokens
+                                  for rid, h in out["handles"].items()}
         launched = {k: f.launches - before[k] for k, f in counters.items()}
-        log(f"[{tag}] {dev.type}: {out['stats']['decode_steps']} decode "
-            f"steps, kernel launches {launched}")
+        dec = eng.executor.programs["decode"]
+        log(f"[{tag}] {dev.type} aot={aot}: "
+            f"{out['stats']['decode_steps']} decode steps, kernel launches "
+            f"{launched}, serve.decode {dec.dispatches} calls, "
+            f"{dec.traces} captured")
         if dev.type == "cuda" and not all(launched.values()):
             raise AssertionError(f"[{tag}] the card run missed a kernel: "
                                  f"{launched}")
-    if streams[device.type] != streams["cpu"]:
-        raise AssertionError(f"[{tag}] greedy streams differ: "
-                             f"{streams}")
-    log(f"[{tag}] greedy streams identical on {device.type} and cpu "
-        f"for {len(work)} requests ({sum(map(len, streams['cpu'].values()))}"
-        f" tokens)")
+    if streams[device.type, "warm"] != streams[device.type, "off"]:
+        raise AssertionError(f"[{tag}] aot=warm and aot=off streams "
+                             f"differ on {device.type}: {streams}")
+    for aot in ("off", "warm"):
+        if streams[device.type, aot] != streams["cpu", aot]:
+            raise AssertionError(f"[{tag}] aot={aot}: greedy streams "
+                                 f"differ: {streams}")
+        log(f"[{tag}] aot={aot}: greedy streams identical on "
+            f"{device.type} and cpu for {len(work)} requests "
+            f"({sum(map(len, streams['cpu', aot].values()))} tokens)")
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -2374,17 +2649,12 @@ def main():
     quant_rows = phase_quant_kernels(device)
     short_rows = phase_short_kernels(device)
     grouped_rows = phase_grouped_kernels(device)
-    launches, engine = phase_serve(device)
+    launches, streams = phase_serve_ab(device)
     rows[0]["launches"] = launches["paged_decode"]
-    phase_profile(engine, device)
-    del engine
-    torch.cuda.empty_cache()
-    launches, engine = phase_serve(device, quant="int8")
+    phase_aot(device, streams)
+    launches, _ = phase_serve_ab(device, quant="int8")
     for row in quant_rows:
         row["launches"] = launches[row["name"]]
-    phase_profile(engine, device)
-    del engine
-    torch.cuda.empty_cache()
     phase_parity(device)
     phase_parity(device, quant="int8")
     launches, step, batch = phase_train(device, limit)

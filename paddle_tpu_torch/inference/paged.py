@@ -15,6 +15,14 @@ Decode attention goes through ``ops.kernels.paged_decode`` — the CUDA
 kernel for tensors on the card, its plain version for tensors on the
 CPU.
 
+Decode reads its per-step inputs from fixed-address device buffers
+(``stage``: ids, positions, lengths and the page tables, filled by one
+copy from a pinned host buffer), so a captured CUDA graph of the step
+replays over the current batch.  The storage holds one page past
+``num_pages``, the scratch page: no slot owns it, and the warm-up a
+capture runs (``scratch_step``) writes only there.  ``k_pages`` /
+``v_pages`` (and the int8 scales) are views of the first ``num_pages``.
+
 ``quant="int8"`` (``None`` follows ``PT_QUANT``) makes the pools int8
 with one f32 scale per (layer, kv head, page) in ``k_scales`` /
 ``v_scales`` [L, KV, P]: writes quantize through ``ops.quant.kv_write``
@@ -30,6 +38,8 @@ prefix cache (and so the int8 copy-on-write of a page with its scale),
 ``trim`` for speculative decode, and the sequence-parallel writes.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -65,7 +75,13 @@ class PagedKVCache:
         #: requested dtype when the pool is int8
         self.compute_dtype = dtype
         self.quant = _quant.quant_mode(quant)
-        shape = (n_layers, n_kv_heads, num_pages, page_size, head_dim)
+        # one page past num_pages is the scratch page: no slot owns it, it
+        # is in no free list and no table, and the warm-up a graph capture
+        # runs writes there.  The public pools and scales are views of the
+        # first num_pages; the kernels and the in-graph writes take the
+        # whole storage, so a page id means the same page in both.
+        self.scratch_page = num_pages
+        shape = (n_layers, n_kv_heads, num_pages + 1, page_size, head_dim)
         if self.quant == "int8":
             # [2, ...]: index 0 is K, 1 is V
             self._kv_pages = torch.zeros((2,) + shape, dtype=torch.int8,
@@ -73,19 +89,33 @@ class PagedKVCache:
             self._kv_scales = torch.zeros((2,) + shape[:3],
                                           dtype=torch.float32,
                                           device=self.device)
-            self.k_pages, self.v_pages = self._kv_pages
-            self.k_scales, self.v_scales = self._kv_scales
+            self._k_all, self._v_all = self._kv_pages
+            self._ks_all, self._vs_all = self._kv_scales
+            self.k_scales = self._ks_all[:, :, :num_pages]
+            self.v_scales = self._vs_all[:, :, :num_pages]
         else:
-            self.k_pages = torch.zeros(shape, dtype=dtype,
-                                       device=self.device)
-            self.v_pages = torch.zeros(shape, dtype=dtype,
-                                       device=self.device)
+            self._k_all = torch.zeros(shape, dtype=dtype, device=self.device)
+            self._v_all = torch.zeros(shape, dtype=dtype, device=self.device)
             self.k_scales = self.v_scales = None
+        self.k_pages = self._k_all[:, :, :num_pages]
+        self.v_pages = self._v_all[:, :, :num_pages]
         self._free = list(range(num_pages - 1, -1, -1))
         self.page_table = np.full((max_seqs, self.max_pages_per_seq),
                                   -1, np.int32)
         self.lengths = np.zeros((max_seqs,), np.int32)
         self._active = [False] * max_seqs
+        # fixed-address step buffers of decode, int32: ids, positions and
+        # lengths rows, then the [max_seqs, pps] page tables; filled from
+        # one (pinned) host staging buffer by one copy a step
+        ms, pps = max_seqs, self.max_pages_per_seq
+        pin = self.device.type == "cuda"
+        self._stage = torch.zeros(ms * (3 + pps), dtype=torch.int32,
+                                  pin_memory=pin)
+        self._step = torch.zeros_like(self._stage, device=self.device)
+        self.step_ids, self.step_positions, self.step_lengths = \
+            self._step[:3 * ms].view(3, ms)
+        self.step_tables = self._step[3 * ms:].view(ms, pps)
+        self._staged = None        # CUDA event of the last staging copy
 
     # -- control plane (host) ------------------------------------------
 
@@ -200,7 +230,7 @@ class PagedKVCache:
                             self._kv_scales[:, layer], pids, offs,
                             torch.stack([k, v]).transpose(1, 2))
             return
-        kp, vp = self.k_pages[layer], self.v_pages[layer]
+        kp, vp = self._k_all[layer], self._v_all[layer]
         kp[:, pids, offs] = k.transpose(0, 1).to(kp.dtype)
         vp[:, pids, offs] = v.transpose(0, 1).to(vp.dtype)
 
@@ -244,13 +274,54 @@ class PagedKVCache:
         sh = (k.shape[0], k.shape[1], n * self.page_size, k.shape[4])
         return k.reshape(sh), v.reshape(sh)
 
+    def stage(self, seqs, ids=None):
+        """Fill the step buffers for the listed slots, in order: row b
+        gets ``ids[b]`` (0 when not given), the slot's length as both its
+        position and its length, and its page-table row with unset (-1)
+        entries clipped to page 0, which the kernel never reads.  One
+        host-to-device copy of the staging buffer (non-blocking from
+        pinned memory on CUDA).  Returns the device views
+        (ids, positions, lengths [B], tables [B, pps]), all int32; the
+        next ``stage`` overwrites them."""
+        seqs = list(seqs)
+        B, ms = len(seqs), self.max_seqs
+        if self._staged is not None:   # the last copy has read the buffer
+            self._staged.synchronize()
+        host = self._stage.numpy()
+        rows = host[:3 * ms].reshape(3, ms)
+        rows[0, :B] = 0 if ids is None else np.asarray(ids, np.int32)
+        rows[1, :B] = rows[2, :B] = self.lengths[seqs]
+        host[3 * ms:].reshape(ms, -1)[:B] = np.maximum(
+            self.page_table[seqs], 0)
+        self._restage()
+        return (self.step_ids[:B], self.step_positions[:B],
+                self.step_lengths[:B], self.step_tables[:B])
+
+    def _restage(self):
+        self._step.copy_(self._stage, non_blocking=True)
+        if self.device.type == "cuda":
+            self._staged = torch.cuda.Event()
+            self._staged.record()
+
+    @contextlib.contextmanager
+    def scratch_step(self):
+        """Point every step buffer at the scratch page (ids, positions
+        and lengths 0, every table entry the scratch page) for a warm-up
+        or a capture, so a forward run under it writes K/V into no live
+        page; put the staged values back on exit."""
+        self._step[:3 * self.max_seqs].zero_()
+        self.step_tables.fill_(self.scratch_page)
+        try:
+            yield
+        finally:
+            self._restage()
+
     def tables(self, seqs):
         """(page_indices [B, pps] int32, lengths [B] int32) on the
-        cache's device for the listed slots; unset (-1) entries past a
-        length are clipped to page 0, which the kernel never reads."""
-        table = torch.from_numpy(np.maximum(self.page_table[seqs], 0))
-        lens = torch.from_numpy(self.lengths[seqs].copy())
-        return table.to(self.device), lens.to(self.device)
+        cache's device for the listed slots: :meth:`stage`'s views, so
+        valid until the next stage."""
+        _, _, lens, table = self.stage(seqs)
+        return table, lens
 
     def attend(self, layer: int, q, seqs):
         """Decode attention for one layer: q [B, H, D] over the listed
@@ -263,7 +334,7 @@ class PagedKVCache:
         device)."""
         if self.k_scales is not None:
             return paged_decode_quant(
-                q, self.k_pages[layer], self.v_pages[layer], lengths,
-                page_indices, self.k_scales[layer], self.v_scales[layer])
-        return paged_decode(q, self.k_pages[layer], self.v_pages[layer],
+                q, self._k_all[layer], self._v_all[layer], lengths,
+                page_indices, self._ks_all[layer], self._vs_all[layer])
+        return paged_decode(q, self._k_all[layer], self._v_all[layer],
                             lengths, page_indices)

@@ -21,11 +21,23 @@ so the logical clock IS the iteration count.
 takes the kernel's plain version).  ``quant="int8"`` serves with int8
 weights and an int8 KV pool; ``quant=None`` follows ``PT_QUANT``
 (default ``none``), and a bad value fails here, at build.
+
+``aot`` is ``"off"``, ``"warm"``, ``"strict"`` or ``None`` (follow
+``PT_AOT``, default ``off``; a bad value fails at build).  Decode always
+runs as captured CUDA graphs on the card, one per batch size, captured
+at the first step of that size when ``off``.  ``warm`` captures every
+decode rung (and every ``decode_n`` rung for n in ``decode_n_steps``) at
+build and arms the prefill chunk ladder; ``strict`` also seals the
+programs, so a rung the warmup missed raises ``AotMissError`` instead of
+capturing mid-traffic.  There is no ``compile_cache=`` argument: a CUDA
+graph holds the addresses of the process that captured it and cannot
+be kept on disk.
 """
 from __future__ import annotations
 
 import torch
 
+from ...core import aot as aot_mod
 from .executor import PagedExecutor
 from .metrics import EngineMetrics
 from .request import Request, RequestHandle
@@ -36,7 +48,13 @@ class ServingEngine:
     def __init__(self, config, params, max_seqs=4, page_size=16,
                  max_len=256, dtype=torch.float32, num_pages=None,
                  policy="fifo", prefill_chunk=None, eos_token_id=None,
-                 max_preemptions=4, clock=None, device=None, quant=None):
+                 max_preemptions=4, clock=None, device=None, quant=None,
+                 aot=None, decode_n_steps=()):
+        if aot is None:
+            aot = aot_mod.mode()
+        if aot not in aot_mod.MODES:
+            raise ValueError(f"aot={aot!r}: expected one of "
+                             f"{aot_mod.MODES} (as PT_AOT)")
         self.executor = PagedExecutor(
             config, params, max_seqs=max_seqs, page_size=page_size,
             max_len=max_len, dtype=dtype, num_pages=num_pages,
@@ -50,6 +68,13 @@ class ServingEngine:
             prefill_chunk=prefill_chunk, eos_token_id=eos_token_id,
             max_preemptions=max_preemptions)
         self._next_rid = 0
+        self.aot_mode = aot
+        self._aot_report = None
+        if aot != "off":
+            self._aot_report = self.executor.aot_warmup(
+                prefill_chunk=prefill_chunk, decode_n_steps=decode_n_steps)
+            if aot == "strict":
+                self.executor.seal()
 
     # -- submission ------------------------------------------------------
 

@@ -8,6 +8,8 @@ slot-granular operations the scheduler drives:
   * ``prefill_chunk(sid, ids, t0)``  chunked prefill: attend the slot's
                                      written pages, write the chunk's KV
   * ``decode(sids)``                 one greedy token per listed slot
+  * ``decode_n(sids, n)``            n greedy tokens per listed slot, the
+                                     argmax fed back on the device
 
 The forwards are eager PyTorch and mirror the JAX programs op for op,
 dtype rules included: RMSNorm in fp32 cast back, RoPE promoting a bf16
@@ -18,6 +20,18 @@ XLA); decode writes and attention go through ``PagedKVCache``
 (``write_token``, ``attend_tables``) and so through the paged-decode
 kernel (its plain version for CPU tensors).
 
+The program plane (``core/aot.py``).  Where every serving program of the
+reference is one jitted XLA program, ``serve.decode`` and
+``serve.decode_n`` here are :class:`CountedGraph` s: the eager forward
+over the cache's fixed-address step buffers, captured as a CUDA graph
+once per batch size B (and per n), then replayed, so a decode step costs
+the host one staging copy, one replay and one [B] token copy.  Capture
+is lazy (the first step at a new B), or done up front by
+``aot_warmup``; ``seal`` then forbids new captures.  On the CPU the same
+calls run the forward eagerly over the same buffers.  Prefill stays
+eager: under an armed ladder its past cover is padded onto the page
+buckets as in the reference.
+
 ``quant="int8"`` (``None`` follows ``PT_QUANT``) quantizes the seven
 per-layer projections to per-channel int8 at construction, dropping the
 dense copies, and makes the KV pool int8: every projection then runs
@@ -25,18 +39,26 @@ through ``ops.quant.qmatmul`` (the int8-weight matmul kernel) and every
 decode attention through ``paged_decode_quant``.  The embedding, the
 norms, the RoPE tables and the LM head stay in the checkpoint dtype.
 
-Not ported yet (later slices): ``decode_n``, ``verify``, the async
-twins, AOT warmup, prefix attach and the sequence-parallel prefill.
+Not ported yet (later slices): ``verify``, the async twins
+(``decode_async``, ``verify_async``), prefix attach and the
+sequence-parallel prefill.  Not ported: the reference's on-disk
+executable cache (a CUDA graph cannot be serialized).
 """
 from __future__ import annotations
+
+import functools
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...core import aot
 from ...device import resolve_device
 from ...models.llama import params_to, rope_tables
 from ...ops import quant as _quant
+from ...ops.kernels import paged_decode as _pd
+from ...ops.kernels import quant_matmul as _qm
 from ...ops.nn_ops import rms_norm, rope
 from ..paged import PagedKVCache
 
@@ -117,6 +139,109 @@ class PagedExecutor:
         self.last_token = {}
         #: (sid, n_tokens) per prefill forward
         self.prefill_events = []
+        # the decode programs: captured per rung, sharing one graph pool
+        # (they never run at once); the launch tallies they replay are
+        # the serving kernels' counters
+        graph = functools.partial(
+            aot.CountedGraph, device=self.device,
+            scratch=self.cache.scratch_step,
+            counters=(_pd.paged_decode, _pd.paged_decode_quant,
+                      _qm.quant_matmul),
+            pool=(torch.cuda.graph_pool_handle()
+                  if self.device.type == "cuda" else None))
+        self._graph_decode = graph(self._decode_tok_step,
+                                   name="serve.decode")
+        self._graph_decode_n = graph(self._decode_n_step,
+                                     name="serve.decode_n")
+        # True runs decode's forward eagerly, never captured: the A/B
+        # baseline of chip_smoke.py
+        self._eager_decode = False
+        # AOT plane state: a non-None ladder makes the scheduler floor
+        # prefill chunks onto its rungs and prefill_chunk pad the past
+        # cover onto page buckets; None (PT_AOT=off) changes nothing
+        self.aot_ladder = None
+        self._aot_page_buckets = None
+        self._aot_sealed = False
+        self._aot_config = None
+
+    @property
+    def programs(self) -> dict:
+        """The captured programs, by name suffix."""
+        return {"decode": self._graph_decode,
+                "decode_n": self._graph_decode_n}
+
+    @torch.no_grad()
+    def aot_warmup(self, prefill_chunk=None, spec_window=None,
+                   decode_n_steps=(), ladder=None):
+        """Capture every (program x shape rung) the executor can
+        dispatch, so a warmed engine serves with no capture after warmup:
+        ``serve.decode`` at every batch 1..max_seqs and ``serve.decode_n``
+        at every (batch, n) for n in ``decode_n_steps``.  Arms the
+        prefill chunk ladder (``ladder``, default the powers of two up to
+        ``prefill_chunk`` or ``max_len``) and the past-cover page
+        buckets; prefill chunks stay eager, so they have no entries.
+
+        Each entry resolves ``warm`` (already captured) or ``capture``; an
+        entry that fails is recorded in ``failed`` and skipped, so warmup
+        never takes the engine down (the rung then captures at its first
+        call, or raises there).  Returns the report."""
+        if spec_window:
+            raise NotImplementedError(
+                "aot_warmup(spec_window=...): serve.verify is not ported "
+                "yet (ROADMAP Queue 1, item 3)")
+        kvc = self.cache
+        cap = (min(int(prefill_chunk), self.max_len)
+               if prefill_chunk else self.max_len)
+        if ladder is None:
+            ladder = aot.BucketLadder.pow2(cap)
+        buckets = aot.page_buckets(kvc.max_pages_per_seq)
+        plan = []
+        for B in range(1, kvc.max_seqs + 1):
+            plan.append((self._graph_decode, (B,)))
+            for n in decode_n_steps:
+                plan.append((self._graph_decode_n, (B, int(n))))
+        t0 = time.perf_counter()
+        report = {"capture": 0, "warm": 0, "failed": [], "programs": {},
+                  "ladder": ladder.rungs, "page_buckets": buckets}
+        for prog, rung in plan:
+            try:
+                how = prog.aot_capture(rung)
+            except Exception as e:  # a failed entry must not kill warmup
+                report["failed"].append(
+                    (prog.name, rung, f"{type(e).__name__}: {e}"))
+                continue
+            report[how] += 1
+            report["programs"][prog.name] = \
+                report["programs"].get(prog.name, 0) + 1
+        report["entries"] = len(plan)
+        report["seconds"] = round(time.perf_counter() - t0, 3)
+        self.aot_ladder = ladder
+        self._aot_page_buckets = buckets
+        self._aot_config = dict(prefill_chunk=prefill_chunk,
+                                spec_window=spec_window,
+                                decode_n_steps=tuple(decode_n_steps),
+                                ladder=ladder)
+        return report
+
+    def _aot_rewarm(self):
+        """Re-run the last warmup configuration (every entry then
+        resolves ``warm``); None until the executor has warmed once."""
+        if self._aot_config is None:
+            return None
+        return self.aot_warmup(**self._aot_config)
+
+    def seal(self):
+        """PT_AOT=strict: forbid captures after warmup.  Every warmed
+        program is sealed (a call at a rung with no graph raises
+        :class:`~paddle_tpu_torch.core.aot.AotMissError`), and
+        whole-prompt ``prefill``, routed through chunks by the scheduler,
+        refuses direct calls too."""
+        if self.aot_ladder is None:
+            raise ValueError("seal() before aot_warmup()")
+        for prog in self.programs.values():
+            if prog._exe:
+                prog.seal()
+        self._aot_sealed = True
 
     def _layer(self, i):
         return self._layers[i]
@@ -215,7 +340,8 @@ class PagedExecutor:
     def _decode_fwd(self, ids, positions, lengths, page_tables):
         """One token per listed slot: ids [B], positions [B] (the token's
         position), lengths [B] int32 (tokens already in the pool),
-        page_tables [B, pps] int32.  Each layer writes the token's K/V
+        page_tables [B, pps] int32.  Reads no value on the host, so it
+        can be captured.  Each layer writes the token's K/V
         into its page in place, then attends over ``lengths + 1``.
         Returns logits [B, V]."""
         cfg = self.config
@@ -236,6 +362,37 @@ class PagedExecutor:
             x = self._mlp(x, lp)
         x = rms_norm(x, self.tops["norm_w"], cfg.rms_norm_eps)
         return self._head(x[:, 0])
+
+    def _decode_tok_fwd(self, ids, positions, lengths, page_tables):
+        """:meth:`_decode_fwd` with the greedy argmax in the program:
+        tokens [B] int32."""
+        logits = self._decode_fwd(ids, positions, lengths, page_tables)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _decode_n_fwd(self, ids, positions, lengths, page_tables, n):
+        """``n`` greedy steps in one program, each step's argmax the next
+        one's ids (the tables cover all n tokens).  Returns tokens
+        [n, B] int32."""
+        toks = []
+        for _ in range(n):
+            ids = self._decode_tok_fwd(ids, positions, lengths, page_tables)
+            toks.append(ids)
+            positions, lengths = positions + 1, lengths + 1
+        return torch.stack(toks)
+
+    def _step_inputs(self, B):
+        c = self.cache
+        return (c.step_ids[:B], c.step_positions[:B], c.step_lengths[:B],
+                c.step_tables[:B])
+
+    def _decode_tok_step(self, rung):
+        """``serve.decode`` at rung (B,), over the step buffers."""
+        return self._decode_tok_fwd(*self._step_inputs(rung[0]))
+
+    def _decode_n_step(self, rung):
+        """``serve.decode_n`` at rung (B, n), over the step buffers."""
+        B, n = rung
+        return self._decode_n_fwd(*self._step_inputs(B), n)
 
     # -- slot-granular control plane ------------------------------------
 
@@ -271,6 +428,12 @@ class PagedExecutor:
     def prefill(self, sid: int, prompt_ids) -> int:
         """Whole-prompt prefill into an allocated slot; returns the
         first greedy token."""
+        if self._aot_sealed:
+            raise aot.AotMissError(
+                "[serve.prefill] PT_AOT=strict: whole-prompt prefill has "
+                "an unbounded [1, S] shape and cannot be warmed; the "
+                "scheduler routes prompts through prefill_chunk's bucket "
+                "ladder instead")
         ids = self._ids(prompt_ids)
         self.prefill_events.append((sid, int(ids.shape[1])))
         logits, k, v = self._prefill_fwd(ids)
@@ -286,6 +449,15 @@ class PagedExecutor:
         already-written pages.  When ``final``, records and returns the
         prompt's first greedy token; else returns None."""
         past_k, past_v = self.cache.gather_dense(sid, start)
+        if self.aot_ladder is not None:
+            # bucket the past cover as the reference does: zero pages up
+            # to the next bucket, which the past_len mask drops
+            ps = self.cache.page_size
+            pages = past_k.shape[2] // ps
+            b = aot.bucket_pages(pages, self._aot_page_buckets)
+            if b > pages:
+                pad = (0, 0, 0, (b - pages) * ps)
+                past_k, past_v = F.pad(past_k, pad), F.pad(past_v, pad)
         ids = self._ids(chunk_ids)
         self.prefill_events.append((sid, int(ids.shape[1])))
         logits, k, v = self._chunk_fwd(ids, start, past_k, past_v, start)
@@ -295,6 +467,11 @@ class PagedExecutor:
         tok = int(torch.argmax(logits))
         self.last_token[sid] = tok
         return tok
+
+    def _run(self, prog, eager, rung):
+        """One decode program at ``rung``: replayed (or eager on the
+        CPU) through its CountedGraph, or eager when ``_eager_decode``."""
+        return eager(rung) if self._eager_decode else prog(rung)
 
     @torch.no_grad()
     def decode(self, sids) -> dict:
@@ -306,16 +483,35 @@ class PagedExecutor:
         cache = self.cache
         # batch-atomic page reservation before any in-place write
         cache.reserve(sids, extra_tokens=1)
-        ids = torch.tensor([self.last_token[s] for s in sids],
-                           device=self.device)
-        tables, lengths = cache.tables(sids)
-        positions = lengths.long()
-        logits = self._decode_fwd(ids, positions, lengths, tables)
-        for s in sids:
-            cache.lengths[s] += 1
-        toks = torch.argmax(logits, dim=-1).cpu().tolist()  # one transfer
+        cache.stage(sids, [self.last_token[s] for s in sids])
+        toks = self._run(self._graph_decode, self._decode_tok_step,
+                         (len(sids),)).tolist()     # one [B] transfer
         out = {}
         for s, tok in zip(sids, toks):
+            cache.lengths[s] += 1
             self.last_token[s] = tok
             out[s] = tok
+        return out
+
+    @torch.no_grad()
+    def decode_n(self, sids, n) -> dict:
+        """``n`` greedy tokens per listed slot in one program.  Returns
+        {sid: [tok_1..tok_n]}.  Pages for all n tokens are reserved up
+        front (batch-atomic), so the in-program page writes can never
+        overflow a sequence's table."""
+        sids, n = list(sids), int(n)
+        if not sids:
+            return {}
+        if n < 1:
+            raise ValueError(f"decode_n: n must be >= 1, got {n}")
+        cache = self.cache
+        cache.reserve(sids, extra_tokens=n)
+        cache.stage(sids, [self.last_token[s] for s in sids])
+        toks = self._run(self._graph_decode_n, self._decode_n_step,
+                         (len(sids), n)).tolist()    # [n][B]
+        out = {}
+        for i, s in enumerate(sids):
+            cache.lengths[s] += n
+            self.last_token[s] = toks[-1][i]
+            out[s] = [t[i] for t in toks]
         return out

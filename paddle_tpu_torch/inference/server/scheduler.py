@@ -14,6 +14,9 @@ Counterpart of the synchronous path of
 
 An exception inside one request's prefill fails THAT request only.
 
+Under an armed AOT ladder (``executor.aot_ladder``) prefill chunks are
+floored onto its rungs and whole prompts go through ``prefill_chunk``.
+
 Not ported yet (later slices): speculative decode, double-buffered
 async execution, the prefix cache, the write-ahead journal, fault
 points and sequence-parallel prefill.
@@ -202,12 +205,19 @@ class Scheduler:
     # -- chunked prefill -------------------------------------------------
 
     def _prefill(self, emitted):
+        # a warmed executor publishes its AOT bucket ladder: chunks are
+        # floored onto the rungs (any prompt decomposes into descending
+        # rungs) and whole prompts route through prefill_chunk, as in the
+        # reference, whose serve.prefill has an unbounded [1, S] shape
+        ladder = self.executor.aot_ladder
         for req in list(self.prefilling):
             ids = req.resume_ids
             total = len(ids)
             start = req.prefill_done
             chunk = (total - start if self.prefill_chunk is None
                      else min(self.prefill_chunk, total - start))
+            if ladder is not None:
+                chunk = ladder.floor(chunk)
             final = start + chunk == total
             try:
                 # page work first: a pool-exhausted raise preempts (not
@@ -219,7 +229,7 @@ class Scheduler:
                 self._preempt(req)
                 continue
             try:
-                if start == 0 and final:
+                if start == 0 and final and ladder is None:
                     tok = self.executor.prefill(req.sid, ids)
                 else:
                     tok = self.executor.prefill_chunk(
