@@ -109,6 +109,36 @@ result):
              attention kernel (S=1024, D=128, H == KV), fp32: 3 steps on
              the card (kernels) and on the CPU (plain versions) from the
              same weights give losses within 1e-4 relative.
+6e. train full — Llama-2-7B at its published shape, all 32 layers,
+             on one card: bf16 compute, master_dtype="bfloat16_sr" (the
+             bf16 parameters are the master, written back by stochastic
+             rounding; 6.738 B parameters x 2 B for parameters, gradients
+             and the two bf16 moments), full recompute, B=4, S=2048, lr
+             1e-4.  One eager warm-up and 2 timed eager steps, then
+             multi_step(5) twice (the first call warms up with the update
+             gated off, captures the 5 steps into one CUDA graph and
+             replays it; the second only replays).  Losses finite and
+             falling; exactly 4L+1 / 2L+1 RMSNorm and 2L / L attention
+             launches per step eagerly and under replay; step ms both
+             ways, tokens/s, MFU, peak memory.  The training rows of the
+             kernel line count this replay's launches.
+6f. graph vs eager — phase 6's 8-layer shape (fp32 master): 4 eager
+             steps from one state and multi_step(4) from an equal one
+             (two models from one seed), twice: losses and every
+             parameter, master and moment tensor equal bit for bit; ms a
+             step both ways and a traced run of each with its idle
+             share.  Again with master_dtype="bfloat16_sr": whether the
+             registered SR generator makes replays equal eager (else
+             held at relative 2e-2, bf16).
+6g. remat policies — full, save_mlp, save_attn and dots at the 8-layer
+             shape: ms a step and peak memory; then loss and every
+             gradient in fp32 at a 2-layer cut (B=2, S=2048), each policy
+             against full within relative 1e-6.
+6h. guarded step — a 2-layer cut of 7B (bf16, fp32 master): 3 clean
+             guarded_step calls equal 3 step calls bit for bit; a step
+             whose loss is poisoned with NaN and one above the
+             threshold (loss + 1e6, threshold 1e3) leave every state
+             tensor and the step count unchanged.
 8. bert train — BERT-base SQuAD fine-tuning as bench.py's BASELINE
              config 2 sets it: BertForQuestionAnswering(BertConfig.base())
              at full width and depth, B=48, S=384, bf16 compute, fp32
@@ -117,6 +147,15 @@ result):
              timed ones, every loss finite, exactly 12 forward and 12
              backward short-attention launches per step and no long ones.
              8b profiles one step with torch.profiler.
+8c. bert graph — the token-type table's backward (one id 18432 times,
+             fp32) 20 times, the library's and the port's
+             embedding_grad (which must give one result); then phase
+             8's config through multi_step(4) against 4
+             eager steps, dropout 0: bit for bit, ms a step and idle share
+             both ways; then dropout 0.1 at lr 0 (the state does not
+             move): three replays must give three different losses (the
+             dropout generators are registered with the graph, so each
+             replay draws new masks).
 9. bert parity — 2 layers, hidden 256, 4 heads (D = 64), S = 256, B = 2,
              fp32, dropout 0: 3 steps on the card (the short kernel) and
              on the CPU (the einsum path) from the same weights give
@@ -1755,6 +1794,463 @@ def phase_train_parity(device, steps=3):
         raise AssertionError(f"[train-parity] losses differ: {losses}")
 
 
+# -- phases 6e-6h: the train step's graph, SR, remat policies, the gate --------
+
+#: phase 6e: Llama-2-7B at all 32 layers, one card (bfloat16_sr)
+FULL_RUN = dict(batch=4, seq=2048, k=5, eager=2, lr=1e-4)
+
+
+def _per_step(L, long=True):
+    """Launches per Llama step under full recompute: 4L+1 / 2L+1 RMSNorm
+    forward / backward, 2L / L attention forward / backward."""
+    return {"rms_norm_fwd": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+            "attention_fwd": 2 * L if long else 0,
+            "attention_bwd": L if long else 0,
+            "short_attention_fwd": 0 if long else 2 * L,
+            "short_attention_bwd": 0 if long else L}
+
+
+def _zero_counts(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def _counts(counters):
+    return {k: f.launches for k, f in counters.items()}
+
+
+def _timed(device, fn):
+    """(result, ms) of ``fn()`` on the host clock, synchronised."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _traced(fn):
+    """(wall ms, device busy ms) of one traced ``fn()``: busy is the sum
+    of the device kernels' own times, replayed graph kernels included
+    (NaN without a card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return _timed(torch.device("cpu"), fn)[1], float("nan")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def _llama_step(cfg, device, master="float32", lr=1e-4, seed=0, **kw):
+    from paddle_tpu_torch.models import CompiledTrainStep, LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device=device, seed=seed)
+    return CompiledTrainStep(model, lr=lr, compute_dtype="bfloat16",
+                             moments_dtype="bfloat16", master_dtype=master,
+                             device=device, **kw)
+
+
+def _ids(vocab, B, S, device, seed=0):
+    ids = np.random.RandomState(seed).randint(0, vocab, (B, S))
+    return (torch.as_tensor(ids, device=device),) * 2  # inputs = labels
+
+
+def phase_train_full(device, limit, cfg=None, run=None):
+    """6e: Llama-2-7B at all 32 layers on one card: bf16 parameters that
+    are their own master (master_dtype="bfloat16_sr"), bf16 moments,
+    full recompute.  One eager warm-up step and ``eager`` timed eager
+    steps, then ``k`` steps through multi_step(k) twice: the first call
+    warms up (its update gated off), captures and replays, the second
+    only replays.  Returns the kernels' launches in the eager steps,
+    counted where each wrapper launches, and the tally the replayed call
+    added."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = cfg or LlamaConfig.llama2_7b(recompute=True,
+                                       recompute_policy="full",
+                                       attention_impl="auto")
+    run = dict(FULL_RUN, **(run or {}))
+    B, S, k = run["batch"], run["seq"], run["k"]
+    L = cfg.num_hidden_layers
+    on_card = device.type == "cuda"
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    t0 = time.perf_counter()
+    step = _llama_step(cfg, device, master="bfloat16_sr", lr=run["lr"])
+    model = step.model
+    nparams = model.num_params()
+    state_gib = sum(t.numel() * t.element_size()
+                    for tree in (step.params, step._m, step._v)
+                    for t in tree.values()) / 2**30
+    batch = _ids(cfg.vocab_size, B, S, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"[train-full] {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, intermediate "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}: "
+        f"{nparams / 1e9:.3f} B parameters, bf16 compute, "
+        f"master_dtype=bfloat16_sr (no fp32 master), bf16 moments, full "
+        f"recompute; parameters + moments {state_gib:.2f} GiB; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counters = _train_counters()
+    per_step = _per_step(L, long=S >= 1024)
+    losses, eager_ms = [], []
+    eager_launches = {n: 0 for n in per_step}
+    for i in range(run["eager"] + 1):
+        _zero_counts(counters)
+        loss, ms = _timed(device, lambda: float(step.step(*batch)))
+        got = _counts(counters)
+        for n, c in got.items():
+            eager_launches[n] += c
+        losses.append(loss)
+        if i:
+            eager_ms.append(ms)
+        log(f"[train-full] eager step {i}{' (warm-up)' if i == 0 else ''}: "
+            f"loss {loss:.6f}, {ms:.1f} ms, launches {got}")
+        if on_card and got != per_step:
+            raise AssertionError(f"[train-full] eager step launched {got}, "
+                                 f"expected {per_step}")
+    if on_card:
+        torch.cuda.empty_cache()
+    _zero_counts(counters)
+    _, first_ms = _timed(device, lambda: step.multi_step(k, *batch))
+    first = step.last_losses.tolist()
+    _zero_counts(counters)
+    _, graph_ms = _timed(device, lambda: step.multi_step(k, *batch))
+    launches = _counts(counters)
+    second = step.last_losses.tolist()
+    losses += first + second
+    want = {n: k * c for n, c in per_step.items()}
+    log(f"[train-full] multi_step({k}) first call (warm-up with the update "
+        f"gated off, capture, replay): {first_ms:.1f} ms, "
+        f"losses {first}; second call (replay): {graph_ms:.1f} ms, losses "
+        f"{second}; launches under replay {launches} (expected {want}); "
+        f"graphs captured {step._graph.traces} in "
+        f"{step._graph.seconds:.1f} s")
+    if on_card and launches != want:
+        raise AssertionError(f"[train-full] replay launched {launches}, "
+                             f"expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train-full] losses {losses}: not finite and "
+                             "falling")
+    eager = float(np.mean(eager_ms))
+    graph = graph_ms / k
+    tokens = B * S
+    fpt = model.flops_per_token(S)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    for how, ms in (("eager step()", eager), (f"multi_step({k})", graph)):
+        log(f"[train-full] B={B} S={S} {how}: {ms:.1f} ms a step | "
+            f"{tokens / (ms / 1e3):.1f} tokens/s | MFU "
+            f"{fpt * tokens / (ms / 1e3) / BF16_FLOPS:.4f} (6N + 12LhS = "
+            f"{fpt:.4e} flops/token over {BF16_FLOPS / 1e12:g} TFLOP/s "
+            f"bf16)")
+    log(f"[train-full] peak memory {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30 if on_card else float('nan'):.2f} | "
+        f"losses {losses} | {limit}")
+    log(f"[train-full] kernel launches in the {run['eager'] + 1} eager "
+        f"steps, counted at launch: {eager_launches}; tallied by the "
+        f"replay of multi_step({k}): {launches}")
+    return eager_launches, launches
+
+
+def _state_equal(a, b):
+    """Names of the state tensors (parameters, master, m, v) that differ
+    bit for bit between two train steps."""
+    bad = []
+    for name in ("params", "_master", "_m", "_v"):
+        ta, tb = getattr(a, name), getattr(b, name)
+        bad += [f"{name}[{k}]" for k in ta if not torch.equal(ta[k], tb[k])]
+    return bad
+
+
+def phase_graph_ab(device, limit, cfg=None, run=None, master="float32"):
+    """6f: ``k`` eager steps from one state and multi_step(k) from an
+    equal one (two models built from one seed), twice over; losses and
+    every parameter, master and moment tensor compared bit for bit, the
+    ms per step both ways, and one traced eager step and one traced
+    replay with their idle shares."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=8, recompute=True,
+                                       recompute_policy="full",
+                                       attention_impl="auto")
+    run = dict(TRAIN_RUN, **(run or {}))
+    B, S, k = run["batch"], run["seq"], 4
+    tag = f"graph-ab {master}"
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    eager = _llama_step(cfg, device, master=master, lr=run["lr"])
+    graph = _llama_step(cfg, device, master=master, lr=run["lr"])
+    batch = _ids(cfg.vocab_size, B, S, device)
+    same = {}
+    times = {"eager": [], "graph": []}
+    for rnd in range(2):
+        el, ms = _timed(device, lambda: [float(eager.step(*batch))
+                                         for _ in range(k)])
+        times["eager"].append(ms / k)
+        _, ms = _timed(device, lambda: graph.multi_step(k, *batch))
+        times["graph"].append(ms / k)
+        gl = graph.last_losses.tolist()
+        bad = _state_equal(eager, graph)
+        same[rnd] = (el == gl, bad)
+        log(f"[{tag}] round {rnd}: eager losses {el} | graph losses {gl} | "
+            f"equal {el == gl}; state tensors that differ: {len(bad)} of "
+            f"{sum(len(getattr(eager, n)) for n in ('params', '_master', '_m', '_v'))}"
+            f"{' ' + str(bad[:4]) if bad else ''}")
+    ew, eb = _traced(lambda: [eager.step(*batch) for _ in range(k)])
+    gw, gb = _traced(lambda: graph.multi_step(k, *batch))
+    log(f"[{tag}] B={B} S={S}, {cfg.num_hidden_layers} layers: eager "
+        f"{times['eager'][1]:.1f} ms a step, multi_step({k}) "
+        f"{times['graph'][1]:.1f} ms a step (round 0 with capture: "
+        f"{times['graph'][0]:.1f}) | traced {k} steps: eager wall "
+        f"{ew:.1f} ms, busy {eb:.1f} ms, idle share {1 - eb / ew:.3f}; "
+        f"graph wall {gw:.1f} ms, busy {gb:.1f} ms, idle share "
+        f"{1 - gb / gw:.3f} | {limit}")
+    exact = all(eq and not bad for eq, bad in same.values())
+    if master == "float32" and not exact:
+        raise AssertionError(f"[{tag}] the graph's steps are not the eager "
+                             f"steps bit for bit: {same}")
+    if not exact:
+        # SR mode: hold the replays at the bf16 tolerance
+        worst = max(float(((graph.params[n].float() - eager.params[n].float())
+                           .norm() / eager.params[n].float().norm()))
+                    for n in eager.params)
+        log(f"[{tag}] replays differ from eager: worst parameter relative "
+            f"difference {worst:.3e} (limit 2e-2, bf16)")
+        if not worst <= 2e-2:
+            raise AssertionError(f"[{tag}] replays drifted: {worst}")
+    else:
+        log(f"[{tag}] the registered generators make replays equal eager "
+            f"bit for bit" if master == "bfloat16_sr" else
+            f"[{tag}] replays equal eager bit for bit")
+    del eager, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+POLICIES = ("full", "save_mlp", "save_attn", "dots")
+
+
+def phase_remat_policies(device, limit, cfg=None, run=None, grad_cfg=None,
+                         grad_run=None):
+    """6g: each recompute policy at the 8-layer shape (bf16 compute, fp32
+    master): one warm-up and two timed eager steps, step ms and peak
+    memory; then loss and gradients in fp32 at the same shape, each
+    policy against "full" (relative 1e-6)."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    run = dict(TRAIN_RUN, **(run or {}))
+    B, S = run["batch"], run["seq"]
+    on_card = device.type == "cuda"
+    for pol in POLICIES:
+        c = cfg or LlamaConfig.llama2_7b(num_hidden_layers=8, recompute=True)
+        c = LlamaConfig(**{**c.__dict__, "recompute_policy": pol})
+        step = _llama_step(c, device, lr=run["lr"])
+        batch = _ids(c.vocab_size, B, S, device)
+        float(step.step(*batch))
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _, ms = _timed(device, lambda: [float(step.step(*batch))
+                                        for _ in range(2)])
+        peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else float("nan"))
+        log(f"[remat] {pol}: {ms / 2:.1f} ms a step, peak memory "
+            f"{peak:.2f} GiB ({c.num_hidden_layers} layers, B={B} S={S}, "
+            f"bf16, fp32 master) | {limit}")
+        del step, batch
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    gcfg = grad_cfg or LlamaConfig.llama2_7b(num_hidden_layers=8,
+                                             recompute=True)
+    grun = dict(dict(batch=B, seq=S), **(grad_run or {}))
+    ref = None
+    for pol in POLICIES:
+        c = LlamaConfig(**{**gcfg.__dict__, "recompute_policy": pol})
+        model = LlamaForCausalLM(c, device=device, seed=5)
+        ids, labels = _ids(c.vocab_size, grun["batch"], grun["seq"], device,
+                           seed=2)
+        loss = model(ids, labels)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        got = (float(loss.detach()), dict(zip(names, grads)))
+        del model
+        if ref is None:
+            ref = got
+            continue
+        worst = max(float((got[1][n] - ref[1][n]).norm()
+                          / ref[1][n].norm().clamp(min=1e-30))
+                    for n in names)
+        exact = all(torch.equal(got[1][n], ref[1][n]) for n in names)
+        rel = abs(got[0] - ref[0]) / abs(ref[0])
+        log(f"[remat] {pol} vs full, fp32, {c.num_hidden_layers} layers: "
+            f"loss {got[0]!r} vs {ref[0]!r} (relative {rel:.3e}), worst "
+            f"gradient relative difference {worst:.3e}, bit for bit "
+            f"{exact} (limit 1e-6)")
+        if not (rel <= 1e-6 and worst <= 1e-6):
+            raise AssertionError(f"[remat] {pol} changes the gradients")
+
+
+class Poisoned(torch.nn.Module):
+    """A Llama whose loss adds the buffer ``poison`` (0; NaN or 1e6 for a
+    poisoned step): the guard's fault points until testing/faults.py is
+    ported."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.register_buffer("poison", torch.zeros(
+            (), device=next(model.parameters()).device))
+
+    def forward(self, *batch):
+        return self.model(*batch) + self.poison
+
+
+def phase_guarded(device, limit, cfg=None, run=None):
+    """6h: guarded_step at a 2-layer cut of 7B: 3 clean guarded steps
+    equal 3 plain steps bit for bit; a NaN-poisoned step and a step
+    above the threshold leave every state tensor and the step count as
+    they were."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import (
+        CompiledTrainStep, LlamaConfig, LlamaForCausalLM,
+    )
+
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=2, recompute=True)
+    run = dict(dict(batch=2, seq=2048), **(run or {}))
+    steps = []
+    for _ in range(2):
+        model = Poisoned(LlamaForCausalLM(cfg, device=device, seed=4))
+        steps.append(CompiledTrainStep(model, lr=1e-4,
+                                       compute_dtype="bfloat16",
+                                       device=device))
+    plain, guarded = steps
+    batch = _ids(cfg.vocab_size, run["batch"], run["seq"], device, seed=3)
+    pl = [float(plain.step(*batch)) for _ in range(3)]
+    gl = [guarded.guarded_step(float("inf"), *batch) for _ in range(3)]
+    bad = _state_equal(plain, guarded)
+    log(f"[guarded] 3 clean steps: plain losses {pl} | guarded "
+        f"(loss, gnorm, ok) {gl} | state tensors that differ: {len(bad)}; "
+        f"t {plain._t} / {guarded._t}")
+    if bad or [g[0] for g in gl] != pl or not all(g[2] for g in gl) \
+            or plain._t != guarded._t:
+        raise AssertionError(f"[guarded] a clean guarded run is not the "
+                             f"plain step: {bad[:4]}")
+    for what, poison, ceiling in (("NaN loss", float("nan"), float("inf")),
+                                  ("loss spike", 1e6, 1e3)):
+        snap = guarded.state_dict()
+        t0 = guarded._t
+        guarded.model.poison.fill_(poison)
+        out = guarded.guarded_step(ceiling, *batch)
+        guarded.model.poison.zero_()
+        changed = [f"{tree}[{k}]" for tree, name in
+                   (("params", "params"), ("master", "_master"),
+                    ("m", "_m"), ("v", "_v"))
+                   for k, v in getattr(guarded, name).items()
+                   if not torch.equal(v, snap[tree][k])]
+        log(f"[guarded] {what} (threshold {ceiling}): (loss, gnorm, ok) "
+            f"{out}, t {t0} -> {guarded._t}, state tensors changed "
+            f"{len(changed)}")
+        if out[2] or changed or guarded._t != t0:
+            raise AssertionError(f"[guarded] the {what} step was not "
+                                 f"skipped cleanly: {changed[:4]}")
+    del plain, guarded, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_bert_graph(device, limit, cfg=None, run=None):
+    """8c: BERT-base QA (phase 8's config) through multi_step(4) against
+    4 eager steps: bit for bit with dropout 0, the ms per step and the
+    idle share both ways; with dropout 0.1 and lr 0 (the state stays as
+    it is), two replays must draw different masks (different losses)."""
+    from paddle_tpu_torch.models import BertConfig, CompiledTrainStep
+    from paddle_tpu_torch.nn.common import embedding_grad
+
+    run = dict(BERT_RUN, **(run or {}))
+    B, S, k = run["batch"], run["seq"], 4
+    base = cfg or BertConfig.base()
+    # the token-type table's backward (one id B*S times, fp32), 20 times:
+    # the library's against the port's embedding_grad
+    ids = torch.zeros(B, S, dtype=torch.long, device=device)
+    g = torch.randn(B, S, base.hidden_size, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    w = torch.zeros(2, base.hidden_size, device=device, requires_grad=True)
+    lib = [torch.autograd.grad(torch.nn.functional.embedding(ids, w), w,
+                               g)[0] for _ in range(20)]
+    ours = [embedding_grad(ids, g, 2, torch.float32) for _ in range(20)]
+    spread = {name: max(float((x - runs[0]).abs().max()) for x in runs)
+              for name, runs in (("library", lib), ("port", ours))}
+    log(f"[bert-graph] embedding backward, one id {B * S} times, fp32, 20 "
+        f"runs: largest difference from the first run: library "
+        f"{spread['library']:.3e}, port {spread['port']:.3e}; port vs "
+        f"library {float((ours[0] - lib[0]).abs().max()):.3e}")
+    if spread["port"] != 0.0:
+        raise AssertionError("[bert-graph] embedding_grad is not repeatable")
+    del lib, ours, g
+    c0 = BertConfig(**{**base.__dict__, "hidden_dropout_prob": 0.0,
+                       "attention_probs_dropout_prob": 0.0})
+    steps = []
+    for _ in range(2):
+        model = QATrain(c0, device)
+        model.train()
+        steps.append(CompiledTrainStep(model, lr=run["lr"],
+                                       compute_dtype="bfloat16",
+                                       device=device))
+    eager, graph = steps
+    batch = _bert_batch(c0.vocab_size, B, S, device)
+    res = []
+    for rnd in range(2):
+        el, ems = _timed(device, lambda: [float(eager.step(*batch))
+                                          for _ in range(k)])
+        _, gms = _timed(device, lambda: graph.multi_step(k, *batch))
+        gl = graph.last_losses.tolist()
+        bad = _state_equal(eager, graph)
+        res.append((el == gl and not bad, ems / k, gms / k))
+        log(f"[bert-graph] dropout 0, round {rnd}: eager losses {el} | "
+            f"graph losses {gl} | state tensors that differ {len(bad)}"
+            f"{' ' + str(bad[:4]) if bad else ''}")
+    ew, eb = _traced(lambda: [eager.step(*batch) for _ in range(k)])
+    gw, gb = _traced(lambda: graph.multi_step(k, *batch))
+    log(f"[bert-graph] B={B} S={S}: eager {res[1][1]:.1f} ms a step, "
+        f"multi_step({k}) {res[1][2]:.1f} ms a step (round 0 with capture "
+        f"{res[0][2]:.1f}) | traced {k} steps: eager wall {ew:.1f} ms, busy "
+        f"{eb:.1f} ms, idle share {1 - eb / ew:.3f}; graph wall {gw:.1f} ms, "
+        f"busy {gb:.1f} ms, idle share {1 - gb / gw:.3f} | {limit}")
+    if not all(r[0] for r in res):
+        raise AssertionError("[bert-graph] multi_step is not the eager "
+                             "steps bit for bit at dropout 0")
+    del eager, graph, steps
+    gc.collect()
+    model = QATrain(base, device)
+    model.train()
+    step = CompiledTrainStep(model, lr=0.0, compute_dtype="bfloat16",
+                             device=device)
+    draws = [float(step.multi_step(1, *batch)) for _ in range(3)]
+    log(f"[bert-graph] dropout {base.hidden_dropout_prob} / "
+        f"{base.attention_probs_dropout_prob}, lr 0: losses of three "
+        f"replays {draws} (a repeated loss would mean a repeated mask)")
+    if len(set(draws)) != len(draws) or not all(np.isfinite(draws)):
+        raise AssertionError("[bert-graph] replays repeat their dropout "
+                             f"masks: {draws}")
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- phase 3e: the short-attention kernels -------------------------------------
 
 def short_attention_bounds(B, H, S, D, elem_bytes, causal=False):
@@ -2659,7 +3155,8 @@ def main():
     phase_parity(device, quant="int8")
     launches, step, batch = phase_train(device, limit)
     for row in train_rows:
-        row["launches"] = launches[row["name"]]
+        if not launches[row["name"]]:
+            raise AssertionError(f"[train] {row['name']} never launched")
     rows += train_rows + quant_rows
     phase_train_profile(step, batch, device)
     del step, batch
@@ -2677,6 +3174,20 @@ def main():
                 run=dict(batch=4, seq=512, steps=2))
     torch.cuda.empty_cache()
     phase_train_parity(device)
+    torch.cuda.empty_cache()
+    # the full-depth train step is this slice's main training path: the
+    # training rows count its eager steps where each kernel launches,
+    # and show beside that the tally its replayed graph added
+    launches, replayed = phase_train_full(device, limit)
+    for row in train_rows:
+        row["launches"] = launches[row["name"]]
+        row["replay_launches"] = replayed[row["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graph_ab(device, limit)
+    phase_graph_ab(device, limit, master="bfloat16_sr")
+    phase_remat_policies(device, limit)
+    phase_guarded(device, limit)
     launches, step, batch = phase_bert_train(device, limit)
     for row in short_rows:
         row["launches"] = launches[row["name"]]
@@ -2684,6 +3195,7 @@ def main():
     phase_bert_profile(step, batch)
     del step, batch
     torch.cuda.empty_cache()
+    phase_bert_graph(device, limit)
     phase_bert_parity(device)
     launches, step, batch = phase_moe_train(device, limit)
     grouped_rows[0]["launches"] = launches["grouped_ffn"]
@@ -2698,7 +3210,9 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("replay_launches",) if k in r}
+        for r in rows]}))
     print(limit)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,7 +7,9 @@ the reference AOT-compiles one XLA executable per (program x shape rung),
 the port captures one ``torch.cuda.CUDAGraph`` per rung
 (:class:`CountedGraph`): a captured decode step replays every kernel of
 the forward with one host call, which is what ``jax.jit`` gives a
-fixed-shape program on the TPU.
+fixed-shape program on the TPU.  ``models.CompiledTrainStep.multi_step``
+captures its k train steps through the same class (the counterpart of
+the reference's ``lax.scan`` over k steps in one program).
 
 Not ported: ``CompileCache``, ``signature`` and ``cache_root``.  A CUDA
 graph holds device addresses of the process that captured it and cannot
@@ -149,6 +151,13 @@ def _restore(counters, state):
             c.routes.update(routes)
 
 
+def _weak(fn):
+    """A callable returning ``fn``, holding a bound method weakly."""
+    if inspect.ismethod(fn):
+        return weakref.WeakMethod(fn)
+    return lambda: fn
+
+
 class CountedGraph:
     """A forward over fixed-address buffers, captured once per shape rung
     and replayed: the port's ``CountedJit``.
@@ -165,6 +174,14 @@ class CountedGraph:
     side stream (first-use attributes and workspaces must not happen under
     capture), then captures it into a ``torch.cuda.CUDAGraph`` whose memory
     comes from ``pool`` (graphs that never run at once may share one).
+    ``generators`` are the ``torch.Generator`` s ``fn`` draws from besides
+    the default one: each is registered with the graph, so a replay
+    advances it and draws fresh numbers (unregistered, every replay would
+    repeat the capture's draw).  With ``release`` the allocator's cache is
+    emptied between the warm-up and the capture, so that the graph's
+    private pool can take the memory the warm-up held (a 7B train step's
+    warm-up and graph would not both fit); serving's small decode graphs
+    skip that synchronisation.
     A call at a captured rung replays; a call at a new rung captures first,
     as ``jax.jit`` traces on a first call, unless :meth:`seal` was called,
     and then it raises :class:`AotMissError`.  A capture that fails
@@ -184,19 +201,21 @@ class CountedGraph:
     kernel run of the serving path, replayed or eager."""
 
     def __init__(self, fn, *, name, device, scratch, counters=(),
-                 pool=None):
+                 pool=None, generators=(), release=False):
         self.name = name
         self.device = torch.device(device)
         self.traces = 0
         self.seconds = 0.0
         self.dispatches = 0
-        # a bound method is held weakly: the executor owns its programs,
-        # and a reference cycle would leave its graphs to the collector
-        self._fn = (weakref.WeakMethod(fn) if inspect.ismethod(fn)
-                    else (lambda: fn))
-        self._scratch = scratch
+        # bound methods are held weakly: the executor (or the train step)
+        # owns its programs, and a reference cycle would leave its graphs
+        # and their memory to the collector
+        self._fn = _weak(fn)
+        self._scratch_ref = _weak(scratch)
         self._counters = tuple(counters)
         self._pool = pool
+        self._generators = tuple(generators)
+        self._release = release
         #: rung -> (graph, outputs, launch tally); graph None on the CPU
         self._exe = {}
         self._sealed = False
@@ -204,6 +223,9 @@ class CountedGraph:
     @property
     def fn(self):
         return self._fn()
+
+    def _scratch(self):
+        return self._scratch_ref()()
 
     def _warm_and_capture(self, rung):
         fn = self.fn
@@ -216,8 +238,13 @@ class CountedGraph:
         with torch.cuda.stream(side):
             fn(rung)
         stream.wait_stream(side)
+        if self._release:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
         before = _read(self._counters)
         graph = torch.cuda.CUDAGraph()
+        for gen in self._generators:
+            graph.register_generator_state(gen)
         # no collection during the capture: a finalizer that frees another
         # graph or an event there (a CUDA call the capture forbids)
         # invalidates it

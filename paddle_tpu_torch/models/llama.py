@@ -23,12 +23,17 @@ projection is ``x @ w``.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ..analysis.cost import transformer_flops_per_token
 from ..device import resolve_device
@@ -60,7 +65,9 @@ class LlamaConfig:
     #: checkpoint each decoder layer (torch.utils.checkpoint) and take the
     #: loss through ``fused_linear_cross_entropy``
     recompute: bool = False
-    #: only "full" is ported ("dots", "save_attn", "save_mlp": ROADMAP.md)
+    #: what a checkpointed layer keeps besides its input: "full"
+    #: (nothing), "save_mlp" (the gate and up products), "save_attn"
+    #: (the attention output) or "dots" (every matmul output)
     recompute_policy: str = "full"
     #: an XLA compile-time device in ``paddle_tpu`` (one compiled layer
     #: body); eager PyTorch has nothing to compile, so it is accepted and
@@ -170,15 +177,62 @@ def params_to(params: dict, device=None, dtype=None) -> dict:
 
 _REMAT_POLICIES = ("full", "dots", "save_attn", "save_mlp")
 
+#: the named sites each policy keeps (``jax.checkpoint_policies.
+#: save_only_these_names`` in ``paddle_tpu``'s ``_remat_policy``)
+_SAVED_SITES = {"save_mlp": ("mlp_gate", "mlp_up"),
+                "save_attn": ("attn_out",)}
+#: the matmul ops: "dots" keeps every one's output
+#: (``checkpoint_policies.checkpoint_dots``), and the MLP sites' matmul
+#: is the op "save_mlp" keeps
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+_site_state = threading.local()
+
+
+@contextlib.contextmanager
+def _site(name):
+    """Name the ops run inside as the checkpoint site ``name`` (the
+    counterpart of ``checkpoint_name``), for the selective policies."""
+    prev = getattr(_site_state, "name", None)
+    _site_state.name = name
+    try:
+        yield
+    finally:
+        _site_state.name = prev
+
 
 def _check_remat_policy(name):
     if name not in _REMAT_POLICIES:
         raise ValueError(f"unknown recompute_policy {name!r}; expected "
                          "'full', 'dots', 'save_attn' or 'save_mlp'")
-    if name != "full":
-        raise NotImplementedError(
-            f"recompute_policy={name!r} is not ported yet (ROADMAP.md "
-            "Queue 1, item 3); only 'full' is")
+
+
+def _remat_policy(name):
+    """The ``torch.utils.checkpoint`` selective policy of
+    ``recompute_policy`` ``name``: a function of (ctx, op, *args) that
+    says which op outputs the checkpoint keeps, so that the recompute
+    takes them from memory instead of running the op again.  None for
+    "full" (keep nothing but the layer's input)."""
+    _check_remat_policy(name)
+    if name == "full":
+        return None
+    if name == "dots":
+        def keep(ctx, op, *args, **kwargs):
+            return op in _DOTS
+    elif name == "save_mlp":
+        def keep(ctx, op, *args, **kwargs):
+            return (op in _DOTS and getattr(_site_state, "name", None)
+                    in _SAVED_SITES["save_mlp"])
+    else:                       # save_attn: every op of the site (the copy
+        def keep(ctx, op, *args, **kwargs):   # of the attention output)
+            return getattr(_site_state, "name", None) == "attn_out"
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if keep(ctx, op, *args, **kwargs)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
 
 
 class LlamaAttention(nn.Module):
@@ -203,7 +257,10 @@ class LlamaAttention(nn.Module):
         q, k = nn_ops.fused_rope(q, k, cos, sin)
         out = nn_ops.sdpa(q, k, v, attn_mask, causal=True,
                           impl=cfg.attention_impl)
-        return self.o_proj(out.reshape(B, S, cfg.hidden_size))
+        # the checkpoint site "attn_out" (recompute_policy="save_attn")
+        with _site("attn_out"):
+            out = out.reshape(B, S, cfg.hidden_size)
+        return self.o_proj(out)
 
 
 class LlamaMLP(nn.Module):
@@ -215,8 +272,13 @@ class LlamaMLP(nn.Module):
         self.down_proj = Linear(i, h, device)
 
     def forward(self, x):
-        return self.down_proj(nn_ops.swiglu(self.gate_proj(x),
-                                            self.up_proj(x)))
+        # the checkpoint sites "mlp_gate" and "mlp_up"
+        # (recompute_policy="save_mlp")
+        with _site("mlp_gate"):
+            gate = self.gate_proj(x)
+        with _site("mlp_up"):
+            up = self.up_proj(x)
+        return self.down_proj(nn_ops.swiglu(gate, up))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -253,12 +315,18 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos[:S], self.rope_sin[:S]
         remat = self.config.recompute and torch.is_grad_enabled()
+        policy = _remat_policy(self.config.recompute_policy)
+        kw = ({} if policy is None else dict(context_fn=functools.partial(
+            create_selective_checkpoint_contexts, policy)))
         for layer in self.layers:
             if remat:
-                # full recompute: only the layer's input is kept; its
-                # forward runs again in the backward
+                # the layer's input (and what the policy keeps) is saved;
+                # the rest of its forward runs again in the backward.
+                # Llama draws no random numbers, so no RNG state is kept
+                # (reading it would not be allowed under graph capture)
                 x = checkpoint(layer, x, cos, sin, attn_mask,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               preserve_rng_state=False, **kw)
             else:
                 x = layer(x, cos, sin, attn_mask)
         return self.norm(x)

@@ -45,8 +45,52 @@ class Linear(nn.Module):
         return out
 
 
+def embedding_grad(ids, grad, num_embeddings, dtype):
+    """The gradient of ``weight [num_embeddings, h]`` under ``weight[ids]``
+    for the output gradient ``grad [..., h]``, the same bits on every
+    run.  The library's CUDA backward sums the rows of a repeated id in
+    no fixed order (atomics: a BERT step's token-type rows, one id
+    18432 times, differ from run to run in fp32).  Here the ids are
+    sorted (stably), the gradient rows taken in that order are summed
+    as an fp64 running sum, and each id's sum is the difference of the
+    running sum at its last and before its first row, rounded once to
+    ``dtype`` and written at its row.  Every size is fixed by the
+    inputs (no host synchronisation), so a CUDA graph can hold it."""
+    flat = ids.reshape(-1).long()
+    h = grad.shape[-1]
+    sid, order = torch.sort(flat, stable=True)
+    # [h, N]: the running sum along the last axis, which CUDA scans in
+    # parallel per row (along the first it walks each column alone)
+    rows = grad.reshape(-1, h).index_select(0, order).double()
+    run = torch.cumsum(rows.t().contiguous(), 1)
+    first = torch.searchsorted(sid, sid)
+    before = run.index_select(1, (first - 1).clamp(min=0))
+    before.masked_fill_((first == 0)[None, :], 0.0)
+    last = torch.ones_like(sid, dtype=torch.bool)
+    last[:-1] = sid[1:] != sid[:-1]
+    # rows that end no run of ids go to a spare row past the table
+    dst = torch.where(last, sid, num_embeddings)
+    out = torch.zeros(num_embeddings + 1, h, dtype=dtype, device=grad.device)
+    out.index_copy_(0, dst, (run - before).t().to(dtype))
+    return out[:num_embeddings]
+
+
+class _EmbeddingFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.table = (weight.shape[0], weight.dtype)
+        return torch.nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return None, embedding_grad(ids, grad, *ctx.table)
+
+
 class Embedding(nn.Module):
-    """Rows of ``weight [num_embeddings, embedding_dim]``."""
+    """Rows of ``weight [num_embeddings, embedding_dim]``; the backward is
+    ``embedding_grad``'s, the same bits on every run."""
 
     def __init__(self, num_embeddings, embedding_dim, device=None,
                  dtype=torch.float32):
@@ -56,7 +100,7 @@ class Embedding(nn.Module):
             dtype=dtype))
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
+        return _EmbeddingFn.apply(ids, self.weight)
 
 
 class Dropout(nn.Module):
