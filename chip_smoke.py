@@ -57,6 +57,14 @@ result):
              timed at the BERT shape beside the bound, the plain version
              and SDPA with dropout, and the BERT shape's times at p = 0.1
              beside p = 0 (the cost of the mask).
+3v. verify kernels — paged decode (bf16 and int8 pools) at
+             serve.verify's shape: batch 8, window 5, 40 query rows, each
+             table row repeated 5 times, lengths 523 + w, against its
+             plain version, timed beside two bounds (each sequence's pages
+             read once, and read 5 times, as the kernel does) and SDPA
+             with 5 query rows a sequence; the int8-weight matmul at
+             verify's M = 40 on the gate/up shape beside its bound and
+             torch.matmul.
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
              from seed 0 made on the card, 16 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
@@ -82,11 +90,30 @@ result):
              build): no failed warmup entry, phase 4's streams from both,
              AotMissError at a rung with no graph after seal(), and
              decode_n(8) at batch 8 equal to 8 decode steps, each timed.
+4f. features — Llama-2-7B at full width and depth, phase 4's engine,
+             the page pool's invariants checked after every step of every
+             leg: (a) the prefix cache on vs off on 16 requests of 128-512
+             tokens, 60% behind one of two 512-token prefixes, bf16 and
+             int8, and on a 320-page pool where the tree must evict; (b)
+             n-gram speculative decode (k = 4) vs off on prompts 75%
+             tiled from 4 tokens, bf16 and int8, paged decode and
+             quant_matmul counted under serve.verify replays, decode and
+             verify steps profiled; (c) async vs sync on phase 4's load:
+             async alone must give phase 4's streams, async with spec the
+             sync spec engine's (both aot="strict": no failed warmup
+             entry, no capture after seal()).  Hit rate, cow_count,
+             evictions, tokens per decode step, acceptance, TTFT / TPOT,
+             host_overlap_ratio and replans per leg; prefix and spec
+             agreement with off is reported, not gated (bf16).
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
              card (the kernels) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
-             atol 1e-3, plain (5) and with quant="int8" (5b), with
-             aot="off" and with aot="warm" (the card's decode replayed).
+             atol 1e-3, plain and with quant="int8", with aot="off" and
+             with aot="warm" (the card's decode replayed).
+5b. feature parity — the same 2-layer fp32 model, 5 requests behind one
+             shared prefix with tiled prompts: the prefix cache, spec
+             decode and async, each on alone, give the off leg's streams
+             on the card and on the CPU, token for token.
 6. train   — Llama-2-7B width cut to 8 layers (the only cut: 32 layers of
              fp32 master plus bf16 moments would not fit 80 GB), B=4,
              S=2048, bf16 compute, fp32 master, bf16 moments, full
@@ -1113,6 +1140,161 @@ def phase_quant_kernels(device, iters=50):
     ]
 
 
+# -- phase 3v: the serving kernels at serve.verify's shapes -------------------
+
+#: serve.verify at batch 8 and window W = k + 1 = 5 over phase 4b's
+#: lengths: B * W query rows, each sequence's table row repeated W times,
+#: row (b, w) masked to 523 + w keys
+VERIFY_SHAPE = dict(B=8, W=5, KV=32, G=1, D=128, ps=16, pps=128, base=523)
+
+
+def _verify_case(gen, device, quant):
+    """Paged-decode inputs at :data:`VERIFY_SHAPE`: a pool as phase 3's
+    (int8 with NaN-scaled tails when ``quant``) over lengths base + W - 1,
+    q [B * W, H, D] bf16, the tables repeated W times and the lengths
+    base + w per row.  Returns (args, dense caches for SDPA)."""
+    v = VERIFY_SHAPE
+    B, W = v["B"], v["W"]
+    shape = dict(B=B, KV=v["KV"], G=v["G"], D=v["D"], ps=v["ps"],
+                 pps=v["pps"], lengths=[v["base"] + W - 1] * B)
+    if quant:
+        q, kp, vp, _, table, ks, vs = make_quant_paged_case(
+            gen, q_dtype=torch.bfloat16, device=device, **shape)
+    else:
+        q, kp, vp, _, table = make_paged_case(
+            gen, q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+            device=device, **shape)
+    q = torch.randn(B * W, q.shape[1], q.shape[2], generator=gen,
+                    device=device).to(torch.bfloat16)
+    tables = table.repeat_interleave(W, dim=0).contiguous()
+    lens = (v["base"] + torch.arange(W, device=device, dtype=torch.int32)
+            ).repeat(B).contiguous()
+    args = (q, kp, vp, lens, tables) + ((ks, vs) if quant else ())
+    T = table.shape[1] * kp.shape[2]
+    idx = table.long()
+
+    def dense(pages, scales=None):
+        w = pages[:, idx].float()
+        if scales is not None:
+            w = w * scales[:, idx][..., None, None]
+        return w.transpose(0, 1).reshape(B, -1, T, v["D"])
+
+    dk = dense(kp, ks if quant else None)
+    dv = dense(vp, vs if quant else None)
+    return args, (dk, dv)
+
+
+def _verify_bounds(args, quant):
+    """(once_ms, w_times_ms): the bytes bound of the verify-shaped call
+    with each sequence's K/V rows read once (under its longest row's
+    length) and read once per window row, as the kernel reads them."""
+    v = VERIFY_SHAPE
+    B, W, KV, D, ps = v["B"], v["W"], v["KV"], v["D"], v["ps"]
+    q = args[0]
+    elem = 1 if quant else 2
+    rows = [int(x) for x in args[3].cpu()]
+    once = [max(rows[b * W:(b + 1) * W]) for b in range(B)]
+
+    def nbytes(lens):
+        pages = sum(-(-n // ps) for n in lens)
+        extra = 2 * pages * KV * 4 if quant else 0
+        return (2 * sum(lens) * KV * D * elem + extra + pages * 4
+                + len(rows) * 4 + 2 * q.numel() * q.element_size())
+
+    return tuple(nbytes(x) / HBM_BYTES_PER_S * 1e3 for x in (once, rows))
+
+
+def phase_verify_kernels(device, iters=50):
+    """Phase 3v: paged decode (bf16 and int8 pools) at serve.verify's
+    shape and the int8-weight matmul at verify's M = B * W = 40 rows,
+    each against its plain version, then timed beside its bound(s), the
+    plain version and the library call.  Launches here are not counted."""
+    from paddle_tpu_torch.ops import quant as tq
+    from paddle_tpu_torch.ops.kernels import paged_decode as pdmod
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1357)
+    before = (pdmod.paged_decode.launches, pdmod.paged_decode_quant.launches,
+              qm.quant_matmul.launches, dict(qm.quant_matmul.routes))
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+    v = VERIFY_SHAPE
+    B, W = v["B"], v["W"]
+    F = torch.nn.functional
+    for quant in (False, True):
+        fn = pdmod.paged_decode_quant if quant else pdmod.paged_decode
+        ref = (pdmod.paged_decode_quant_reference if quant
+               else pdmod.paged_decode_reference)
+        name = fn.__name__
+        args, (dk, dv) = _verify_case(gen, device, quant)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        _hold(f"{name} at verify's shape (B={B} x W={W} rows, tables "
+              f"repeated, lengths {v['base']}+w)", got, ref(*args), 1e-4,
+              2 ** -7, BF16_WHY)
+        ms = time_ms(lambda: fn(*args), flush, iters=iters)
+        plain_ms = time_ms(lambda: ref(*args), flush, iters=iters)
+        # the library: SDPA over each sequence's gathered cache with its W
+        # query rows and the in-window causal mask
+        T = dk.shape[2]
+        lens = args[3].view(B, W)
+        mask = (torch.arange(T, device=device)[None, None]
+                < lens[:, :, None])[:, None]               # [B, 1, W, T]
+        qs = args[0].view(B, W, -1, v["D"]).transpose(1, 2)
+        kd, vd = (torch.where(mask[:, :, -1, :, None], t, 0)
+                  .to(torch.bfloat16) for t in (dk, dv))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kd, vd, attn_mask=mask), flush, iters=iters)
+        once, wtimes = _verify_bounds(args, quant)
+        log(f"[kernels] {name} time at verify's shape (q bf16, pool "
+            f"{'int8' if quant else 'bf16'}, {B * W} rows): kernel "
+            f"{ms:.4f} ms | bound {once:.4f} ms with each sequence's pages "
+            f"read once, {wtimes:.4f} ms read W = {W} times (bytes) | "
+            f"plain {plain_ms:.4f} ms | library_ms {lib_ms:.4f} ms "
+            f"(scaled_dot_product_attention, bf16, {W} query rows a "
+            f"sequence over its gathered"
+            f"{' and dequantized' if quant else ''} cache, in-window causal "
+            f"mask) | {100 * once / ms:.1f}% of the read-once bound, "
+            f"{100 * wtimes / ms:.1f}% of the W-times bound | "
+            f"{lib_ms / ms:.2f}x faster than the library")
+        del args, dk, dv, kd, vd
+    # the int8-weight matmul at verify's M on the 7B gate/up shape
+    K, N = QMM_SHAPES["gate/up_proj"]
+    M = B * W
+    w = torch.randn(K, N, generator=gen, device=device) * 0.02
+    qw, sc = tq.quantize_per_channel(w)
+    sc = sc.reshape(N)
+    w_bf16 = tq.dequantize(qw, sc, torch.bfloat16)
+    del w
+    x = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
+    kind = qm.route(M, K, N, torch.bfloat16)
+    seen = dict(qm.quant_matmul.routes)
+    got = qm.quant_matmul(x, qw, sc)
+    took = [r for r in qm.ROUTES if qm.quant_matmul.routes[r] != seen[r]]
+    torch.cuda.synchronize()
+    if took != [kind]:
+        raise AssertionError(f"[kernels] quant_matmul M={M}: took {took}, "
+                             f"expected {kind}")
+    _hold(f"quant_matmul gate/up_proj M={M} K={K} N={N} x bf16 ({kind})",
+          got, qm.quant_matmul_reference(x, qw, sc), 2e-4, 2 ** -7, BF16_WHY)
+    ms, plain_ms, lib_ms = (time_ms(f, flush, iters=iters) for f in (
+        lambda: qm.quant_matmul(x, qw, sc),
+        lambda: qm.quant_matmul_reference(x, qw, sc),
+        lambda: torch.matmul(x, w_bf16)))
+    bound, by = quant_matmul_bound(M, K, N, 2)
+    log(f"[kernels] quant_matmul time at gate/up_proj M={M} (verify's "
+        f"B={B} x W={W}) x bf16 ({kind} route): kernel {ms:.4f} ms | bound "
+        f"{bound:.4f} ms ({by}) | plain {plain_ms:.4f} ms | library_ms "
+        f"{lib_ms:.4f} ms (torch.matmul over the weight dequantized to "
+        f"bf16 beforehand) | {100 * bound / ms:.1f}% of bound | "
+        f"{ms / lib_ms:.2f}x the library's time")
+    del flush, qw, sc, w_bf16, x
+    torch.cuda.empty_cache()
+    (pdmod.paged_decode.launches, pdmod.paged_decode_quant.launches,
+     qm.quant_matmul.launches) = before[:3]
+    qm.quant_matmul.routes = before[3]
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 SERVE_KW = dict(max_seqs=8, page_size=16, max_len=2048, prefill_chunk=512)
@@ -1144,12 +1326,39 @@ def _first_diff(got, want):
     return None
 
 
+def _run_audited(engine, work):
+    """``run_load`` with ``check_pool_invariants`` after every step (its
+    host seconds summed apart, so they can be told from the serving
+    time).  Returns run_load's dict plus ``audit_s``."""
+    from paddle_tpu_torch.inference.server import check_pool_invariants
+
+    pending = sorted(work, key=lambda w: (w["arrival_tick"], w["rid"]))
+    handles, audit = {}, 0.0
+    while pending or engine.in_flight:
+        if engine.tick >= 10000:
+            raise RuntimeError("load did not drain in 10000 steps")
+        while pending and pending[0]["arrival_tick"] <= engine.tick:
+            w = pending.pop(0)
+            handles[w["rid"]] = engine.submit(
+                w["prompt_ids"], max_new_tokens=w["max_new_tokens"],
+                priority=w["priority"], rid=w["rid"])
+        engine.step()
+        t0 = time.perf_counter()
+        check_pool_invariants(engine.executor.cache, engine.prefix)
+        audit += time.perf_counter() - t0
+    return {"handles": handles, "stats": engine.stats(), "audit_s": audit}
+
+
 def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
-                engine_kw=None, quant="none", eager=False, tag=None):
+                engine_kw=None, quant="none", eager=False, tag=None,
+                audit=False, precapture=False):
     """Serve ``load`` through a ServingEngine built on seeded weights.
     ``eager`` runs decode's forward op by op (the executor's private A/B
     switch); else decode replays CUDA graphs, captured at each new batch
-    or, with ``aot`` in ``engine_kw``, at build.  Returns ({kernel:
+    or, with ``aot`` in ``engine_kw``, at build.  ``audit`` checks the
+    page pool's invariants after every step; ``precapture`` captures the
+    decode step (the verify step with spec on) at every batch before the
+    load, so no capture falls inside a TTFT or TPOT.  Returns ({kernel:
     launches in the run}, engine, {rid: tokens})."""
     from paddle_tpu_torch.inference.server import RequestState, ServingEngine
     from paddle_tpu_torch.models import LlamaConfig, init_llama_params
@@ -1198,6 +1407,13 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
             raise AssertionError(f"[{tag}] warmup entries failed: "
                                  f"{rep['failed']}")
     progs = ex.programs
+    if precapture:
+        spec = engine.spec
+        for B in range(1, ex.cache.max_seqs + 1):
+            if spec is None:
+                progs["decode"].aot_capture((B,))
+            else:
+                progs["verify"].aot_capture((B, spec.k + 1))
     before = {k: (p.traces, p.dispatches, p.seconds)
               for k, p in progs.items()}
     work = generate_load(LoadSpec(**dict(load, vocab=cfg.vocab_size)))
@@ -1208,10 +1424,11 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
     qmm.routes = dict.fromkeys(qmm.routes, 0)
     ex.prefill_events.clear()
     t0 = time.perf_counter()
-    out = run_load(engine, work)
+    out = _run_audited(engine, work) if audit else run_load(engine, work)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    engine.audit_s = out.get("audit_s", 0.0)
     got = {k: f.launches for k, f in counters.items()}
     st = out["stats"]
     for w in work:
@@ -1223,25 +1440,28 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
             raise AssertionError(
                 f"[{tag}] {w['rid']}: {h.state.value}, {len(toks)} of "
                 f"{w['max_new_tokens']} tokens")
+    # a decode step is one serve.decode call, or with spec one
+    # serve.verify call: either runs each kernel once per layer
     L, steps = cfg.num_hidden_layers, st["decode_steps"]
     forwards = len(ex.prefill_events)
+    kind = "verify" if engine.spec is not None else "decode"
     if quant == "int8":
         want = {"paged_decode": 0, "paged_decode_quant": L * steps,
                 "quant_matmul": 7 * L * (steps + forwards)}
-        rule = (f"paged_decode_quant {L} layers x {steps} decode steps; "
-                f"quant_matmul 7 x {L} layers x ({steps} decode steps + "
+        rule = (f"paged_decode_quant {L} layers x {steps} {kind} steps; "
+                f"quant_matmul 7 x {L} layers x ({steps} {kind} steps + "
                 f"{forwards} prefill forwards); paged_decode 0")
     else:
         want = {"paged_decode": L * steps, "paged_decode_quant": 0,
                 "quant_matmul": 0}
-        rule = f"paged_decode {L} layers x {steps} decode steps"
+        rule = f"paged_decode {L} layers x {steps} {kind} steps"
     if device.type == "cuda" and got != want:
         raise AssertionError(f"[{tag}] launches {got}, expected {want} "
                              f"({rule})")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if device.type == "cuda" else float("nan"))
     log(f"[{tag}] {len(work)} requests finished in {wall:.3f} s, "
-        f"{st['steps']} steps, {steps} decode steps, {forwards} prefill "
+        f"{st['steps']} steps, {steps} {kind} steps, {forwards} prefill "
         f"forwards, {st['decode_tokens']} decode tokens, "
         f"{st['prefill_tokens']} prefill tokens, {st['preemptions']} "
         f"preemptions | {st['decode_tokens'] / wall:.2f} decode tok/s | "
@@ -1257,9 +1477,9 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
         + (" (decode eager: no program called)" if eager else ""))
     if eager and any(r for _, r, _ in d.values()):
         raise AssertionError(f"[{tag}] the eager A/B ran a program: {d}")
-    if not eager and d["decode"][1] != steps:
-        raise AssertionError(f"[{tag}] {d['decode'][1]} serve.decode "
-                             f"calls for {steps} decode steps")
+    if not eager and d[kind][1] != steps:
+        raise AssertionError(f"[{tag}] {d[kind][1]} serve.{kind} "
+                             f"calls for {steps} {kind} steps")
     if quant == "int8":
         log(f"[{tag}] quant_matmul calls by route: {dict(qmm.routes)}")
     return got, engine, _streams(out)
@@ -1318,11 +1538,12 @@ def _empty(device):
         torch.cuda.empty_cache()
 
 
-def phase_profile(engine, device, n_steps=5, prompt=512):
+def phase_profile(engine, device, n_steps=5, prompt=512, label=None):
     """Where a decode step's time goes: fill every slot with a
     ``prompt``-token request, then time ``n_steps`` decode-only steps on
     the host clock (synchronised) and trace ``n_steps`` more with
-    torch.profiler, summing device kernel time by kind."""
+    torch.profiler, summing device kernel time by kind.  With spec on a
+    decode step is a verify step (serve.verify at the window k + 1)."""
     from torch.profiler import ProfilerActivity, profile
 
     ex = engine.executor
@@ -1340,7 +1561,8 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
         engine.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    decode = ex.programs["decode"]
+    step_kind = "verify" if engine.spec is not None else "decode"
+    decode = ex.programs[step_kind]
     replays = decode.dispatches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1378,13 +1600,13 @@ def phase_profile(engine, device, n_steps=5, prompt=512):
         + nbytes(ex.tops["head_w"])
     lens = [int(ex.cache.lengths[h._req.sid]) for h in handles]
     mode = "eager" if ex._eager_decode else "graph"
-    tag = ("profile" if ex.quant == "none" else f"profile-{ex.quant}") \
-        + f" {mode}"
+    tag = (label or ("profile" if ex.quant == "none"
+                     else f"profile-{ex.quant}")) + f" {mode}"
     if mode == "graph" and (replays != n_steps or not busy):
         raise AssertionError(
             f"[{tag}] {replays} replays in {n_steps} traced steps, "
             f"{busy:.3f} ms of device time attributed to them")
-    log(f"[{tag}] decode step at batch {len(handles)}, lengths "
+    log(f"[{tag}] {step_kind} step at batch {len(handles)}, lengths "
         f"{min(lens)}-{max(lens)}: {step_ms:.3f} ms untraced, "
         f"{traced_ms:.3f} ms traced | device busy {busy:.3f} ms/step ("
         + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items() if v or
@@ -1542,6 +1764,198 @@ def phase_aot(device, phase4, cfg=None, load=None, dtype=torch.bfloat16,
     _empty(device)
 
 
+# -- phase 4f: prefix cache, speculative decode, async ----------------------
+
+#: 4f's loads: phase 4's shape at prompts of 128-512 tokens, with a 60%
+#: share of requests behind one of two 512-token system prompts (a), and
+#: with 75% of the prompts tiled from their first 4 tokens (b)
+FEATURE_LOAD = dict(n_requests=16, mean_interarrival=2.0,
+                    prompt_len=(128, 512), max_new=(32, 64), vocab=32000,
+                    seed=0)
+PREFIX_LOAD = dict(FEATURE_LOAD, prefix_share=0.6, prefix_len=512,
+                   prefix_pool=2)
+REPEAT_LOAD = dict(FEATURE_LOAD, repeat_share=0.75, repeat_period=4)
+#: the pool of 4f's eviction leg: room for the running set's pages, not
+#: for the running set and every prompt the tree has published
+EVICT_PAGES = 320
+
+
+def _feature_line(tag, engine):
+    """One line of a 4f leg's serving and feature numbers."""
+    st = engine.stats()
+    sch, c = engine.scheduler, engine.executor.cache
+    log(f"[{tag}] prefix hit rate {st['prefix_hit_rate']} "
+        f"({st['cached_tokens']} cached / {st['prefill_tokens']} prefilled "
+        f"tokens), cow_count {c.cow_count}, evicted_pages "
+        f"{st['evicted_pages']}, preemptions {st['preemptions']} | "
+        f"{st['decode_steps']} decode steps, {st['decode_tokens']} decode "
+        f"tokens, tokens per decode step {st['tokens_per_decode_step']}, "
+        f"draft acceptance {st['draft_acceptance_rate']} | "
+        f"{st['throughput_tok_s']:.2f} decode tok/s | TTFT p50 "
+        f"{st['ttft_ms_p50']} ms p99 {st['ttft_ms_p99']} ms "
+        f"({st['ttft_steps_p50']} steps) | TPOT p50 "
+        f"{st['tpot_ms_p50']} ms p99 {st['tpot_ms_p99']} ms | "
+        f"host_overlap_ratio {sch.host_overlap_ratio:.4f}, replans "
+        f"{sch.replans} | pool audit "
+        f"{1e3 * engine.audit_s / max(st['steps'], 1):.3f} ms a step")
+    return st
+
+
+def _report_agreement(tag, got, want, what):
+    same, lead, total = _agreement(got, want)
+    log(f"[{tag}] {what}: {same} of {len(want)} streams equal, {lead} of "
+        f"{total} tokens before each stream's first difference (reported, "
+        f"not gated: bf16 rounding moves with the batch shapes)")
+
+
+def phase_features(device, phase4, cfg=None, dtype=torch.bfloat16,
+                   engine_kw=None, loads=None, evict_pages=EVICT_PAGES,
+                   profile=True):
+    """Phase 4f at phase 4's engine shape, every leg with the page pool's
+    invariants checked after every step and every request finished:
+    (a) the prefix cache on vs off on :data:`PREFIX_LOAD`, bf16 and int8,
+    and on a pool of ``evict_pages`` pages, where the tree must evict;
+    (b) n-gram speculative decode (k = 4) vs off on :data:`REPEAT_LOAD`,
+    bf16 and int8, with the verify step profiled; (c) async vs sync on
+    phase 4's load, in turns, each profiled: every run must give phase
+    4's streams ``phase4``; and async with spec those of the sync spec
+    engine (both aot="strict": no failed warmup entry, no capture after
+    seal()).
+    Returns {kernel: launches under serve.verify replays}."""
+    engine_kw = SERVE_KW if engine_kw is None else engine_kw
+    loads = loads or {}
+    prefix_load = loads.get("prefix", PREFIX_LOAD)
+    repeat_load = loads.get("repeat", REPEAT_LOAD)
+    serve_load = loads.get("serve", SERVE_LOAD)
+
+    def leg(tag, load, quant="none", **kw):
+        got, eng, streams = phase_serve(
+            device, cfg=cfg, load=load, dtype=dtype, quant=quant, tag=tag,
+            engine_kw=dict(engine_kw, **kw), audit=True, precapture=True)
+        st = _feature_line(tag, eng)
+        return got, eng, streams, st
+
+    # (a) the prefix cache; bf16 in turns off, on, on, off to show the
+    # spread of TTFT between runs of one configuration
+    for quant in ("none", "int8"):
+        sfx = "" if quant == "none" else "-int8"
+        order = ("off", "on", "on", "off") if quant == "none" else \
+            ("off", "on")
+        runs = {"off": [], "on": []}
+        for mode in order:
+            _, eng, streams, st = leg(f"4f-prefix-{mode}{sfx}", prefix_load,
+                                      quant, prefix_cache=mode == "on")
+            if mode == "on" and st["cached_tokens"] <= 0:
+                raise AssertionError(f"[4f-prefix-on{sfx}] no prefix hit")
+            runs[mode].append((streams, st))
+            del eng
+            _empty(device)
+        (off, st_off), (on, st_on) = runs["off"][0], runs["on"][0]
+        _report_agreement(f"4f-prefix{sfx}", on, off, "prefix on vs off")
+
+        def ttft(mode, key):
+            return ", ".join(str(st[key]) for _, st in runs[mode])
+
+        log(f"[4f-prefix{sfx}] TTFT p50 off {ttft('off', 'ttft_ms_p50')} "
+            f"ms, on {ttft('on', 'ttft_ms_p50')} ms ("
+            f"{st_off['ttft_steps_p50']} -> {st_on['ttft_steps_p50']} "
+            f"steps); p99 off {ttft('off', 'ttft_ms_p99')}, on "
+            f"{ttft('on', 'ttft_ms_p99')} ms at hit rate "
+            f"{st_on['prefix_hit_rate']}; prefill tokens "
+            f"{st_off['prefill_tokens']} -> {st_on['prefill_tokens']}")
+    _, eng, ev, st_ev = leg("4f-prefix-evict", prefix_load,
+                            prefix_cache=True, num_pages=evict_pages)
+    if st_ev["evicted_pages"] <= 0:
+        raise AssertionError(f"[4f-prefix-evict] {evict_pages} pages and "
+                             f"nothing was evicted")
+    _report_agreement("4f-prefix-evict", ev, on, f"{evict_pages}-page pool "
+                      f"vs the full pool, prefix on")
+    del eng
+    _empty(device)
+
+    # (b) speculative decode
+    verify_launches = {}
+    for quant in ("none", "int8"):
+        sfx = "" if quant == "none" else "-int8"
+        _, eng, off, st_off = leg(f"4f-spec-off{sfx}", repeat_load, quant,
+                                  spec_decode="off")
+        if profile and device.type == "cuda":
+            phase_profile(eng, device, label=f"profile-4f-decode{sfx}")
+        del eng
+        _empty(device)
+        got, eng, on, st_on = leg(f"4f-spec-ngram{sfx}", repeat_load, quant,
+                                  spec_decode="ngram")
+        ex = eng.executor
+        L = ex.config.num_hidden_layers
+        replays = st_on["decode_steps"]
+        if ex.verify_dispatches != replays or replays <= 0:
+            raise AssertionError(f"[4f-spec{sfx}] {ex.verify_dispatches} "
+                                 f"serve.verify calls for {replays} steps")
+        pd = "paged_decode_quant" if quant == "int8" else "paged_decode"
+        verify_launches[pd] = L * replays
+        if quant == "int8":
+            verify_launches["quant_matmul"] = 7 * L * replays
+        log(f"[4f-spec{sfx}] launches in the run {got}: {pd} "
+            f"{L * replays} = {L} layers x {replays} serve.verify replays"
+            + (f", quant_matmul {7 * L * replays} of them under the "
+               f"replays (7 x {L} x {replays}), the rest in "
+               f"{len(ex.prefill_events)} prefill forwards"
+               if quant == "int8" else "")
+            + f"; serve.verify captured at "
+            f"{sorted(ex.programs['verify']._exe)}")
+        _report_agreement(f"4f-spec{sfx}", on, off, "spec ngram vs off")
+        if profile and device.type == "cuda":
+            phase_profile(eng, device, label=f"profile-4f-verify{sfx}")
+        del eng, ex
+        _empty(device)
+
+    # (c) async vs sync, in turns sync, async, async, sync: every run
+    # must give phase 4's streams
+    for i, mode in enumerate(("sync", "async", "async", "sync")):
+        tag = f"4f-{mode}-{i}"
+        _, eng, got, _ = leg(tag, serve_load, async_exec=mode == "async")
+        if got != phase4:
+            raise AssertionError(f"[{tag}] streams differ from phase 4's "
+                                 f"at {_first_diff(got, phase4)}")
+        log(f"[{tag}] phase 4's greedy streams token for token "
+            f"({sum(map(len, got.values()))} tokens); phase seconds "
+            f"{ {k: round(v, 4) for k, v in eng.scheduler.phase_totals.items()} }")
+        if profile and device.type == "cuda":
+            phase_profile(eng, device, label=f"profile-{tag}")
+        del eng
+        _empty(device)
+    runs = {}
+    for name, kw in (("sync", {}), ("async", dict(async_exec=True))):
+        _, eng, runs[name], _ = leg(f"4f-spec-strict-{name}", serve_load,
+                                    spec_decode="ngram", aot="strict", **kw)
+        ex = eng.executor
+        rep = eng._aot_report
+        verify = ex.programs["verify"]
+        if rep["failed"] or rep["programs"].get("serve.verify") != \
+                ex.cache.max_seqs:
+            raise AssertionError(f"[4f-spec-strict-{name}] warmup {rep}")
+        captured = sum(p.traces for p in ex.programs.values())
+        if captured != rep["capture"]:
+            raise AssertionError(
+                f"[4f-spec-strict-{name}] {captured - rep['capture']} "
+                f"captures after seal()")
+        log(f"[4f-spec-strict-{name}] warmup captured {rep['capture']} "
+            f"graphs ({rep['programs']}) in {rep['seconds']} s, none failed; "
+            f"{verify.dispatches} serve.verify replays and no capture after "
+            f"seal()")
+        del eng, ex, verify
+        _empty(device)
+    if runs["async"] != runs["sync"]:
+        raise AssertionError(
+            f"[4f-spec-strict] async spec streams differ from sync at "
+            f"{_first_diff(runs['async'], runs['sync'])}")
+    log(f"[4f-spec-strict] async = sync with spec on: identical greedy "
+        f"streams ({sum(map(len, runs['sync'].values()))} tokens)")
+    _report_agreement("4f-spec-strict", runs["sync"], phase4,
+                      "spec (ladder-chunked prefill) vs phase 4")
+    return verify_launches
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 PARITY_KW = dict(max_seqs=4, page_size=16, max_len=256, prefill_chunk=32)
@@ -1613,6 +2027,106 @@ def phase_parity(device, cfg=None, quant="none"):
         log(f"[{tag}] aot={aot}: greedy streams identical on "
             f"{device.type} and cpu for {len(work)} requests "
             f"({sum(map(len, streams['cpu', aot].values()))} tokens)")
+
+
+#: 5b's load: phase 5's shape with a shared 32-token prefix and tiled
+#: prompts, so the prefix cache hits and the n-gram proposer drafts
+FEATURE_PARITY_LOAD = dict(PARITY_LOAD, n_requests=5, prompt_len=(16, 48),
+                           max_new=(8, 12), prefix_share=0.6, prefix_len=32,
+                           prefix_pool=1, repeat_share=0.5, repeat_period=4)
+FEATURE_LEGS = {"off": {}, "prefix": dict(prefix_cache=True),
+                "spec": dict(spec_decode="ngram"),
+                "async": dict(async_exec=True)}
+
+
+def phase_parity_features(device, cfg=None):
+    """Phase 5b: phase 5's 2-layer cut in fp32, the prefix cache, spec
+    decode and async each on alone: every leg's greedy streams must equal
+    the off leg's and the CPU's (the plain kernels), token for token; the
+    prefix leg must hit and the card's legs launch paged decode (the
+    spec leg's drafts are reported: they follow the generated tokens).
+    Then two verify windows drafted from the off streams themselves must
+    accept 4 and 2 tokens and commit those streams' tokens, on the card
+    as on the CPU."""
+    from paddle_tpu_torch.inference.server import (
+        PagedExecutor, ServingEngine,
+    )
+    from paddle_tpu_torch.models import (
+        LlamaConfig, init_llama_params, params_to,
+    )
+    from paddle_tpu_torch.testing.load import LoadSpec, generate_load
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2) if cfg is None else cfg
+    params = init_llama_params(cfg, seed=0, device=device,
+                               dtype=torch.float32)
+    cpu = torch.device("cpu")
+    work = generate_load(LoadSpec(**dict(FEATURE_PARITY_LOAD,
+                                         vocab=cfg.vocab_size)))
+    counter = _serve_counters()["paged_decode"]
+    streams = {}
+    for dev, p in ((device, params), (cpu, params_to(params, device="cpu"))):
+        for leg, kw in FEATURE_LEGS.items():
+            before = counter.launches
+            eng = ServingEngine(cfg, p, dtype=torch.float32, device=dev,
+                                **dict(PARITY_KW, **kw))
+            out = _run_audited(eng, work)
+            st = out["stats"]
+            streams[dev.type, leg] = {rid: h.tokens
+                                      for rid, h in out["handles"].items()}
+            launched = counter.launches - before
+            log(f"[parity-5b] {dev.type} {leg}: {st['decode_steps']} decode "
+                f"steps, {st['cached_tokens']} cached tokens, "
+                f"{eng.metrics.draft_proposed} drafted / "
+                f"{eng.metrics.draft_accepted} accepted, replans "
+                f"{eng.scheduler.replans}, paged_decode launches {launched}")
+            if leg == "prefix" and st["cached_tokens"] <= 0:
+                raise AssertionError(f"[parity-5b] {dev.type}: no hit")
+            if dev.type == "cuda" and not launched:
+                raise AssertionError(f"[parity-5b] {leg}: no kernel launch")
+            del eng
+    for leg in FEATURE_LEGS:
+        for dev in (device.type, "cpu"):
+            if streams[dev, leg] != streams[dev, "off"]:
+                raise AssertionError(
+                    f"[parity-5b] {dev} {leg} differs from off at "
+                    f"{_first_diff(streams[dev, leg], streams[dev, 'off'])}")
+        if streams[device.type, leg] != streams["cpu", leg]:
+            raise AssertionError(
+                f"[parity-5b] {leg}: {device.type} differs from cpu at "
+                f"{_first_diff(streams[device.type, leg], streams['cpu', leg])}")
+    log(f"[parity-5b] prefix, spec and async each equal off, on "
+        f"{device.type} and cpu, token for token ({len(work)} requests, "
+        f"{sum(map(len, streams['cpu', 'off'].values()))} tokens)")
+    # random weights seldom repeat a prompt token, so the spec leg may
+    # draft nothing: verify two windows whose drafts are the off
+    # stream's own continuation (the second wrong from its third token)
+    want = streams["cpu", "off"]
+    reqs = work[:2]
+    cont = [want[w["rid"]] for w in reqs]
+    drafts = [cont[0][1:5], cont[1][1:3] + [(cont[1][3] + 1)
+                                            % cfg.vocab_size, 7]]
+    got = {}
+    for dev, p in ((device, params), (cpu, params_to(params, device="cpu"))):
+        ex = PagedExecutor(cfg, p, dtype=torch.float32, device=dev,
+                           max_seqs=2, page_size=PARITY_KW["page_size"],
+                           max_len=PARITY_KW["max_len"])
+        sids = [ex.alloc_slot() for _ in reqs]
+        chunk = PARITY_KW["prefill_chunk"]
+        for s, w in zip(sids, reqs):
+            ids = w["prompt_ids"]
+            for t in range(0, len(ids), chunk):
+                ex.prefill_chunk(s, ids[t:t + chunk], t,
+                                 final=t + chunk >= len(ids))
+        got[dev.type] = ex.verify(sids, drafts, [5, 5], 4)
+        del ex
+    toks, acc = got["cpu"]
+    if got[device.type] != got["cpu"] or list(acc.values()) != [4, 2] or \
+            list(toks.values()) != [cont[0][1:6], cont[1][1:4]]:
+        raise AssertionError(f"[parity-5b] verify with drafted "
+                             f"continuations: {got}, want {cont}")
+    log(f"[parity-5b] verify of two windows drafted from the off streams "
+        f"(all 4 right; 2 right then wrong): accepted 4 and 2, the off "
+        f"streams' next tokens, identical on {device.type} and cpu")
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -3143,6 +3657,7 @@ def main():
     rows = [phase_kernels(device)]
     train_rows = phase_train_kernels(device)
     quant_rows = phase_quant_kernels(device)
+    phase_verify_kernels(device)
     short_rows = phase_short_kernels(device)
     grouped_rows = phase_grouped_kernels(device)
     launches, streams = phase_serve_ab(device)
@@ -3151,8 +3666,13 @@ def main():
     launches, _ = phase_serve_ab(device, quant="int8")
     for row in quant_rows:
         row["launches"] = launches[row["name"]]
+    # the serving kernels' launches under serve.verify replays (4f)
+    verify = phase_features(device, streams)
+    for row in [rows[0]] + quant_rows:
+        row["verify_launches"] = verify[row["name"]]
     phase_parity(device)
     phase_parity(device, quant="int8")
+    phase_parity_features(device)
     launches, step, batch = phase_train(device, limit)
     for row in train_rows:
         if not launches[row["name"]]:
@@ -3211,7 +3731,8 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("replay_launches",) if k in r}
+        {k: r[k] for k in keys + ("replay_launches", "verify_launches")
+         if k in r}
         for r in rows]}))
     print(limit)
     print(json.dumps({"ok": True, "device": {

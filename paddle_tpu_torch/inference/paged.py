@@ -33,9 +33,25 @@ the two halves of one tensor, so one ``kv_write`` quantizes both: half
 the eager launches of two calls, the same bits.  The float path is
 unchanged by it.
 
-Not ported yet (later slices): page refcounts and copy-on-write for the
-prefix cache (and so the int8 copy-on-write of a page with its scale),
-``trim`` for speculative decode, and the sequence-parallel writes.
+Pages are REFCOUNTED, as in the reference: a page is on the free list
+(count 0) or held by one or more owners, slot page-table rows and the
+prefix cache's radix tree.  A page held twice is read-only: every write
+path goes through :meth:`make_writable`, which copies a shared page into
+a fresh one (one indexed device copy across all layers and kv heads,
+the int8 scales with it).  ``free`` drops one reference a page, so
+shared pages outlive the sequences that used them; ``reclaimer`` (the
+prefix cache's LRU eviction) is asked for pages before any
+"KV page pool exhausted" raise, and ``trim`` releases the pages a
+rejected speculative window had reserved.  With no prefix cache every
+count is 0 or 1 and nothing is copied.
+
+Speculative decode's verify step reads two more step buffers, filled by
+the same staging copy: the window ids ``[max_seqs, max_window]`` and the
+commit limits ``[max_seqs]`` (:meth:`stage_verify`).
+
+Not ported (later slices): the sequence-parallel writes
+(``write_sharded``, ``gather_shards``) and the ``prefix.cow`` fault
+point.
 """
 from __future__ import annotations
 
@@ -63,7 +79,8 @@ class PagedKVCache:
 
     def __init__(self, n_layers, n_kv_heads, head_dim, num_pages,
                  page_size=16, max_seqs=8, dtype=torch.bfloat16,
-                 max_pages_per_seq=None, device=None, quant=None):
+                 max_pages_per_seq=None, device=None, quant=None,
+                 max_window=8):
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages_per_seq = (num_pages // max_seqs
@@ -104,17 +121,29 @@ class PagedKVCache:
                                   -1, np.int32)
         self.lengths = np.zeros((max_seqs,), np.int32)
         self._active = [False] * max_seqs
-        # fixed-address step buffers of decode, int32: ids, positions and
-        # lengths rows, then the [max_seqs, pps] page tables; filled from
-        # one (pinned) host staging buffer by one copy a step
+        # per-page owner count: slot page-table rows + the prefix tree
+        self.page_refs = np.zeros((num_pages,), np.int32)
+        self.cow_count = 0         # copy-on-write page copies performed
+        # optional callable(shortfall_pages) that tries to free pages (the
+        # prefix cache's LRU eviction), asked before any exhausted raise
+        self.reclaimer = None
+        # fixed-address step buffers, int32: ids, positions and lengths
+        # rows, the [max_seqs, pps] page tables, then verify's window ids
+        # [max_seqs, max_window] and commit limits [max_seqs]; filled
+        # from one (pinned) host staging buffer by one copy a step
         ms, pps = max_seqs, self.max_pages_per_seq
+        self.max_window = int(max_window)
+        W = self.max_window
         pin = self.device.type == "cuda"
-        self._stage = torch.zeros(ms * (3 + pps), dtype=torch.int32,
+        self._stage = torch.zeros(ms * (4 + pps + W), dtype=torch.int32,
                                   pin_memory=pin)
         self._step = torch.zeros_like(self._stage, device=self.device)
         self.step_ids, self.step_positions, self.step_lengths = \
             self._step[:3 * ms].view(3, ms)
-        self.step_tables = self._step[3 * ms:].view(ms, pps)
+        t = 3 * ms + ms * pps
+        self.step_tables = self._step[3 * ms:t].view(ms, pps)
+        self.step_window = self._step[t:t + ms * W].view(ms, W)
+        self.step_limits = self._step[t + ms * W:]
         self._staged = None        # CUDA event of the last staging copy
 
     # -- control plane (host) ------------------------------------------
@@ -131,13 +160,105 @@ class PagedKVCache:
 
     def free(self, seq: int) -> None:
         """Release every assigned page of a slot (reserved-but-unwritten
-        ones too) and the slot itself."""
+        ones too) and the slot itself.  A page returns to the free list
+        only when its last owner lets go: a page the prefix tree also
+        holds merely drops a reference."""
         for pid in self.page_table[seq]:
             if pid >= 0:
-                self._free.append(int(pid))
+                self._deref(int(pid))
         self.page_table[seq] = -1
         self.lengths[seq] = 0
         self._active[seq] = False
+
+    # -- refcounted page pool --------------------------------------------
+
+    def _pop_page(self) -> int:
+        pid = self._free.pop()
+        self.page_refs[pid] = 1
+        return pid
+
+    def _deref(self, pid: int) -> None:
+        self.page_refs[pid] -= 1
+        if self.page_refs[pid] == 0:
+            self._free.append(pid)
+        elif self.page_refs[pid] < 0:
+            raise AssertionError(
+                f"page {pid} refcount went negative (double free)")
+
+    def _reclaim(self, shortfall: int) -> None:
+        """Ask the attached prefix cache, if any, to evict enough cold
+        pages to cover ``shortfall``."""
+        if self.reclaimer is not None and shortfall > 0:
+            self.reclaimer(shortfall)
+
+    def attach(self, seq: int, page_ids, n_tokens: int) -> None:
+        """Attach already-written pages BY REFERENCE (a prefix-cache
+        hit): the slot's first ``len(page_ids)`` table entries point at
+        the shared pages and its length starts at ``n_tokens``.  The last
+        page may be covered in part; the first write to it copies it."""
+        n_pages = len(page_ids)
+        if n_tokens > n_pages * self.page_size:
+            raise ValueError(
+                f"attach: {n_tokens} tokens exceed {n_pages} pages "
+                f"x {self.page_size}")
+        if n_pages > self.max_pages_per_seq:
+            raise RuntimeError(
+                f"sequence {seq} needs {n_pages} pages > per-seq "
+                f"budget {self.max_pages_per_seq}")
+        for i, pid in enumerate(page_ids):
+            if self.page_table[seq, i] >= 0:
+                raise AssertionError(
+                    f"attach over an assigned slot {i} of seq {seq}")
+            self.page_table[seq, i] = int(pid)
+            self.page_refs[int(pid)] += 1
+        self.lengths[seq] = int(n_tokens)
+
+    def make_writable(self, seq: int, start: int, end: int) -> None:
+        """Copy-on-write guard: every page-table slot overlapping token
+        positions [start, end) must be owned by this slot alone before an
+        in-place write; a shared page is copied into a fresh one."""
+        if end <= start:
+            return
+        ps = self.page_size
+        for slot in range(start // ps, -(-end // ps)):
+            pid = int(self.page_table[seq, slot])
+            if pid >= 0 and self.page_refs[pid] > 1:
+                self._cow(seq, slot)
+
+    def _cow(self, seq: int, slot: int) -> None:
+        if not self._free:
+            self._reclaim(1)
+        if not self._free:
+            raise RuntimeError(f"{_POOL_EXHAUSTED} (copy-on-write of a "
+                               f"shared prefix page)")
+        old = int(self.page_table[seq, slot])
+        new = self._pop_page()
+        # one indexed copy across all layers and kv heads (K and V are
+        # the two halves of one int8 tensor); an int8 page is meaningless
+        # without its scale, so the scales are copied with it
+        if self.k_scales is not None:
+            self._kv_pages[:, :, :, new] = self._kv_pages[:, :, :, old]
+            self._kv_scales[:, :, :, new] = self._kv_scales[:, :, :, old]
+        else:
+            self._k_all[:, :, new] = self._k_all[:, :, old]
+            self._v_all[:, :, new] = self._v_all[:, :, old]
+        self.page_table[seq, slot] = new
+        self.page_refs[old] -= 1
+        self.cow_count += 1
+
+    def trim(self, seq: int) -> int:
+        """Release every assigned page-table slot past the page cover of
+        the sequence's current length (the rollback of a speculative
+        window whose tail was rejected).  Returns the slots released."""
+        keep = -(-int(self.lengths[seq]) // self.page_size)
+        freed = 0
+        for slot in range(keep, self.max_pages_per_seq):
+            pid = int(self.page_table[seq, slot])
+            if pid >= 0:
+                self._deref(pid)
+                self.page_table[seq, slot] = -1
+                freed += 1
+        return freed
 
     def _plan_missing(self, seq: int, new_len: int):
         """The page-table slots that still need a page for ``seq`` to
@@ -152,9 +273,11 @@ class PagedKVCache:
     def _ensure_capacity(self, seq: int, new_len: int) -> None:
         missing = self._plan_missing(seq, new_len)
         if len(missing) > len(self._free):
+            self._reclaim(len(missing) - len(self._free))
+        if len(missing) > len(self._free):
             raise RuntimeError(_POOL_EXHAUSTED)
         for i in missing:
-            self.page_table[seq, i] = self._free.pop()
+            self.page_table[seq, i] = self._pop_page()
 
     def reserve(self, seqs, extra_tokens=1) -> None:
         """Batch-atomic reservation: plan every sequence's missing pages
@@ -166,11 +289,14 @@ class PagedKVCache:
                   else [extra_tokens] * len(seqs))
         plans = [(s, self._plan_missing(s, int(self.lengths[s]) + int(e)))
                  for s, e in zip(seqs, extras)]
-        if sum(len(m) for _, m in plans) > len(self._free):
+        need = sum(len(m) for _, m in plans)
+        if need > len(self._free):
+            self._reclaim(need - len(self._free))
+        if need > len(self._free):
             raise RuntimeError(_POOL_EXHAUSTED)
         for s, missing in plans:
             for i in missing:
-                self.page_table[s, i] = self._free.pop()
+                self.page_table[s, i] = self._pop_page()
 
     @property
     def free_pages(self) -> int:
@@ -184,9 +310,11 @@ class PagedKVCache:
 
     def write_at(self, seq: int, k, v, start: int) -> None:
         """Write k/v [L, KV, T, D] at positions ``start..start+T-1``,
-        allocating pages as needed; the length becomes ``start + T``."""
+        allocating pages as needed and copying any shared page in the
+        span first; the length becomes ``start + T``."""
         T = int(k.shape[2])
         self._ensure_capacity(seq, start + T)
+        self.make_writable(seq, start, start + T)
         ps = self.page_size
         if self.k_scales is not None:
             row = self.page_table[seq]
@@ -240,6 +368,9 @@ class PagedKVCache:
         capacity failure mutates nothing."""
         seqs = list(seqs)
         self.reserve(seqs, extra_tokens=1)
+        for s in seqs:
+            pos = int(self.lengths[s])
+            self.make_writable(s, pos, pos + 1)
         table, lens = self.tables(seqs)
         pids, offs = self.token_slots(table, lens.long())
         for layer in range(self.k_pages.shape[0]):
@@ -284,18 +415,45 @@ class PagedKVCache:
         (ids, positions, lengths [B], tables [B, pps]), all int32; the
         next ``stage`` overwrites them."""
         seqs = list(seqs)
-        B, ms = len(seqs), self.max_seqs
+        B = len(seqs)
+        host = self._host_stage(seqs)
+        host[0][0, :B] = 0 if ids is None else np.asarray(ids, np.int32)
+        self._restage()
+        return (self.step_ids[:B], self.step_positions[:B],
+                self.step_lengths[:B], self.step_tables[:B])
+
+    def stage_verify(self, seqs, window, limits):
+        """:meth:`stage` for a verify step: besides the lengths and the
+        tables, row b of the window buffer gets ``window[b]`` (the last
+        token then the draft, zero-padded; at most ``max_window`` wide)
+        and the limits buffer ``limits[b]``.  One copy, as ``stage``."""
+        seqs = list(seqs)
+        B = len(seqs)
+        window = np.asarray(window, np.int32).reshape(B, -1)
+        if window.shape[1] > self.max_window:
+            raise ValueError(f"verify window {window.shape[1]} > the step "
+                             f"buffers' max_window {self.max_window}")
+        rows, win, lim = self._host_stage(seqs)
+        win[:B] = 0
+        win[:B, :window.shape[1]] = window
+        lim[:B] = np.asarray(limits, np.int32)
+        self._restage()
+
+    def _host_stage(self, seqs):
+        """Wait until the last staging copy has read the pinned buffer,
+        then write the lengths and page tables of ``seqs`` into it;
+        returns its (id/position/length rows, window, limits) views."""
+        B, ms, W = len(seqs), self.max_seqs, self.max_window
         if self._staged is not None:   # the last copy has read the buffer
             self._staged.synchronize()
         host = self._stage.numpy()
         rows = host[:3 * ms].reshape(3, ms)
-        rows[0, :B] = 0 if ids is None else np.asarray(ids, np.int32)
         rows[1, :B] = rows[2, :B] = self.lengths[seqs]
-        host[3 * ms:].reshape(ms, -1)[:B] = np.maximum(
+        t = 3 * ms + ms * self.max_pages_per_seq
+        host[3 * ms:t].reshape(ms, -1)[:B] = np.maximum(
             self.page_table[seqs], 0)
-        self._restage()
-        return (self.step_ids[:B], self.step_positions[:B],
-                self.step_lengths[:B], self.step_tables[:B])
+        return (rows, host[t:t + ms * W].reshape(ms, W),
+                host[t + ms * W:])
 
     def _restage(self):
         self._step.copy_(self._stage, non_blocking=True)
@@ -305,11 +463,11 @@ class PagedKVCache:
 
     @contextlib.contextmanager
     def scratch_step(self):
-        """Point every step buffer at the scratch page (ids, positions
-        and lengths 0, every table entry the scratch page) for a warm-up
-        or a capture, so a forward run under it writes K/V into no live
-        page; put the staged values back on exit."""
-        self._step[:3 * self.max_seqs].zero_()
+        """Point every step buffer at the scratch page (ids, positions,
+        lengths, window and limits 0, every table entry the scratch page)
+        for a warm-up or a capture, so a forward run under it writes K/V
+        into no live page; put the staged values back on exit."""
+        self._step.zero_()
         self.step_tables.fill_(self.scratch_page)
         try:
             yield

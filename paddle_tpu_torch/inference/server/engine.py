@@ -32,16 +32,43 @@ programs, so a rung the warmup missed raises ``AotMissError`` instead of
 capturing mid-traffic.  There is no ``compile_cache=`` argument: a CUDA
 graph holds the addresses of the process that captured it and cannot
 be kept on disk.
+
+Three serving features, each off by default and each followed from the
+environment when its argument is ``None`` (a bad value fails at build):
+
+* ``prefix_cache`` (``PT_PREFIX_CACHE=off|on``): a radix tree over
+  prompt pages; a request whose prompt extends a cached prefix attaches
+  those pages by reference and prefills only its suffix.  The tree's
+  LRU eviction is the pool's reclaimer.
+* ``spec_decode`` (``PT_SPEC_DECODE=off|ngram``, ``PT_SPEC_K`` = 4,
+  ``PT_SPEC_NGRAM`` = 3): n-gram self-speculative decode, every decode
+  step one ``serve.verify`` call over a k + 1 window per sequence; the
+  streams are the greedy ones.  With ``aot`` on, warmup also captures
+  ``serve.verify`` at every batch.
+* ``async_exec`` (``PT_ASYNC_EXEC=off|on``): double-buffered steps, the
+  next step planned while the card runs this one.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ...core import aot as aot_mod
 from .executor import PagedExecutor
 from .metrics import EngineMetrics
+from .prefix_cache import PrefixCache
 from .request import Request, RequestHandle
 from .scheduler import Scheduler
+from .spec_decode import SpecDecode, spec_mode
+
+
+def _gate(name):
+    """``name`` (off|on, default off) as a bool; another value raises."""
+    mode = os.environ.get(name, "off").lower()
+    if mode not in ("off", "on"):
+        raise ValueError(f"{name}={mode!r}: expected off|on")
+    return mode == "on"
 
 
 class ServingEngine:
@@ -49,30 +76,54 @@ class ServingEngine:
                  max_len=256, dtype=torch.float32, num_pages=None,
                  policy="fifo", prefill_chunk=None, eos_token_id=None,
                  max_preemptions=4, clock=None, device=None, quant=None,
-                 aot=None, decode_n_steps=()):
+                 aot=None, decode_n_steps=(), prefix_cache=None,
+                 spec_decode=None, async_exec=None):
         if aot is None:
             aot = aot_mod.mode()
         if aot not in aot_mod.MODES:
             raise ValueError(f"aot={aot!r}: expected one of "
                              f"{aot_mod.MODES} (as PT_AOT)")
+        if prefix_cache is None:
+            prefix_cache = _gate("PT_PREFIX_CACHE")
+        if spec_decode is None:
+            spec_decode = spec_mode() == "ngram"
+        elif isinstance(spec_decode, str):
+            if spec_decode not in ("off", "ngram"):
+                raise ValueError(
+                    f"spec_decode={spec_decode!r}: expected off|ngram")
+            spec_decode = spec_decode == "ngram"
+        if async_exec is None:
+            async_exec = _gate("PT_ASYNC_EXEC")
+        self.spec = SpecDecode() if spec_decode else None
         self.executor = PagedExecutor(
             config, params, max_seqs=max_seqs, page_size=page_size,
             max_len=max_len, dtype=dtype, num_pages=num_pages,
-            device=device, quant=quant)
+            device=device, quant=quant,
+            spec_window=self.spec.k + 1 if self.spec else None)
         self.device = self.executor.device
         self.metrics = EngineMetrics(
             max_seqs=max_seqs, num_pages=self.executor.cache.num_pages,
             clock=clock)
+        self.prefix = None
+        if prefix_cache:
+            self.prefix = PrefixCache(
+                self.executor.cache, on_evict=self.metrics.on_prefix_evict)
+            # allocation shortfalls evict cold cached pages before
+            # raising pool-exhausted
+            self.executor.cache.reclaimer = self.prefix.evict
         self.scheduler = Scheduler(
             self.executor, self.metrics, policy=policy,
             prefill_chunk=prefill_chunk, eos_token_id=eos_token_id,
-            max_preemptions=max_preemptions)
+            max_preemptions=max_preemptions, prefix_cache=self.prefix,
+            spec=self.spec, async_exec=async_exec)
         self._next_rid = 0
         self.aot_mode = aot
         self._aot_report = None
         if aot != "off":
             self._aot_report = self.executor.aot_warmup(
-                prefill_chunk=prefill_chunk, decode_n_steps=decode_n_steps)
+                prefill_chunk=prefill_chunk,
+                spec_window=self.spec.k + 1 if self.spec else None,
+                decode_n_steps=decode_n_steps)
             if aot == "strict":
                 self.executor.seal()
 
@@ -136,6 +187,9 @@ class ServingEngine:
     def in_flight(self) -> int:
         s = self.scheduler
         return len(s.queue) + len(s.prefilling) + len(s.running)
+
+    def request(self, rid):
+        return self.scheduler.requests.get(rid)
 
     def stats(self) -> dict:
         return self.metrics.stats()

@@ -10,6 +10,15 @@ slot-granular operations the scheduler drives:
   * ``decode(sids)``                 one greedy token per listed slot
   * ``decode_n(sids, n)``            n greedy tokens per listed slot, the
                                      argmax fed back on the device
+  * ``verify(sids, drafts, limits, k)`` one speculative window per slot:
+                                     the longest draft prefix the model
+                                     agrees with plus its next token
+  * ``rollback(sids)``               release the pages a rejected window
+                                     had reserved
+  * ``decode_async`` / ``verify_async`` the same steps, returning a
+                                     pending result whose ``wait()`` is
+                                     the step's only host sync
+  * ``attach_prefix(sid, pages, n)`` point a fresh slot at cached pages
 
 The forwards are eager PyTorch and mirror the JAX programs op for op,
 dtype rules included: RMSNorm in fp32 cast back, RoPE promoting a bf16
@@ -21,11 +30,19 @@ XLA); decode writes and attention go through ``PagedKVCache``
 kernel (its plain version for CPU tensors).
 
 The program plane (``core/aot.py``).  Where every serving program of the
-reference is one jitted XLA program, ``serve.decode`` and
-``serve.decode_n`` here are :class:`CountedGraph` s: the eager forward
-over the cache's fixed-address step buffers, captured as a CUDA graph
-once per batch size B (and per n), then replayed, so a decode step costs
-the host one staging copy, one replay and one [B] token copy.  Capture
+reference is one jitted XLA program, ``serve.decode``,
+``serve.decode_n`` and ``serve.verify`` here are :class:`CountedGraph` s:
+the eager forward over the cache's fixed-address step buffers, captured
+as a CUDA graph once per batch size B (and per n, or per window W), then
+replayed, so a decode step costs the host one staging copy, one replay
+and one [B] token copy.  ``serve.verify`` runs every sequence's window
+``[last token, draft...]`` in one forward with B*W query rows through
+the same paged decode attention (each table row repeated W times, row
+(b, w) masked to ``lengths[b] + w + 1``), takes the greedy acceptance
+and packs the accepted tokens in the program, with shapes fixed by the
+rung (no host read, no data-dependent shape).  The async twins replay
+the same graphs, then copy the result into one of two pinned host slots
+without blocking and record an event that ``wait()`` waits on.  Capture
 is lazy (the first step at a new B), or done up front by
 ``aot_warmup``; ``seal`` then forbids new captures.  On the CPU the same
 calls run the forward eagerly over the same buffers.  Prefill stays
@@ -39,10 +56,13 @@ through ``ops.quant.qmatmul`` (the int8-weight matmul kernel) and every
 decode attention through ``paged_decode_quant``.  The embedding, the
 norms, the RoPE tables and the LM head stay in the checkpoint dtype.
 
-Not ported yet (later slices): ``verify``, the async twins
-(``decode_async``, ``verify_async``), prefix attach and the
-sequence-parallel prefill.  Not ported: the reference's on-disk
-executable cache (a CUDA graph cannot be serialized).
+Every in-program page write is preceded by the copy-on-write guard
+(``make_writable``) over the positions it writes, so a page shared with
+the prefix cache is never written in place.
+
+Not ported yet (later slices): the sequence-parallel prefill.  Not
+ported: the reference's on-disk executable cache (a CUDA graph cannot be
+serialized).
 """
 from __future__ import annotations
 
@@ -89,6 +109,59 @@ def _quantize_stacked(w):
             for name in ("qweight", "scale")}
 
 
+class _PendingDecode:
+    """The unread result of one async decode dispatch: the token row is
+    on its way to a pinned host slot.  ``wait()`` is the commit fence: it
+    waits for that copy alone, then does the last-token bookkeeping the
+    sync path does inline.  Idempotent."""
+
+    __slots__ = ("_ex", "sids", "_host", "_event", "_toks", "_out")
+
+    def __init__(self, ex, sids, host, event):
+        self._ex = ex
+        self.sids = sids
+        self._host = host
+        self._event = event
+        self._toks = None
+        self._out = None
+
+    def _fetch(self):
+        """Read the pinned slot once (before it can be reused)."""
+        if self._toks is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._toks = self._host.numpy().copy()
+            self._host = self._event = None
+        return self._toks
+
+    def wait(self) -> dict:
+        if self._out is None:
+            toks = self._fetch()
+            out = {}
+            for i, s in enumerate(self.sids):
+                tok = int(toks[i])
+                self._ex.last_token[s] = tok
+                out[s] = tok
+            self._out = out
+        return self._out
+
+
+class _PendingVerify(_PendingDecode):
+    """The unread result of one async verify dispatch: the packed token
+    block [B*W] and the per-sequence counts [B] in one pinned row.
+    ``wait()`` also applies the length and last-token bookkeeping of the
+    sync :meth:`PagedExecutor.verify`; it returns (tokens by slot,
+    accepted drafts by slot)."""
+
+    __slots__ = ()
+
+    def wait(self):
+        if self._out is None:
+            vals = self._fetch()
+            self._out = self._ex._commit_verify(self.sids, vals)
+        return self._out
+
+
 class PagedExecutor:
     """Execution backend over the paged KV cache.
 
@@ -97,11 +170,12 @@ class PagedExecutor:
     dtype (the compute dtype of an int8 pool).  ``num_pages=None`` sizes
     the pool so every slot can reach ``max_len``; a smaller pool
     oversubscribes it.  ``quant`` is ``"none"``, ``"int8"`` or ``None``
-    (follow ``PT_QUANT``), validated here."""
+    (follow ``PT_QUANT``), validated here.  ``spec_window`` is the widest
+    verify window W = k + 1 the step buffers must hold (at least 8)."""
 
     def __init__(self, config, params, max_seqs=4, page_size=16,
                  max_len=256, dtype=torch.float32, num_pages=None,
-                 device=None, quant=None):
+                 device=None, quant=None, spec_window=None):
         self.device = resolve_device(device)
         cfg = config
         self.config = cfg
@@ -130,7 +204,7 @@ class PagedExecutor:
                        else int(num_pages)),
             page_size=page_size, max_seqs=max_seqs, dtype=dtype,
             max_pages_per_seq=pages_per_seq, device=self.device,
-            quant=self.quant)
+            quant=self.quant, max_window=max(8, int(spec_window or 0)))
         # per-layer views of the stacked weights, sliced once
         self._layers = [
             {n: ({k: t[i] for k, t in w.items()} if isinstance(w, dict)
@@ -153,9 +227,21 @@ class PagedExecutor:
                                    name="serve.decode")
         self._graph_decode_n = graph(self._decode_n_step,
                                      name="serve.decode_n")
-        # True runs decode's forward eagerly, never captured: the A/B
-        # baseline of chip_smoke.py
+        self._graph_verify = graph(self._verify_step, name="serve.verify")
+        # True runs the decode and verify forwards eagerly, never
+        # captured: the A/B baseline of chip_smoke.py
         self._eager_decode = False
+        # the async twins' result rows: two pinned host slots, so a
+        # step's tokens are never overwritten by the next step's copy
+        # before its wait() has read them
+        ms, W = max_seqs, self.cache.max_window
+        self._host_out = torch.zeros(
+            (2, ms * W + ms), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+        self._slot_pending = [None, None]
+        self._next_slot = 0
+        self.async_dispatches = 0
+        self.rollback_pages = 0
         # AOT plane state: a non-None ladder makes the scheduler floor
         # prefill chunks onto its rungs and prefill_chunk pad the past
         # cover onto page buckets; None (PT_AOT=off) changes nothing
@@ -168,15 +254,28 @@ class PagedExecutor:
     def programs(self) -> dict:
         """The captured programs, by name suffix."""
         return {"decode": self._graph_decode,
-                "decode_n": self._graph_decode_n}
+                "decode_n": self._graph_decode_n,
+                "verify": self._graph_verify}
+
+    @property
+    def verify_traces(self) -> int:
+        """Captures of ``serve.verify`` (one per (B, W) rung)."""
+        return self._graph_verify.traces
+
+    @property
+    def verify_dispatches(self) -> int:
+        """Calls of ``serve.verify``: one per verify step."""
+        return self._graph_verify.dispatches
 
     @torch.no_grad()
     def aot_warmup(self, prefill_chunk=None, spec_window=None,
                    decode_n_steps=(), ladder=None):
         """Capture every (program x shape rung) the executor can
         dispatch, so a warmed engine serves with no capture after warmup:
-        ``serve.decode`` at every batch 1..max_seqs and ``serve.decode_n``
-        at every (batch, n) for n in ``decode_n_steps``.  Arms the
+        ``serve.decode`` at every batch 1..max_seqs, ``serve.decode_n``
+        at every (batch, n) for n in ``decode_n_steps`` and, when
+        ``spec_window`` gives the verify window W = k + 1,
+        ``serve.verify`` at every (batch, W).  Arms the
         prefill chunk ladder (``ladder``, default the powers of two up to
         ``prefill_chunk`` or ``max_len``) and the past-cover page
         buckets; prefill chunks stay eager, so they have no entries.
@@ -185,11 +284,10 @@ class PagedExecutor:
         entry that fails is recorded in ``failed`` and skipped, so warmup
         never takes the engine down (the rung then captures at its first
         call, or raises there).  Returns the report."""
-        if spec_window:
-            raise NotImplementedError(
-                "aot_warmup(spec_window=...): serve.verify is not ported "
-                "yet (ROADMAP Queue 1, item 3)")
         kvc = self.cache
+        if spec_window and int(spec_window) > kvc.max_window:
+            raise ValueError(f"spec_window {spec_window} > the step "
+                             f"buffers' max_window {kvc.max_window}")
         cap = (min(int(prefill_chunk), self.max_len)
                if prefill_chunk else self.max_len)
         if ladder is None:
@@ -200,6 +298,8 @@ class PagedExecutor:
             plan.append((self._graph_decode, (B,)))
             for n in decode_n_steps:
                 plan.append((self._graph_decode_n, (B, int(n))))
+            if spec_window:
+                plan.append((self._graph_verify, (B, int(spec_window))))
         t0 = time.perf_counter()
         report = {"capture": 0, "warm": 0, "failed": [], "programs": {},
                   "ladder": ladder.rungs, "page_buckets": buckets}
@@ -380,6 +480,79 @@ class PagedExecutor:
             positions, lengths = positions + 1, lengths + 1
         return torch.stack(toks)
 
+    def _verify_logits(self, ids, lengths, page_tables, limits):
+        """Speculative-verify forward: ids [B, W] int32 is each
+        sequence's last committed token then its zero-padded draft;
+        window token w sits at position ``lengths[b] + w``; limits [B]
+        caps how many window tokens a sequence may commit.  Each layer
+        writes the K/V of every valid window cell (w < limit) into its
+        page; the cells past a limit write into the scratch page, never a
+        live one.  Then B*W query rows attend through the paged decode
+        kernel, each sequence's table row repeated W times and row
+        (b, w) masked to ``lengths[b] + w + 1`` keys, which is the causal
+        mask inside the window.  Reads no value on the host.  Returns
+        logits [B, W, V]."""
+        cfg = self.config
+        nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        cache = self.cache
+        ps = cache.page_size
+        B, W = ids.shape
+        pps = page_tables.shape[1]
+        w = torch.arange(W, dtype=torch.int32, device=ids.device)
+        x = self.tops["embed"][ids]                       # [B, W, h]
+        pos = lengths[:, None] + w[None]                  # [B, W]
+        slot = pos // ps
+        pids = torch.gather(page_tables, 1,
+                            slot.clamp(max=pps - 1).long())
+        valid = (w[None] < limits[:, None]) & (slot < pps)
+        pids = torch.where(valid, pids, cache.scratch_page).reshape(-1) \
+            .long()
+        offs = (pos % ps).reshape(-1).long()
+        lens_f = (pos + 1).reshape(-1)
+        # a copy: the kernel takes contiguous tables (at B = 1 a reshape
+        # of the expanded rows would be a view with a zero stride)
+        tables_f = page_tables[:, None].expand(B, W, pps).contiguous() \
+            .view(B * W, pps)
+        for i in range(cfg.num_hidden_layers):
+            lp = self._layer(i)
+            q, k, v = self._qkv(x, lp, pos)
+            cache.write_token(i, pids, offs,
+                              k.reshape(B * W, nkv, d),
+                              v.reshape(B * W, nkv, d))
+            o = cache.attend_tables(i, q.reshape(B * W, nh, d).contiguous(),
+                                    tables_f, lens_f)
+            o = o.reshape(B, W, nh * d).to(x.dtype)
+            x = x + _mm(o, lp["self_attn.o_proj.weight"])
+            x = self._mlp(x, lp)
+        x = rms_norm(x, self.tops["norm_w"], cfg.rms_norm_eps)
+        return self._head(x)
+
+    def _verify_fwd(self, ids, lengths, page_tables, limits):
+        """:meth:`_verify_logits`, then the greedy acceptance and the
+        packing in the program.  With t the argmax at each window
+        position, draft w + 1 is accepted iff every earlier draft matched
+        t, so ``emit_n = min(1 + accepted, limit)`` tokens of t are the
+        plain greedy stream.  The accepted cells of all sequences are
+        packed in order to the front of one [B*W] vector and the other
+        cells after them, also in order (the reference's stable sort on
+        a rank key), by a scatter to prefix-sum destinations: shapes fixed
+        by (B, W), nothing read on the host.  Returns (packed [B*W],
+        emit_n [B]), int32."""
+        W = ids.shape[1]
+        t = torch.argmax(self._verify_logits(ids, lengths, page_tables,
+                                             limits), dim=-1).int()
+        m = (ids[:, 1:] == t[:, :-1]).int()
+        acc = torch.cumprod(m, dim=1).sum(dim=1)
+        emit_n = torch.minimum(acc + 1, limits.long()).int()
+        w = torch.arange(W, dtype=torch.int32, device=ids.device)
+        keep = (w[None] < emit_n[:, None]).reshape(-1).int()
+        dest = torch.where(keep.bool(), torch.cumsum(keep, 0) - 1,
+                           keep.sum() + torch.cumsum(1 - keep, 0) - 1)
+        flat = t.reshape(-1)
+        packed = torch.empty_like(flat).scatter_(0, dest.long(), flat)
+        return packed, emit_n
+
     def _step_inputs(self, B):
         c = self.cache
         return (c.step_ids[:B], c.step_positions[:B], c.step_lengths[:B],
@@ -393,6 +566,16 @@ class PagedExecutor:
         """``serve.decode_n`` at rung (B, n), over the step buffers."""
         B, n = rung
         return self._decode_n_fwd(*self._step_inputs(B), n)
+
+    def _verify_step(self, rung):
+        """``serve.verify`` at rung (B, W), over the step buffers:
+        packed tokens then the counts, one int32 [B*W + B] row."""
+        B, W = rung
+        c = self.cache
+        packed, emit_n = self._verify_fwd(
+            c.step_window[:B, :W], c.step_lengths[:B], c.step_tables[:B],
+            c.step_limits[:B])
+        return torch.cat([packed, emit_n])
 
     # -- slot-granular control plane ------------------------------------
 
@@ -414,11 +597,18 @@ class PagedExecutor:
         self.cache.free(sid)
         self.last_token.pop(sid, None)
 
+    def attach_prefix(self, sid: int, page_ids, n_tokens: int) -> None:
+        """Point a fresh slot's page table at already-computed prefix
+        pages (a cache hit): chunked prefill then starts at token
+        ``n_tokens`` instead of 0."""
+        self.cache.attach(sid, page_ids, n_tokens)
+
     def prepare_write(self, sid: int, start: int, n_tokens: int) -> None:
         """Allocate the pages a prefill chunk over [start, start + n)
-        needs, before any compute (a pool-exhausted raise here lets the
-        scheduler preempt cleanly)."""
+        needs and copy any shared page in it, before any compute (a
+        pool-exhausted raise here lets the scheduler preempt cleanly)."""
         self.cache._ensure_capacity(sid, start + n_tokens)
+        self.cache.make_writable(sid, start, start + n_tokens)
 
     def _ids(self, ids):
         return torch.as_tensor(np.asarray(ids, np.int64)[None],
@@ -480,18 +670,147 @@ class PagedExecutor:
         sids = list(sids)
         if not sids:
             return {}
-        cache = self.cache
-        # batch-atomic page reservation before any in-place write
-        cache.reserve(sids, extra_tokens=1)
-        cache.stage(sids, [self.last_token[s] for s in sids])
-        toks = self._run(self._graph_decode, self._decode_tok_step,
-                         (len(sids),)).tolist()     # one [B] transfer
+        toks = self._dispatch_decode(sids).tolist()   # one [B] transfer
         out = {}
         for s, tok in zip(sids, toks):
-            cache.lengths[s] += 1
             self.last_token[s] = tok
             out[s] = tok
         return out
+
+    def _guard(self, sids, extras):
+        """Reserve each slot's next ``extras`` tokens (batch-atomic, one
+        int or a list aligned with ``sids``) and copy any shared page
+        they fall in: the in-program writes never touch a shared page."""
+        cache = self.cache
+        cache.reserve(sids, extra_tokens=extras)
+        if not isinstance(extras, (list, tuple)):
+            extras = [extras] * len(sids)
+        for s, e in zip(sids, extras):
+            pos = int(cache.lengths[s])
+            cache.make_writable(s, pos, pos + int(e))
+
+    def _dispatch_decode(self, sids):
+        """Page work, staging and the ``serve.decode`` call of one decode
+        step; advances the lengths and returns the device token row."""
+        cache = self.cache
+        self._guard(sids, 1)
+        cache.stage(sids, [self.last_token[s] for s in sids])
+        toks = self._run(self._graph_decode, self._decode_tok_step,
+                         (len(sids),))
+        for s in sids:
+            cache.lengths[s] += 1
+        return toks
+
+    def _pending(self, cls, sids, dev):
+        """A ``cls`` pending result of the device row ``dev``: its copy
+        into the next pinned host slot starts now (non-blocking on the
+        card, an event recorded after it).  A slot still holding an
+        unread result is read first."""
+        slot = self._next_slot
+        self._next_slot ^= 1
+        old = self._slot_pending[slot]
+        if old is not None:
+            old._fetch()
+        host = self._host_out[slot, :dev.numel()]
+        event = None
+        if self.device.type == "cuda":
+            host.copy_(dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host.copy_(dev)
+        pending = self._slot_pending[slot] = cls(self, sids, host, event)
+        self.async_dispatches += 1
+        return pending
+
+    @torch.no_grad()
+    def decode_async(self, sids) -> _PendingDecode:
+        """Dispatch one greedy decode step without reading its result.
+        The page work and the length bookkeeping happen now, so the
+        scheduler can plan the next step against post-step lengths while
+        the card runs; the returned object's ``wait()`` is the step's
+        only host sync (one [B] copy, the last-token updates)."""
+        sids = list(sids)
+        if not sids:
+            return _PendingDecode(self, [], torch.zeros(0, dtype=torch.int32),
+                                  None)
+        return self._pending(_PendingDecode, sids,
+                             self._dispatch_decode(sids))
+
+    def _dispatch_verify(self, sids, drafts, limits, k):
+        """Page work, staging and the ``serve.verify`` call of one verify
+        step; returns the device row [B*W + B] (packed tokens, counts)."""
+        cache = self.cache
+        W = int(k) + 1
+        limits = [int(x) for x in limits]
+        # batch-atomic per-sequence lookahead, then the COW guard over
+        # each window: the same write discipline as decode
+        self._guard(sids, limits)
+        window = np.zeros((len(sids), W), np.int32)
+        for i, (s, dr) in enumerate(zip(sids, drafts)):
+            window[i, 0] = self.last_token[s]
+            dr = np.asarray(dr, np.int32).reshape(-1)[:k]
+            window[i, 1:1 + len(dr)] = dr
+        cache.stage_verify(sids, window, limits)
+        return self._run(self._graph_verify, self._verify_step,
+                         (len(sids), W))
+
+    def _commit_verify(self, sids, vals):
+        """Split one verify result row (packed tokens, then counts) into
+        per-slot tokens and advance lengths and last tokens.  Returns
+        ({sid: tokens}, {sid: accepted drafts})."""
+        B = len(sids)
+        packed, counts = vals[:-B], vals[-B:]
+        out, accepted = {}, {}
+        off = 0
+        for s, n in zip(sids, counts):
+            n = int(n)
+            toks = [int(t) for t in packed[off:off + n]]
+            off += n
+            self.cache.lengths[s] += n
+            self.last_token[s] = toks[-1]
+            out[s] = toks
+            accepted[s] = n - 1
+        return out, accepted
+
+    @torch.no_grad()
+    def verify(self, sids, drafts, limits, k):
+        """Speculative decode step: every listed slot's window (its last
+        token, then up to ``k`` drafted tokens) through one
+        ``serve.verify`` call; commit the longest draft prefix the model
+        agrees with plus the model's own next token.
+
+        ``drafts`` and ``limits`` align with ``sids``; a limit (>= 1) caps
+        the tokens a slot may commit (the caller clamps it to the page
+        budget, the generation cap and the draft length).  Returns
+        ({sid: [tokens...]}, {sid: accepted draft tokens}); each slot
+        advances by 1 + accepted, exactly its greedy stream."""
+        sids = list(sids)
+        if not sids:
+            return {}, {}
+        vals = self._dispatch_verify(sids, drafts, limits, k)
+        return self._commit_verify(sids, np.asarray(vals.tolist()))
+
+    @torch.no_grad()
+    def verify_async(self, sids, drafts, limits, k) -> _PendingVerify:
+        """:meth:`verify` split at its one sync point: the window is
+        verified now (pages reserved, shared pages copied, K/V written in
+        the program) and the token copy plus the length bookkeeping move
+        into the returned object's ``wait()``."""
+        sids = list(sids)
+        if not sids:
+            return _PendingVerify(self, [], torch.zeros(0, dtype=torch.int32),
+                                  None)
+        return self._pending(_PendingVerify, sids,
+                             self._dispatch_verify(sids, drafts, limits, k))
+
+    def rollback(self, sids) -> int:
+        """Release the pages reserved for rejected draft positions: trim
+        every listed slot's table back to its committed length.  Returns
+        the pages released."""
+        freed = sum(self.cache.trim(s) for s in sids)
+        self.rollback_pages += freed
+        return freed
 
     @torch.no_grad()
     def decode_n(self, sids, n) -> dict:
@@ -505,7 +824,7 @@ class PagedExecutor:
         if n < 1:
             raise ValueError(f"decode_n: n must be >= 1, got {n}")
         cache = self.cache
-        cache.reserve(sids, extra_tokens=n)
+        self._guard(sids, n)
         cache.stage(sids, [self.last_token[s] for s in sids])
         toks = self._run(self._graph_decode_n, self._decode_n_step,
                          (len(sids), n)).tolist()    # [n][B]

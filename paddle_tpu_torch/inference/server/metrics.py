@@ -1,7 +1,8 @@
 """SLO statistics for the serving engine.
 
 Counterpart of ``paddle_tpu/inference/server/metrics.py`` without the
-telemetry registry.  Two clocks run side by side: the logical clock
+telemetry registry, with its prefix-cache and speculative-decode
+counters.  Two clocks run side by side: the logical clock
 (scheduler iterations, what deterministic tests assert on) and the
 injectable wall clock (what a benchmark reports as ms percentiles).
 Occupancy and page utilisation are averaged over the steps where a
@@ -39,9 +40,16 @@ class EngineMetrics:
         self.busy_steps = 0           # steps with >= 1 in-flight request
         self.decode_tokens = 0
         self.decode_steps = 0         # batched decode dispatches
+        self.decode_slot_steps = 0    # sum of decode batch sizes
         self.prefill_tokens = 0
         self.preemptions = 0
+        self.draft_proposed = 0       # speculative draft tokens offered
+        self.draft_accepted = 0       # ...committed by verification
+        self.spec_steps = 0           # verify dispatches
         self.submitted = 0
+        self.prefix_hits = 0          # admissions that attached pages
+        self.cached_tokens = 0        # prompt tokens served from cache
+        self.evicted_pages = 0        # prefix-tree pages LRU-evicted
         self.occupancy_sum = 0.0      # decode-batch fill over busy steps
         self.page_util_sum = 0.0      # pool occupancy over busy steps
         self.state_counts = {s.value: 0 for s in RequestState
@@ -67,14 +75,31 @@ class EngineMetrics:
             req.first_token_step = step
 
     def on_decode_tokens(self, n):
-        self.decode_tokens += n
+        # one-token-per-slot decode: slots == tokens
+        self.on_decode_step(slots=n, tokens=n)
+
+    def on_decode_step(self, slots, tokens):
+        self.decode_tokens += tokens
+        self.decode_slot_steps += slots
         self.decode_steps += 1
+
+    def on_spec(self, proposed, accepted):
+        self.spec_steps += 1
+        self.draft_proposed += int(proposed)
+        self.draft_accepted += int(accepted)
 
     def on_prefill_tokens(self, n):
         self.prefill_tokens += n
 
     def on_preempt(self, req):
         self.preemptions += 1
+
+    def on_prefix_hit(self, tokens):
+        self.prefix_hits += 1
+        self.cached_tokens += int(tokens)
+
+    def on_prefix_evict(self, n_pages):
+        self.evicted_pages += int(n_pages)
 
     def on_terminal(self, req, step):
         req.finish_step = step
@@ -92,6 +117,11 @@ class EngineMetrics:
             "tpot_s": (None if n < 2 or req.last_token_time is None
                        else (req.last_token_time - req.first_token_time)
                        / (n - 1)),
+            # scheduler iterations per generated token: 1.0 for plain
+            # decode, below 1.0 once verify steps commit several tokens
+            "tpot_steps": (None if n < 2 or req.first_token_step is None
+                           else (req.finish_step - req.first_token_step)
+                           / (n - 1)),
             "tokens": n,
         })
 
@@ -118,7 +148,20 @@ class EngineMetrics:
             "decode_tokens": self.decode_tokens,
             "decode_steps": self.decode_steps,
             "prefill_tokens": self.prefill_tokens,
+            # prefix cache: the share of prompt tokens served from
+            # shared pages instead of prefilled
+            "cached_tokens": self.cached_tokens,
+            "prefix_hit_rate": round(
+                self.cached_tokens
+                / max(self.cached_tokens + self.prefill_tokens, 1), 4),
+            "evicted_pages": self.evicted_pages,
             "throughput_tok_s": self.decode_tokens / wall,
+            # speculative decode: the share of drafted tokens committed,
+            # and tokens a sequence advances per decode slot-step
+            "draft_acceptance_rate": round(
+                self.draft_accepted / max(self.draft_proposed, 1), 4),
+            "tokens_per_decode_step": round(
+                self.decode_tokens / max(self.decode_slot_steps, 1), 4),
             "batch_occupancy": self.occupancy_sum / busy,
             "page_utilization": self.page_util_sum / busy,
             "queue_wait_steps_p50": _pct(
@@ -130,4 +173,6 @@ class EngineMetrics:
             "ttft_ms_p99": _ms(_pct([d["ttft_s"] for d in done], 99)),
             "tpot_ms_p50": _ms(_pct([d["tpot_s"] for d in done], 50)),
             "tpot_ms_p99": _ms(_pct([d["tpot_s"] for d in done], 99)),
+            "tpot_steps_p50": _pct([d["tpot_steps"] for d in done], 50),
+            "tpot_steps_p99": _pct([d["tpot_steps"] for d in done], 99),
         }

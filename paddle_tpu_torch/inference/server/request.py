@@ -51,7 +51,8 @@ class Request:
         "sid", "prefill_done", "resume_ids", "generated", "cancel_flag",
         "preempt_count", "submit_step", "submit_time", "sched_step",
         "first_token_step", "first_token_time", "finish_step",
-        "finish_time", "last_token_time", "clock",
+        "finish_time", "last_token_time", "cached_tokens",
+        "draft_proposed", "draft_accepted", "clock",
     )
 
     def __init__(self, rid, prompt_ids, max_new_tokens=16, priority=0,
@@ -75,6 +76,9 @@ class Request:
         self.generated = []        # streamed output tokens
         self.cancel_flag = False
         self.preempt_count = 0
+        self.cached_tokens = 0     # prompt tokens attached from cache
+        self.draft_proposed = 0    # speculative draft tokens offered
+        self.draft_accepted = 0    # ...committed by verification
 
         self.submit_step = None
         self.submit_time = None
@@ -159,6 +163,29 @@ class RequestHandle:
                     raise self._req.error
                 return
             self._engine.step()
+
+    def metrics(self) -> dict:
+        r = self._req
+        return {
+            "state": r.state.value,
+            "finish_reason": r.finish_reason,
+            "queue_wait_steps": (None if r.sched_step is None
+                                 else r.sched_step - r.submit_step),
+            "ttft_steps": (None if r.first_token_step is None
+                           else r.first_token_step - r.submit_step),
+            "ttft_s": (None if r.first_token_time is None
+                       else r.first_token_time - r.submit_time),
+            "tpot_s": (None if len(r.generated) < 2
+                       or r.last_token_time is None
+                       or r.first_token_time is None
+                       else (r.last_token_time - r.first_token_time)
+                       / (len(r.generated) - 1)),
+            "tokens": len(r.generated),
+            "preemptions": r.preempt_count,
+            "cached_tokens": r.cached_tokens,
+            "draft_proposed": r.draft_proposed,
+            "draft_accepted": r.draft_accepted,
+        }
 
     def __repr__(self):
         return f"RequestHandle({self._req!r})"

@@ -1,7 +1,7 @@
 """Iteration-level (continuous-batching) scheduler.
 
-Counterpart of the synchronous path of
-``paddle_tpu/inference/server/scheduler.py``.  Each :meth:`step`:
+Counterpart of ``paddle_tpu/inference/server/scheduler.py``.  Each
+:meth:`step`:
 
   1. sweeps cancellations and logical deadlines,
   2. runs ONE batched decode over every RUNNING sequence — preempting
@@ -17,9 +17,26 @@ An exception inside one request's prefill fails THAT request only.
 Under an armed AOT ladder (``executor.aot_ladder``) prefill chunks are
 floored onto its rungs and whole prompts go through ``prefill_chunk``.
 
-Not ported yet (later slices): speculative decode, double-buffered
-async execution, the prefix cache, the write-ahead journal, fault
-points and sequence-parallel prefill.
+With a prefix cache, admission matches ``resume_ids`` against the radix
+tree, attaches the hit pages and pays only for the novel ones (plus one
+page for the copy of a page hit mid-way; cold tree pages count as
+available), and a prompt's full pages are published to the tree at its
+final prefill chunk.  With speculative decode (``spec``), the decode
+step drafts from each request's n-gram index, verifies every window in
+one ``serve.verify`` call, emits ``1 + accepted`` tokens a sequence and
+trims the pages the rejected tail had reserved.
+
+Double-buffered execution (``async_exec``): the step is split into a
+host ``plan`` (a :class:`StepPlan`) and a ``commit`` of the device
+results, with the dispatch left unread in between; while step N runs on
+the card the scheduler plans step N+1 against the predicted post-N
+state.  If the commit invalidates the prediction (a request finished,
+failed or was cancelled) the plan is rebuilt and ``replans`` counts it.
+The interleaving stays deterministic on the logical clock: the async
+stream equals the sync one token for token.
+
+Not ported: the fault points, the obs spans, the write-ahead journal and
+the sequence-parallel prefill.
 """
 from __future__ import annotations
 
@@ -30,15 +47,38 @@ from .request import RequestState
 _POOL_EXHAUSTED = "KV page pool exhausted"
 
 
+class StepPlan:
+    """The host half of one scheduler iteration, split out so the
+    double-buffered path can build step N+1's plan while step N is in
+    flight.  ``fingerprint`` is the predicted sorted
+    ``(rid, sid, generated)`` tuple the running set must match when the
+    plan is adopted; any divergence re-plans from live state."""
+
+    __slots__ = ("tick", "sids", "by_sid", "fingerprint", "kind",
+                 "drafts")
+
+    def __init__(self, tick, sids, by_sid, fingerprint=None,
+                 kind="decode", drafts=None):
+        self.tick = tick
+        self.sids = sids
+        self.by_sid = by_sid
+        self.fingerprint = fingerprint
+        self.kind = kind
+        self.drafts = drafts
+
+
 class Scheduler:
     def __init__(self, executor, metrics, policy="fifo",
                  prefill_chunk=None, eos_token_id=None,
-                 max_preemptions=4):
+                 max_preemptions=4, prefix_cache=None, spec=None,
+                 async_exec=False):
         if policy not in ("fifo", "priority"):
             raise ValueError(
                 f"policy must be 'fifo' or 'priority', got {policy!r}")
         self.executor = executor
         self.metrics = metrics
+        self.prefix = prefix_cache   # radix prefix index (None = off)
+        self.spec = spec             # SpecDecode bundle (None = off)
         self.policy = policy
         self.prefill_chunk = (None if prefill_chunk is None
                               else int(prefill_chunk))
@@ -50,6 +90,16 @@ class Scheduler:
         self.running: list = []      # hold a slot, decoding
         self.tick = 0                # logical clock (iterations)
         self._last_decode_batch = 0
+        # double-buffered execution: the plan built while the previous
+        # step was in flight, the replan counter and the host-overlap
+        # accounting (seconds on the metrics clock)
+        self.async_mode = bool(async_exec)
+        self._pending = None     # StepPlan parked for the next step
+        self.replans = 0
+        self.overlapped_s = 0.0  # host seconds hidden behind the card
+        self.device_s = 0.0      # dispatch-to-fence wall seconds
+        self.last_phase_seconds = {}
+        self.phase_totals = {}
 
     # -- submission boundary (called by the engine) ---------------------
 
@@ -75,11 +125,14 @@ class Scheduler:
         """One scheduler iteration.  Returns {rid: [tokens emitted]}."""
         self.tick += 1
         emitted: dict = {}
-        self._sweep_cancelled()
-        self._sweep_deadlines()
-        self._decode(emitted)
-        self._admit()
-        self._prefill(emitted)
+        if self.async_mode:
+            self._step_async(emitted)
+        else:
+            self._sweep_cancelled()
+            self._sweep_deadlines()
+            self._decode(emitted)
+            self._admit()
+            self._prefill(emitted)
         self.metrics.on_step(
             decode_batch=self._last_decode_batch,
             pages_used=(self.executor.cache.num_pages
@@ -103,15 +156,20 @@ class Scheduler:
 
     # -- decode with preemption under page pressure ---------------------
 
-    def _reserve_decode_batch(self):
-        """Reserve each RUNNING sequence's next token, preempting the
-        victim policy's pick while the pool cannot cover the batch.
-        Returns the surviving run list."""
+    def _reserve_decode_batch(self, extra_fn):
+        """Reserve each RUNNING sequence's lookahead
+        (``extra_fn(sids, by_sid)`` gives reserve()'s extra_tokens),
+        preempting the victim policy's pick while the pool cannot cover
+        the batch.  Returns the surviving run list.  The reservation is
+        idempotent, so the executor's own reserve() re-checks without
+        re-allocating."""
         run = list(self.running)
         while run:
             sids = sorted(r.sid for r in run)
+            by_sid = {r.sid: r for r in run}
             try:
-                self.executor.cache.reserve(sids, extra_tokens=1)
+                self.executor.cache.reserve(
+                    sids, extra_tokens=extra_fn(sids, by_sid))
                 return run
             except RuntimeError as e:
                 if _POOL_EXHAUSTED not in str(e):
@@ -134,8 +192,11 @@ class Scheduler:
         return run
 
     def _decode(self, emitted):
+        if self.spec is not None:
+            self._decode_spec(emitted)
+            return
         self._last_decode_batch = 0
-        run = self._reserve_decode_batch()
+        run = self._reserve_decode_batch(lambda sids, by_sid: 1)
         if not run:
             return
         sids = sorted(r.sid for r in run)
@@ -145,6 +206,231 @@ class Scheduler:
         self.metrics.on_decode_tokens(len(sids))
         for sid in sids:
             self._on_token(by_sid[sid], toks[sid], emitted)
+
+    # -- speculative decode (draft -> batched verify -> rollback) -------
+
+    def _spec_limit(self, req, draft_len):
+        """How many window tokens this sequence may commit this step: 1
+        plus at most ``draft_len`` accepted drafts, clamped to the
+        per-seq page budget and the remaining generation cap."""
+        ex = self.executor
+        budget = ex.cache.max_pages_per_seq * ex.cache.page_size
+        cap = min(req.max_new_tokens,
+                  ex.max_len - len(req.prompt_ids))
+        return max(1, min(self.spec.k + 1, int(draft_len) + 1,
+                          cap - len(req.generated),
+                          budget - int(ex.cache.lengths[req.sid])))
+
+    def _spec_batch(self):
+        """Drafts for the running set, then the preemption-aware
+        reservation of each sequence's clamped window.  Returns (sids,
+        by_sid, limits, drafts), or None when nothing runs."""
+        run = list(self.running)
+        if not run:
+            return None
+        drafts = {r.rid: self.spec.propose(r) for r in run}
+
+        def extras(sids, by_sid):
+            return [self._spec_limit(by_sid[s], len(drafts[by_sid[s].rid]))
+                    for s in sids]
+
+        run = self._reserve_decode_batch(extras)
+        if not run:
+            return None
+        sids = sorted(r.sid for r in run)
+        by_sid = {r.sid: r for r in run}
+        lims = extras(sids, by_sid)
+        dr = [drafts[by_sid[s].rid][:lim - 1]
+              for s, lim in zip(sids, lims)]
+        return sids, by_sid, lims, dr
+
+    def _decode_spec(self, emitted):
+        """Spec-mode decode: draft from each request's n-gram index,
+        reserve each window (preempting under pressure as plain decode
+        does), verify every window in one call, emit ``1 + accepted``
+        tokens a sequence, then trim the rejected tail's pages."""
+        self._last_decode_batch = 0
+        batch = self._spec_batch()
+        if batch is None:
+            return
+        sids, by_sid, lims, dr = batch
+        toks, accepted = self.executor.verify(sids, dr, lims, self.spec.k)
+        self._emit_verify(StepPlan(self.tick, sids, by_sid, kind="verify",
+                                   drafts=dr), toks, accepted, emitted)
+
+    def _emit_verify(self, plan, toks, accepted, emitted):
+        """The tail of a verify step: emission, spec metrics, rollback."""
+        sids, by_sid, dr = plan.sids, plan.by_sid, plan.drafts
+        self._last_decode_batch = len(sids)
+        self.metrics.on_decode_step(
+            slots=len(sids), tokens=sum(len(v) for v in toks.values()))
+        self.metrics.on_spec(proposed=sum(len(d) for d in dr),
+                             accepted=sum(accepted.values()))
+        for i, sid in enumerate(sids):
+            req = by_sid[sid]
+            req.draft_proposed += len(dr[i])
+            req.draft_accepted += accepted[sid]
+            for tok in toks[sid]:
+                if req.terminal:
+                    break   # tokens past eos / the cap are dropped
+                self._on_token(req, tok, emitted)
+        self.executor.rollback(
+            [r.sid for r in by_sid.values() if r.sid is not None])
+
+    # -- double-buffered execution --------------------------------------
+
+    @property
+    def host_overlap_ratio(self) -> float:
+        """Overlapped host seconds / device seconds over the scheduler's
+        lifetime (0.0 before the first async decode)."""
+        return (self.overlapped_s / self.device_s
+                if self.device_s > 0 else 0.0)
+
+    def _step_async(self, emitted):
+        """One double-buffered iteration: adopt (or rebuild) the plan
+        parked while the previous step was in flight, dispatch without
+        reading the result, plan the next step against the predicted
+        post-step state while the card runs, then fence and commit."""
+        clk = self.metrics.clock
+        ph = {}
+        t0 = clk()
+        self._sweep_cancelled()
+        self._sweep_deadlines()
+        if self.spec is not None:
+            t1 = self._step_async_spec(emitted, clk, ph, t0)
+        else:
+            t1 = self._step_async_plain(emitted, clk, ph, t0)
+        self._admit()
+        self._prefill(emitted)
+        ph["commit"] = ph.get("commit", 0.0) + (clk() - t1)
+        self._publish_phases(ph)
+
+    def _step_async_plain(self, emitted, clk, ph, t0):
+        self._last_decode_batch = 0
+        plan = self._obtain_plan()
+        t1 = clk()
+        ph["plan"] = t1 - t0
+        if plan is None:
+            return t1
+        pending = self.executor.decode_async(plan.sids)
+        t2 = clk()
+        ph["dispatch"] = t2 - t1
+        self._plan_ahead(plan)
+        t3 = clk()
+        ph["overlap"] = t3 - t2
+        pending.wait()
+        t4 = clk()
+        ph["fence"] = t4 - t3
+        self._commit_decode(plan, pending, emitted)
+        self.overlapped_s += ph["overlap"]
+        self.device_s += ph["dispatch"] + ph["overlap"] + ph["fence"]
+        return t4
+
+    def _step_async_spec(self, emitted, clk, ph, t0):
+        self._last_decode_batch = 0
+        batch = self._spec_batch()
+        t1 = clk()
+        ph["plan"] = t1 - t0
+        if batch is None:
+            return t1
+        sids, by_sid, lims, dr = batch
+        plan = StepPlan(self.tick, sids, by_sid, kind="verify", drafts=dr)
+        pending = self.executor.verify_async(sids, dr, lims, self.spec.k)
+        t2 = clk()
+        ph["dispatch"] = t2 - t1
+        pending.wait()
+        t3 = clk()
+        ph["fence"] = t3 - t2
+        self._commit_verify(plan, pending, emitted)
+        self.device_s += ph["dispatch"] + ph["fence"]
+        return t3
+
+    def _obtain_plan(self):
+        """The parked plan if its prediction survived the commit, else a
+        fresh one from live state (the replan path, counted)."""
+        plan, self._pending = self._pending, None
+        if plan is not None and not self._plan_valid(plan):
+            self.replans += 1
+            plan = None
+        if plan is None:
+            plan = self._build_plan()
+        return plan
+
+    def _build_plan(self):
+        run = self._reserve_decode_batch(lambda sids, by_sid: 1)
+        if not run:
+            return None
+        return StepPlan(self.tick, sorted(r.sid for r in run),
+                        {r.sid: r for r in run})
+
+    def _plan_valid(self, plan) -> bool:
+        if plan.tick != self.tick or self.prefilling:
+            return False
+        actual = tuple(sorted((r.rid, r.sid, len(r.generated))
+                              for r in self.running))
+        return actual == plan.fingerprint
+
+    def _plan_ahead(self, plan):
+        """The overlapped host work: while the dispatched step runs,
+        reserve the next step's decode pages against the predicted
+        post-step state (the executor advanced the lengths at dispatch)
+        and fingerprint the prediction.  Strictly speculative: no
+        preemption, no failure and no prefix eviction (the reclaimer is
+        off, so the reserve draws from free pages only; a shortfall just
+        drops the speculation).  Page identity never changes the
+        numbers, so an early reservation cannot move the stream."""
+        self._pending = None
+        if self.queue or self.prefilling:
+            return  # admissions / prefills this step would shift state
+        ex = self.executor
+        survivors = []
+        for sid in plan.sids:
+            r = plan.by_sid[sid]
+            cap = min(r.max_new_tokens, ex.max_len - len(r.prompt_ids))
+            if len(r.generated) + 1 >= cap:
+                continue  # finishes this step on the length cap
+            survivors.append(r)
+        if not survivors:
+            return
+        sids = sorted(r.sid for r in survivors)
+        cache = ex.cache
+        saved, cache.reclaimer = cache.reclaimer, None
+        try:
+            cache.reserve(sids, extra_tokens=1)
+        except RuntimeError as e:
+            if _POOL_EXHAUSTED not in str(e):
+                raise
+            return  # pool too tight to speculate
+        finally:
+            cache.reclaimer = saved
+        fp = tuple(sorted((r.rid, r.sid, len(r.generated) + 1)
+                          for r in survivors))
+        self._pending = StepPlan(self.tick + 1, sids,
+                                 {r.sid: r for r in survivors},
+                                 fingerprint=fp)
+
+    def _commit_decode(self, plan, pending, emitted):
+        """Apply one async decode's results: the sync tail of
+        :meth:`_decode`, fed from the pending object's fence."""
+        toks = pending.wait()
+        self._last_decode_batch = len(plan.sids)
+        self.metrics.on_decode_tokens(len(plan.sids))
+        for sid in plan.sids:
+            self._on_token(plan.by_sid[sid], toks[sid], emitted)
+
+    def _commit_verify(self, plan, pending, emitted):
+        """Apply one async verify's results: the sync tail of
+        :meth:`_decode_spec` (emission, spec metrics, rollback)."""
+        toks, accepted = pending.wait()
+        self._emit_verify(plan, toks, accepted, emitted)
+
+    def _publish_phases(self, ph):
+        """Fold one async step's phase seconds into the totals."""
+        if not ph:
+            return
+        self.last_phase_seconds = dict(ph)
+        for k, v in ph.items():
+            self.phase_totals[k] = self.phase_totals.get(k, 0.0) + v
 
     # -- page-aware admission -------------------------------------------
 
@@ -161,17 +447,32 @@ class Scheduler:
 
     def _token_target(self, prompt_tokens: int) -> int:
         """Tokens a request must hold right after prefill: the prompt
-        plus the first decode token, clamped to the per-seq budget."""
+        plus the first decode token (plus the worst-case ``k + 1`` window
+        under speculative decode), clamped to the per-seq budget."""
         ex = self.executor
+        lookahead = 1 if self.spec is None else self.spec.k + 1
         budget = ex.cache.max_pages_per_seq * ex.cache.page_size
-        return min(prompt_tokens + 1, budget)
+        return min(prompt_tokens + lookahead, budget)
 
     def _admit(self):
         ex = self.executor
         while self.queue:
             req = self._pick_next()
-            need = ex.pages_for(self._token_target(len(req.resume_ids)))
+            hit_tokens, hit_pages = 0, []
+            if self.prefix is not None:
+                hit_tokens, hit_pages = self.prefix.match(req.resume_ids)
+            # admission pays only for novel pages: hit pages are attached
+            # by reference; a mid-page hit budgets one page for the copy
+            # of the partial page, and cold cached pages count as
+            # available (eviction frees them)
+            need = (ex.pages_for(self._token_target(len(req.resume_ids)))
+                    - len(hit_pages))
+            if hit_tokens % ex.cache.page_size:
+                need += 1
             avail = ex.free_pages - self._committed_pages()
+            if self.prefix is not None:
+                avail += max(
+                    0, self.prefix.evictable_pages() - len(hit_pages))
             if ex.free_slots < 1 or avail < need:
                 if self.policy == "priority":
                     victim = self._pick_victim(below=req.priority)
@@ -181,6 +482,11 @@ class Scheduler:
                 break  # FIFO: head-of-line blocking keeps arrival order
             req.sid = ex.alloc_slot()
             req.prefill_done = 0
+            if hit_tokens:
+                ex.attach_prefix(req.sid, hit_pages, hit_tokens)
+                req.prefill_done = hit_tokens
+                req.cached_tokens = hit_tokens
+                self.metrics.on_prefix_hit(hit_tokens)
             req.state = RequestState.PREFILLING
             self.queue.remove(req)
             self.prefilling.append(req)
@@ -249,12 +555,24 @@ class Scheduler:
                 self.prefilling.remove(req)
                 self.running.append(req)
                 req.state = RequestState.RUNNING
+                if self.prefix is not None:
+                    # publish before the first token can finish the
+                    # request: the tree's reference keeps the pages alive
+                    # past the slot's release
+                    self.prefix.insert(
+                        ids, self.executor.cache.page_table[req.sid])
+                if self.spec is not None:
+                    # seed the draft index from prompt + generated before
+                    # the first token extends it
+                    self.spec.on_running(req)
                 self._on_token(req, tok, emitted)
 
     # -- request transitions --------------------------------------------
 
     def _on_token(self, req, tok, emitted):
         req.emit(tok)
+        if self.spec is not None:
+            self.spec.on_token(req, tok)
         emitted.setdefault(req.rid, []).append(int(tok))
         if req.first_token_step is None:
             self.metrics.on_first_token(req, self.tick)
@@ -288,6 +606,8 @@ class Scheduler:
         self.queue.insert(0, req)  # seniority: re-admitted first
 
     def _release(self, req):
+        if self.spec is not None:
+            self.spec.on_release(req)
         if req.sid is not None:
             self.executor.free_slot(req.sid)
             req.sid = None

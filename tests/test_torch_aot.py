@@ -15,7 +15,9 @@ executables from a disk cache, which fails on the tests' 8-device CPU
 mesh, and ``aot="off"`` gives the same streams as its ``aot="warm"`` by
 its own ``test_warmed_load_zero_traces_and_parity[plain]``.  The load
 is the reference's seeded ``LOAD_SPEC`` without its prefix and repeat
-keys (the prefix cache and speculative decode are not ported yet).
+keys (the prefix cache and speculative decode are held in
+``test_torch_prefix_cache.py`` and ``test_torch_spec_decode.py``); with
+spec on, ``aot_warmup(spec_window=W)`` also captures ``serve.verify``.
 Token streams and terminal states must be IDENTICAL.
 """
 from dataclasses import fields
@@ -196,10 +198,29 @@ def test_seal_requires_warmup(pair):
         eng.executor.seal()
 
 
-def test_spec_window_not_ported(pair):
+def test_spec_window_not_ported(pair, monkeypatch):
+    """``aot_warmup(spec_window=3)`` captures ``serve.verify`` at every
+    batch beside ``serve.decode``; a strict engine with spec on (k = 2,
+    so W = 3) serves through verify steps with no capture after
+    ``seal()``, the plain greedy stream, and a miss at an unwarmed W."""
     eng = _engine(pair, aot="off")
-    with pytest.raises(NotImplementedError, match="verify"):
-        eng.executor.aot_warmup(spec_window=3)
+    rep = eng.executor.aot_warmup(spec_window=3)
+    ms = KW["max_seqs"]
+    assert not rep["failed"]
+    assert rep["programs"] == {"serve.decode": ms, "serve.verify": ms}
+    assert set(eng.executor.programs["verify"]._exe) == {
+        (b, 3) for b in range(1, ms + 1)}
+    want = _engine(pair, aot="off").submit(PROMPT, max_new_tokens=12).result()
+    monkeypatch.setenv("PT_SPEC_K", "2")
+    strict = _engine(pair, aot="strict", spec_decode="ngram")
+    ex = strict.executor
+    assert strict._aot_report["programs"]["serve.verify"] == ms
+    traces = sum(p.traces for p in ex.programs.values())
+    assert strict.submit(PROMPT, max_new_tokens=12).result() == want
+    assert ex.verify_dispatches > 0
+    assert sum(p.traces for p in ex.programs.values()) == traces
+    with pytest.raises(aot.AotMissError, match="serve.verify"):
+        ex.programs["verify"]((ms, 4))
 
 
 # -- warmup -------------------------------------------------------------------
