@@ -214,6 +214,40 @@ result):
 11. moe parity — MoELayer at H = 256, F = 512, E = 8, top-2, T = 512,
              fp32: 3 steps on the card (kernel 10) and on the CPU (its
              plain version) give losses within 1e-4 relative.
+12. resnet train — bench.py's config 1 (bench.py:621-681): resnet50
+             (1000 classes) in training mode, random weights from seed 0,
+             B = 256 seeded bf16 images at 224 px and int labels,
+             CompiledTrainStep(lr=0.1, compute_dtype="bfloat16",
+             loss_fn=cross_entropy) with its defaults (AdamW, fp32
+             master, wd 0.01, clip 1.0); with the conv weights NCHW and
+             channels-last in turn: 2 warm-up steps (the first timed:
+             cuDNN's first calls), 10 timed eager steps, multi_step(5)
+             captured and then replayed; step ms, imgs/s, MFU (imgs/s x
+             3 x 4.1e9 / 989e12, bench.py's estimate), peak memory and
+             the idle share, eager and replayed.  Losses finite; the
+             batch norms' running statistics unchanged by every step.
+             No kernel of the kernel line lies on this path (cuDNN and
+             plain torch).
+12b. resnet profile — two eager steps of the faster layout traced with
+             testing/vision_profile.py: device ms by family (cuDNN conv
+             forward, dgrad, wgrad; batch norm; pools; cross entropy;
+             AdamW; other) and the longest kernels.
+12c. resnet graph — three ResNet-50 steps from one seed (lr 1e-5): two
+             models eagerly, one as a replayed multi_step(3); bit for bit
+             where cuDNN repeats its bits, else held at bf16's relative
+             2e-2.
+13. detection train — bench.py's config 4 (bench.py:469-519): ResNet-18
+             features with 1x1 box and class heads, L1 + BCE-with-logits,
+             B = 64 at 320 px bf16, lr 1e-3, timed as in 12.
+14. vision parity — fp32, the card against the CPU, with TF32 at the
+             library defaults (the script's switch of phase 1 undone for
+             the phase): resnet18 and ResNet(BottleneckBlock, 50) eval
+             logits at 32 px within 1e-5 of the largest, 3 resnet18 train
+             losses within 1e-4 relative, the running statistics after
+             an eager train-mode forward within 1e-5 of each buffer's
+             largest value (the CPU's fp32 against fp64 beside them);
+             the library's own
+             conv2d at its TF32 default printed beside the port's.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -3642,6 +3676,381 @@ def phase_moe_parity(device, steps=3):
         raise AssertionError(f"[moe-parity] losses differ: {losses}")
 
 
+# -- phases 12-14: the vision path -----------------------------------------------
+
+RESNET_RUN = dict(batch=256, image=224, steps=10, k=5, lr=0.1)
+#: bench.py's estimate: ~4.1 GFLOP a 224 x 224 image forward, train ~ 3x
+RESNET_FWD_FLOPS = 4.1e9
+DET_RUN = dict(batch=64, image=320, steps=10, k=5, lr=1e-3)
+LAYOUTS = {"NCHW": torch.contiguous_format,
+           "channels_last": torch.channels_last}
+
+
+class Detector(torch.nn.Module):
+    """bench.py's ``_bench_detection`` model (bench.py:484-499) on the
+    port: ResNet-18 features (``num_classes=0, with_pool=False``), 1x1
+    box (512 -> 4) and class (512 -> 80) heads, loss ``mean|box(f) -
+    box_t| + BCE-with-logits(cls(f), cls_t)``."""
+
+    def __init__(self, device, num_classes=80, seed=0):
+        from paddle_tpu_torch import nn as pnn
+        from paddle_tpu_torch.nn.initializer import seeded_generator
+        from paddle_tpu_torch.vision.models import resnet18
+
+        super().__init__()
+        self.backbone = resnet18(num_classes=0, with_pool=False,
+                                 device=device, seed=seed)
+        gen = seeded_generator(device, seed + 1)
+        self.box = pnn.Conv2D(512, 4, 1, device=device, generator=gen)
+        self.cls = pnn.Conv2D(512, num_classes, 1, device=device,
+                              generator=gen)
+        self.to(memory_format=torch.channels_last)   # as the backbone
+
+    def forward(self, x, box_t, cls_t):
+        from paddle_tpu_torch.nn import functional as F
+
+        f = self.backbone(x)
+        l_box = torch.abs(self.box(f) - box_t).mean()
+        l_cls = F.binary_cross_entropy_with_logits(self.cls(f), cls_t)
+        return l_box + l_cls
+
+
+def _bn_stats(model):
+    return {k: v.detach().clone() for k, v in model.named_buffers()}
+
+
+def _stats_unchanged(model, before):
+    return [k for k, v in model.named_buffers() if not torch.equal(v,
+                                                                   before[k])]
+
+
+def _peak_gib(device):
+    return (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else float("nan"))
+
+
+def _reset_peak(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _vision_steps(tag, step, batch, device, run, per_image_flops=None):
+    """Two warm-up steps (the first timed: cuDNN's first calls), ``steps``
+    timed eager steps, then ``multi_step(k)`` twice (capture, then replay
+    only); traced eager steps and a traced replay for the idle shares.
+    The model's running statistics must be where they were after all of
+    it, and every loss finite.  Returns a dict of the numbers."""
+    model = step.model
+    before = _bn_stats(model)
+    B, k = batch[0].shape[0], run["k"]
+    loss, first_ms = _timed(device, lambda: float(step.step(*batch)))
+    losses = [loss, float(step.step(*batch))]
+    _reset_peak(device)
+    eager_ms = []
+    for _ in range(run["steps"]):
+        loss, ms = _timed(device, lambda: float(step.step(*batch)))
+        losses.append(loss)
+        eager_ms.append(ms)
+    eager_peak = _peak_gib(device)
+    _, cap_ms = _timed(device, lambda: step.multi_step(k, *batch))
+    losses += step.last_losses.tolist()
+    _, graph_ms = _timed(device, lambda: step.multi_step(k, *batch))
+    losses += step.last_losses.tolist()
+    graph_peak = _peak_gib(device)
+    ew, eb = _traced(lambda: [step.step(*batch) for _ in range(2)])
+    gw, gb = _traced(lambda: step.multi_step(k, *batch))
+    moved = _stats_unchanged(model, before)
+    eager = float(np.median(eager_ms))
+    graph = graph_ms / k
+    out = {"first_ms": first_ms, "eager_ms": eager, "graph_ms": graph,
+           "capture_ms": cap_ms, "eager_peak": eager_peak,
+           "graph_peak": graph_peak, "eager_idle": 1 - eb / ew,
+           "graph_idle": 1 - gb / gw, "losses": losses}
+    for how, ms in (("eager step()", eager), (f"multi_step({k}) replayed",
+                                              graph)):
+        ips = B / (ms / 1e3)
+        mfu = ("" if per_image_flops is None else
+               f" | MFU {ips * 3 * per_image_flops / BF16_FLOPS:.4f} (imgs/s"
+               f" x 3 x {per_image_flops:.2e} / {BF16_FLOPS / 1e12:g} "
+               f"TFLOP/s bf16)")
+        log(f"[{tag}] {how}: {ms:.1f} ms a step | {ips:.1f} imgs/s{mfu}")
+    log(f"[{tag}] first step (cuDNN's first calls) {first_ms:.1f} ms; eager "
+        f"steps {', '.join(f'{m:.1f}' for m in eager_ms)} ms (median "
+        f"{eager:.1f}); multi_step({k}) first call (warm-up, capture, "
+        f"replay) {cap_ms:.1f} ms | peak memory eager {eager_peak:.2f} GiB, "
+        f"with the graph {graph_peak:.2f} GiB | traced: eager wall "
+        f"{ew / 2:.1f} ms a step, busy {eb / 2:.1f}, idle share "
+        f"{1 - eb / ew:.3f}; replay wall {gw / k:.1f} ms a step, busy "
+        f"{gb / k:.1f}, idle share {1 - gb / gw:.3f} | losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] losses not finite: {losses}")
+    if moved:
+        raise AssertionError(f"[{tag}] the step moved running statistics: "
+                             f"{moved[:4]}")
+    return out
+
+
+def phase_resnet_train(device, limit, run=None, layouts=tuple(LAYOUTS),
+                       classes=1000):
+    """12: bench.py's config 1 (bench.py:621-681): resnet50(num_classes=
+    1000) in training mode, random weights from seed 0, B seeded bf16
+    images at 224 px and int labels, CompiledTrainStep(lr=0.1,
+    compute_dtype="bfloat16", loss_fn=cross_entropy) with its defaults
+    (AdamW, fp32 master, wd 0.01, clip 1.0); in each memory layout
+    (the conv weights NCHW-contiguous or channels-last).  Returns
+    {layout: numbers}."""
+    from paddle_tpu_torch.testing.vision_profile import resnet50_step
+
+    run = dict(RESNET_RUN, **(run or {}))
+    res = {}
+    for name in layouts:
+        t0 = time.perf_counter()
+        step, batch = resnet50_step(device, run["batch"], LAYOUTS[name],
+                                    image=run["image"], classes=classes,
+                                    lr=run["lr"])
+        nparams = sum(p.numel() for p in step.params.values())
+        log(f"[resnet-train {name}] resnet50: {nparams / 1e6:.3f} M "
+            f"parameters, B={run['batch']}, {run['image']} px bf16, bf16 "
+            f"compute, fp32 master, AdamW lr {run['lr']}; built in "
+            f"{time.perf_counter() - t0:.1f} s | {limit}")
+        res[name] = _vision_steps(f"resnet-train {name}", step, batch,
+                                  device, run,
+                                  per_image_flops=RESNET_FWD_FLOPS)
+        del step, batch
+        _empty(device)
+    if len(res) > 1:
+        ms = {n: r["eager_ms"] for n, r in res.items()}
+        log(f"[resnet-train] eager ms a step by layout {ms}, replayed "
+            f"{ {n: round(r['graph_ms'], 2) for n, r in res.items()} }: "
+            f"faster eager {min(ms, key=ms.get)}")
+    return res
+
+
+def phase_resnet_profile(device, limit, run=None, layout="channels_last"):
+    """12b: two eager ResNet-50 steps at phase 12's shape traced with
+    testing/vision_profile.py: device ms a step by family."""
+    from paddle_tpu_torch.testing import vision_profile as vp
+
+    run = dict(RESNET_RUN, **(run or {}))
+    step, batch = vp.resnet50_step(device, run["batch"], LAYOUTS[layout],
+                                   image=run["image"], lr=run["lr"])
+    for _ in range(2):
+        float(step.step(*batch))
+    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=2)
+    vp.report(f"resnet-profile {layout}", fam, wall, busy, kernels, spans,
+              log=log)
+    log(f"[resnet-profile {layout}] {limit}")
+    del step, batch
+    _empty(device)
+    return fam
+
+
+def phase_resnet_graph(device, limit, run=None, k=3, lr=1e-5):
+    """12c: three ResNet-50 steps from one seed at phase 12's shape: a
+    and b eager (is an eager step repeatable?), c as one replayed
+    multi_step(3).  Bit for bit where cuDNN gives the same bits; where it
+    does not, the losses and every parameter are held at bf16's
+    tolerance (relative 2e-2).  lr 1e-5 keeps the steps out of the
+    chaotic region where rounding noise is amplified (see
+    tests/test_torch_resnet.py)."""
+    from paddle_tpu_torch.testing.vision_profile import resnet50_step
+
+    run = dict(RESNET_RUN, **(run or {}))
+
+    def build():
+        return resnet50_step(device, run["batch"], image=run["image"],
+                             lr=lr)
+
+    (a, batch), (b, _), (c, _) = build(), build(), build()
+    la = [float(a.step(*batch)) for _ in range(k)]
+    lb = [float(b.step(*batch)) for _ in range(k)]
+    c.multi_step(k, *batch)
+    lc = c.last_losses.tolist()
+    ab, ac = _state_equal(a, b), _state_equal(a, c)
+    n = sum(len(getattr(a, t)) for t in ("params", "_master", "_m", "_v"))
+    log(f"[resnet-graph] {k} steps from one seed, B={run['batch']}, lr {lr}:"
+        f" eager a {la} | eager b {lb} | multi_step c {lc} | state tensors "
+        f"that differ: a vs b {len(ab)} of {n}{' ' + str(ab[:3]) if ab else ''}"
+        f", a vs c {len(ac)}{' ' + str(ac[:3]) if ac else ''}")
+
+    def worst(x, y):
+        return max(float((x.params[p].float() - y.params[p].float()).norm()
+                         / y.params[p].float().norm()) for p in y.params)
+
+    exact = la == lb == lc and not ab and not ac
+    if exact:
+        log("[resnet-graph] eager steps are repeatable and the replay "
+            "equals them bit for bit")
+    else:
+        rel = max(abs(x / y - 1) for x, y in zip(lb + lc, la + la))
+        w = max(worst(b, a), worst(c, a))
+        log(f"[resnet-graph] not bit for bit: largest relative loss "
+            f"difference {rel:.3e}, worst parameter relative difference "
+            f"{w:.3e} (limit 2e-2, bf16) | {limit}")
+        if not (rel <= 2e-2 and w <= 2e-2):
+            raise AssertionError("[resnet-graph] replays or eager steps "
+                                 "drifted")
+    del a, b, c, batch
+    _empty(device)
+    return exact
+
+
+def phase_detection_train(device, limit, run=None):
+    """13: bench.py's config 4 (bench.py:469-519): the detector at B = 64,
+    320 px bf16 images, fp32 box targets [B, 4, 10, 10] and class targets
+    [B, 80, 10, 10] (> 0.95 of U(0, 1)), CompiledTrainStep(lr=1e-3,
+    compute_dtype="bfloat16")."""
+    from paddle_tpu_torch.models import CompiledTrainStep
+
+    run = dict(DET_RUN, **(run or {}))
+    B, hw = run["batch"], run["image"]
+    t0 = time.perf_counter()
+    model = Detector(device)
+    model.train()
+    step = CompiledTrainStep(model, lr=run["lr"], compute_dtype="bfloat16",
+                             device=device)
+    rng = np.random.RandomState(0)
+    side = hw // 32
+    imgs = torch.as_tensor(rng.randn(B, 3, hw, hw).astype(np.float32),
+                           device=device).to(torch.bfloat16)
+    box_t = torch.as_tensor(rng.randn(B, 4, side, side).astype(np.float32),
+                            device=device)
+    cls_t = torch.as_tensor((rng.rand(B, 80, side, side) > 0.95).astype(
+        np.float32), device=device)
+    log(f"[det-train] ResNet-18 backbone + 1x1 box / class heads, B={B}, "
+        f"{hw} px bf16, bf16 compute, lr {run['lr']}: "
+        f"{sum(p.numel() for p in step.params.values()) / 1e6:.3f} M "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s | {limit}")
+    res = _vision_steps("det-train", step, (imgs, box_t, cls_t), device,
+                        run)
+    del step, model
+    _empty(device)
+    return res
+
+
+def _max_rel(got, want):
+    return float((got.detach().cpu().double() - want.detach().double())
+                 .abs().max() / want.detach().double().abs().max())
+
+
+def phase_vision_parity(device, steps=3, lr=1e-5):
+    """14: fp32, the card against the CPU, with TF32 at the library's
+    defaults (cuDNN's on, matmul's off) rather than the script's switch:
+    resnet18 (10 classes) at 32 x 32, B = 4, and one ResNet(
+    BottleneckBlock, 50) forward.  Eval logits within 1e-5 of the largest
+    (running statistics drawn away from 0 and 1), 3 train-step losses
+    within 1e-4 relative, the running statistics after one eager
+    train-mode forward within 1e-5 of each buffer's largest value, as
+    the logits (fp32 activations of a few units to tens that differ by
+    about 1e-6 relative through 17 layers give batch statistics that
+    differ by some 1e-5 absolute; the CPU's own fp32 statistics against
+    fp64 are printed beside them as the yardstick).  The library's own conv2d under its
+    TF32 default is shown beside the port's."""
+    from paddle_tpu_torch.models import CompiledTrainStep, load_numpy_state
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
+    from paddle_tpu_torch.vision.models import resnet18
+
+    cpu = torch.device("cpu")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    x = torch.as_tensor(rng.randn(4, 3, 32, 32).astype(np.float32))
+    y = torch.as_tensor(rng.randint(0, 10, (4,)))
+    try:
+        def pair(ctor, **kw):
+            ref = ctor(device=cpu, seed=0, **kw)
+            state = {k: v.detach().numpy() for k, v in
+                     ref.state_dict().items()}
+            for key in state:
+                if key.endswith("_mean"):
+                    state[key] = 0.1 * rng.randn(*state[key].shape).astype(
+                        np.float32)
+                elif key.endswith("_variance"):
+                    state[key] = rng.uniform(0.5, 2, state[key].shape
+                                             ).astype(np.float32)
+            card = ctor(device=device, seed=1, **kw)
+            load_numpy_state(ref, state)
+            load_numpy_state(card, state)
+            return ref, card
+
+        errs = {}
+        for tag, ctor, kw in (
+                ("resnet18", resnet18, dict(num_classes=10)),
+                ("ResNet(BottleneckBlock, 50)",
+                 lambda **a: ResNet(BottleneckBlock, 50, **a),
+                 dict(num_classes=10))):
+            ref, card = pair(ctor, **kw)
+            ref.eval()
+            card.eval()
+            with torch.no_grad():
+                errs[f"{tag} eval logits"] = _max_rel(card(x.to(device)),
+                                                      ref(x))
+            if tag == "resnet18":
+                # the yardstick: the CPU's fp32 statistics against fp64
+                ref64 = ctor(device=cpu, seed=0, **kw).double()
+                ref64.load_state_dict(ref.state_dict())
+                for m in (ref, card, ref64):
+                    m.train()
+                with torch.no_grad():
+                    ref(x)
+                    card(x.to(device))
+                    ref64(x.double())
+                errs["resnet18 running statistics, CPU fp32 vs fp64"] = max(
+                    _max_rel(a, b) for a, b in zip(ref.buffers(),
+                                                   ref64.buffers()))
+                errs["resnet18 running statistics"] = max(
+                    _max_rel(a, b) for a, b in zip(card.buffers(),
+                                                   ref.buffers()))
+                errs["resnet18 running statistics, largest |difference|"] \
+                    = max(float((a.cpu() - b).abs().max()) for a, b in
+                          zip(card.buffers(), ref.buffers()))
+                errs["resnet18 running statistics, largest value"] = max(
+                    float(b.abs().max()) for b in ref.buffers())
+        losses = {}
+        for dev in (device, cpu):
+            model = resnet18(num_classes=10, device=cpu, seed=0)
+            model.train()
+            step = CompiledTrainStep(model, lr=lr, loss_fn=F.cross_entropy,
+                                     device=dev)
+            losses[dev.type] = [float(step.step(x, y)) for _ in range(steps)]
+        got, want = np.array(losses[device.type]), np.array(losses["cpu"])
+        errs["resnet18 train losses"] = float(np.max(np.abs(got - want)
+                                                     / np.abs(want)))
+        # the library's conv2d at its TF32 default, beside the port's
+        w = torch.as_tensor(rng.randn(64, 64, 3, 3).astype(np.float32)) * 0.05
+        a = torch.as_tensor(rng.randn(8, 64, 56, 56).astype(np.float32))
+        want = torch.nn.functional.conv2d(a, w, padding=1)
+        lib = torch.nn.functional.conv2d(a.to(device), w.to(device),
+                                         padding=1)
+        ours = F.conv2d(a.to(device), w.to(device), padding=1)
+        errs["conv 64->64 3x3: library at its TF32 default"] = _max_rel(
+            lib, want)
+        errs["conv 64->64 3x3: port"] = _max_rel(ours, want)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    limits = {"resnet18 eval logits": 1e-5,
+              "ResNet(BottleneckBlock, 50) eval logits": 1e-5,
+              "resnet18 running statistics": 1e-5,
+              "resnet18 train losses": 1e-4,
+              "conv 64->64 3x3: port": 1e-5}
+    log(f"[vision-parity] fp32 card vs CPU, TF32 at the library defaults "
+        f"(cuDNN on, matmul off), lr {lr}: " + "; ".join(
+            f"{k} {v:.3e}" + (f" (limit {limits[k]:g})" if k in limits
+                              else "") for k, v in errs.items())
+        + f" | losses card {losses[device.type]}, cpu {losses['cpu']}")
+    bad = {k: v for k, v in errs.items() if k in limits
+           and not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"[vision-parity] beyond the limits: {bad}")
+    return errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3726,6 +4135,12 @@ def main():
     torch.cuda.empty_cache()
     phase_moe_parity(device)
     rows += grouped_rows
+    resnet = phase_resnet_train(device, limit)
+    phase_resnet_profile(device, limit, layout=min(
+        resnet, key=lambda n: resnet[n]["eager_ms"]))
+    phase_resnet_graph(device, limit)
+    phase_detection_train(device, limit)
+    phase_vision_parity(device)
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

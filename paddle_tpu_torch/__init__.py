@@ -25,7 +25,14 @@ block (``incubate.distributed.models.moe.MoELayer`` with its gates, and
 single-device ``ep_moe_local`` body), trained through the same step and
 run forward with int8 experts, whose grouped expert FFN
 (``ops.grouped_ffn``) is the hand-written CUDA kernel
-``ops.kernels.grouped_gemm``, for dense and for int8 expert weights.
+``ops.kernels.grouped_gemm``, for dense and for int8 expert weights;
+and the conv/BN vision path (``vision.models``: the ResNet family, over
+``nn.Conv2D``, the pools and the batch norms), trained through the same
+step with the batch norms' running statistics left as they were, as in
+``paddle_tpu``'s compiled step.  No Pallas kernel lies on that path: the
+convolution is cuDNN's (fp32 held to fp32, TF32 off), batch norm and the
+cross entropy are ``torch.autograd.Function`` s with the reference's
+rounding points and hand-written backward.
 
 Importing the package is light: it pulls in neither ``triton`` nor the
 kernel build, and never ``jax`` or ``paddle_tpu``.

@@ -1,6 +1,7 @@
 """Models of the port: Llama (serving parameters and the training
 module) and BERT (the encoder and its QA, classification and MLM heads),
-the AdamW train step, and the numpy weight bridge from ``paddle_tpu``."""
+the AdamW train step, and the numpy weight bridge from ``paddle_tpu``
+(parameters and buffers).  The vision models are in ``vision.models``."""
 from .bert import (  # noqa: F401
     BertConfig, BertForMaskedLM, BertForQuestionAnswering,
     BertForSequenceClassification, BertModel, init_bert_params,

@@ -41,22 +41,31 @@ def from_numpy_state(state: dict, cfg: LlamaConfig, device=None,
 
 
 def load_numpy_state(module: torch.nn.Module, state: dict) -> None:
-    """Copy a numpy state dict into ``module``'s parameters in place,
-    each cast to its parameter's dtype and device.  The names must match
-    exactly: a missing or an unknown name raises ``KeyError``."""
+    """Copy a numpy state dict into ``module``'s parameters and persistent
+    buffers in place (a ``paddle_tpu`` batch norm's ``_mean`` and
+    ``_variance``), each cast to its own dtype and kept on its device.
+    The names must match exactly: a missing or an unknown name raises
+    ``KeyError``, a shape that differs ``ValueError``."""
     params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(state))
-    unknown = sorted(set(state) - set(params))
+    every_param = {k for k, _ in module.named_parameters(
+        remove_duplicate=False)}
+    buffers = {k: v for k, v in module.state_dict(keep_vars=True).items()
+               if k not in every_param}
+    targets = {**params, **buffers}
+    missing = sorted(set(targets) - set(state))
+    unknown = sorted(set(state) - set(targets))
     if missing or unknown:
         raise KeyError(f"state dict does not match the module: missing "
                        f"{missing}, unknown {unknown}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, t in targets.items():
             a = np.asarray(state[name])
-            if tuple(a.shape) != tuple(p.shape):
+            if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: shape {a.shape} in the state, "
-                                 f"{tuple(p.shape)} in the module")
-            p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+                                 f"{tuple(t.shape)} in the module")
+            if t.is_floating_point():
+                a = np.array(a, dtype=np.float32)
+            t.copy_(torch.from_numpy(np.array(a)))
 
 
 def serving_params(module: torch.nn.Module, device=None,

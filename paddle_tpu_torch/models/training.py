@@ -27,7 +27,9 @@ The module's own parameters are the compute parameters: the constructor
 casts them in place and every step updates them in place (``paddle_tpu``
 keeps a separate tree and writes it back on ``sync_to_model``; here that
 is a no-op).  That keeps one copy of the compute weights on the card,
-and the addresses a captured graph holds never change.
+and the addresses a captured graph holds never change.  Buffers (a batch
+norm's running statistics) are not state of the step: they keep their
+dtype, and the step's forward leaves them as they are.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import aot
 from ..device import resolve_device
+from ..nn.norm import running_stats_frozen
 from ..optimizer.lr import LRScheduler, ReduceOnPlateau
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -216,7 +219,9 @@ class CompiledTrainStep:
         with torch.no_grad():
             for k, p in self.params.items():
                 # norm weights stay fp32: the norm ops cast them into the
-                # stream dtype per op (or use them in fp32, when fused)
+                # stream dtype per op (or use them in fp32, when fused).
+                # The rule is by name, as in paddle_tpu: a ResNet's
+                # bn*.weight / bn*.bias lack "norm" and are cast
                 if cd is not None and p.is_floating_point() \
                         and "norm" not in k:
                     p.data = p.data.to(cd)
@@ -368,9 +373,12 @@ class CompiledTrainStep:
         """Forward, backward, clipping and the update at device scalars
         ``t`` and ``lr``: one train step, gated by ``_live`` or, with
         ``threshold``, by the gate formed here; returns (loss, gnorm or
-        None, ok)."""
-        loss = self._forward(batch)
-        grads = self._grads(loss)
+        None, ok).  Batch norms normalise with the batch statistics and
+        leave their running statistics as they were, as in
+        ``paddle_tpu``'s compiled step (ROADMAP.md Queue 3)."""
+        with running_stats_frozen(self.model):
+            loss = self._forward(batch)
+            grads = self._grads(loss)
         loss = loss.detach()
         gnorm = (self._global_norm(grads)
                  if self._clip is not None or threshold is not None

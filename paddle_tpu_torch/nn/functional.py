@@ -1,12 +1,20 @@
 """Functional ops of the port's layers.  Counterpart of
 ``paddle_tpu/nn/functional/__init__.py`` ``rms_norm``, ``layer_norm``,
-``dropout`` and ``scaled_dot_product_attention``; the other ops of the
-training paths are called from ``ops.nn_ops`` directly.  Random draws
-take an explicit ``torch.Generator``."""
+``dropout`` and ``scaled_dot_product_attention``, and for the vision
+path ``conv2d``, the pools, ``batch_norm`` (with ``_bn_running_update``),
+``cross_entropy``, ``binary_cross_entropy_with_logits`` and ``relu``;
+the other ops of the language-model training paths are called from
+``ops.nn_ops`` directly.  Random draws take an explicit
+``torch.Generator``."""
 from __future__ import annotations
+
+import torch
 
 from ..core.flags import flag
 from ..ops import nn_ops
+
+_CEIL = ("ceil_mode / divisor_override are not ported yet (ROADMAP.md "
+         "Queue 1, item 4)")
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -43,3 +51,148 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     p = float(dropout_p) if training else 0.0
     return nn_ops.sdpa(query, key, value, attn_mask, causal=bool(is_causal),
                        impl=impl, dropout_p=p, generator=generator)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+# -- conv / pool ----------------------------------------------------------------
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """``ops.nn_ops.conv2d`` plus the bias, reshaped to ``(1, -1, 1, 1)``
+    (``(1, 1, 1, -1)`` for NHWC) and added in the output's dtype
+    promotion, as ``paddle_tpu`` adds it."""
+    out = nn_ops.conv2d(x, weight, stride, padding, dilation, groups,
+                        data_format)
+    if bias is not None:
+        shape = (1, -1, 1, 1) if data_format == "NCHW" else (1, 1, 1, -1)
+        out = out + bias.reshape(shape)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCHW"):
+    """``ops.nn_ops.max_pool2d`` (stride defaults to the kernel size)."""
+    if ceil_mode:
+        raise NotImplementedError(_CEIL)
+    return nn_ops.max_pool2d(x, kernel_size, stride, padding, data_format)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW"):
+    """``ops.nn_ops.avg_pool2d`` (stride defaults to the kernel size)."""
+    if ceil_mode or divisor_override is not None:
+        raise NotImplementedError(_CEIL)
+    return nn_ops.avg_pool2d(x, kernel_size, stride, padding, exclusive,
+                             data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    return nn_ops.adaptive_avg_pool2d(x, output_size, data_format)
+
+
+# -- batch norm -------------------------------------------------------------------
+
+def _bn_running_update(running_mean, running_var, mean, var, momentum):
+    """``new = momentum * old + (1 - momentum) * batch`` in place, the
+    batch variance the biased one (not torch's unbiased running
+    variance).  ``None`` buffers (a layer whose statistics are frozen,
+    see ``nn.norm.running_stats_frozen``) are left alone, as
+    ``paddle_tpu`` leaves them under a trace."""
+    if running_mean is None:
+        return
+    m = momentum
+    with torch.no_grad():
+        running_mean.copy_(m * running_mean + (1 - m) * mean.detach())
+        running_var.copy_(m * running_var + (1 - m) * var.detach())
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """Batch norm as ``paddle_tpu`` routes it.  Training (and not
+    ``use_global_stats``): with a weight and a bias the fused op
+    (``ops.nn_ops.batch_norm_train``), else the batch statistics
+    (``batch_norm_stats``) through the inference form; either way the
+    running statistics are updated from the batch's.  Otherwise the
+    inference form over the running statistics.  A bias without a weight
+    gets a weight of ones."""
+    if weight is None and bias is not None:
+        weight = torch.ones_like(bias)
+    if training and not use_global_stats:
+        if weight is not None and bias is not None:
+            out, mean, var = nn_ops.batch_norm_train(x, weight, bias,
+                                                     epsilon, data_format)
+            _bn_running_update(running_mean, running_var, mean, var,
+                               momentum)
+            return out
+        mean, var = nn_ops.batch_norm_stats(x, data_format)
+        _bn_running_update(running_mean, running_var, mean, var, momentum)
+    else:
+        mean, var = running_mean, running_var
+    return nn_ops.batch_norm_infer(x, mean, var, weight, bias, epsilon,
+                                   data_format)
+
+
+# -- losses -------------------------------------------------------------------------
+
+def _reduce_loss(loss, reduction):
+    if reduction == "mean":
+        return nn_ops.mean_fp32acc(loss)
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  label_smoothing=0.0):
+    """``paddle_tpu``'s ``F.cross_entropy`` over ``softmax_with_cross_
+    entropy`` (fp32 loss).  ``label_smoothing`` turns hard labels into
+    one-hot rows, scales them by ``1 - label_smoothing`` and adds
+    ``label_smoothing / classes`` rounded to the input's dtype, as the
+    reference does.  ``weight`` scales each row by its label's weight.
+    ``reduction="mean"`` with hard labels and a non-negative
+    ``ignore_index`` divides by the number of rows not ignored (at least
+    1); otherwise the plain mean, in which ignored rows count as 0."""
+    if label_smoothing > 0.0:
+        classes = input.shape[axis]
+        if not soft_label:
+            idx = torch.arange(classes, device=label.device)
+            label = (label.long()[..., None] == idx).float()
+            soft_label = True
+        label = label * (1.0 - label_smoothing) + torch.full(
+            (1,), label_smoothing / classes, dtype=input.dtype,
+            device=input.device)
+    if not soft_label and label.dim() == input.dim():
+        label = label.squeeze(axis)
+    loss = nn_ops.softmax_with_cross_entropy(
+        input, label, soft_label, ignore_index, axis).squeeze(-1)
+    if weight is not None and not soft_label:
+        w = weight[label.reshape(-1).long().clamp(0, weight.shape[0] - 1)]
+        loss = loss * w.reshape(loss.shape).to(loss.dtype)
+    if reduction == "mean" and not soft_label and ignore_index is not None \
+            and ignore_index >= 0:
+        valid = (label != ignore_index).to(loss.dtype)
+        return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """``relu(x) - x·y + log1p(exp(-|x|))`` in the reference's order and
+    dtypes (a bf16 logit against an fp32 label promotes at ``x·y``; the
+    ``log1p`` term stays in the logit's dtype), times
+    ``(pos_weight - 1)·y + 1`` and ``weight`` where given."""
+    loss = (torch.relu(logit) - logit * label) \
+        + torch.log1p(torch.exp(-torch.abs(logit)))
+    if pos_weight is not None:
+        loss = loss * ((pos_weight - torch.ones_like(pos_weight)) * label
+                       + torch.ones_like(label))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)

@@ -11,12 +11,23 @@ to ``ops.kernels.long_attention`` and short ones to
 ``ops.kernels.short_attention``); the rest is plain
 PyTorch in both packages (XLA ops in ``paddle_tpu``).  Every random draw
 (dropout) takes an explicit ``torch.Generator`` on the tensor's device.
+
+The vision path's ops (``conv2d``, the pools, the batch-norm trio and
+``softmax_with_cross_entropy``) are XLA ops in ``paddle_tpu`` too, not
+Pallas kernels: ``_conv2d_plain`` is ``lax.conv_general_dilated``, the
+pools are ``reduce_window`` and the fused batch norm is an XLA fusion.
+So the conv here is the library's (cuDNN on the card), and the others
+are plain PyTorch with the reference's rounding points; batch norm and
+the cross entropy are ``torch.autograd.Function`` s whose backward is the
+reference's hand-written VJP.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -274,16 +285,13 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
 # -- losses -------------------------------------------------------------------
 
 def cross_entropy(logits, labels, ignore_index=-100):
-    """Mean cross entropy of ``logits [N, V]`` against ``labels [N]``:
-    log-softmax in fp32, rows whose label is ``ignore_index`` give 0 and
-    still count in the mean (``F.cross_entropy(reduction='mean')`` with a
-    negative ``ignore_index``)."""
-    lsm = torch.log_softmax(logits.float(), dim=-1)
-    labels = labels.long()
-    lab = labels.clamp(0, logits.shape[-1] - 1)
-    nll = -lsm.gather(-1, lab[:, None])[:, 0]
-    nll = torch.where(labels != ignore_index, nll, torch.zeros_like(nll))
-    return nll.mean()
+    """Mean cross entropy of ``logits [N, V]`` against ``labels [N]``
+    (``softmax_with_cross_entropy``: log-softmax in fp32): rows whose
+    label is ``ignore_index`` give 0 and still count in the mean
+    (``F.cross_entropy(reduction='mean')`` with a negative
+    ``ignore_index``)."""
+    return softmax_with_cross_entropy(logits, labels,
+                                      ignore_index=ignore_index).mean()
 
 
 def _flce_logits(hidden, weight, tied):
@@ -337,3 +345,333 @@ def fused_linear_cross_entropy(hidden, weight, labels, tied=False,
     mean."""
     return FusedLinearCrossEntropy.apply(hidden, weight, labels,
                                          bool(tied), int(ignore_index))
+
+
+# -- vision: convolution and pooling --------------------------------------------
+
+def _pair(v, n=2):
+    """``paddle_tpu``'s ``_pair``: an int repeated, a tuple of n taken as
+    it is, any other sequence's first element repeated."""
+    if isinstance(v, (list, tuple)):
+        if len(v) == n:
+            return tuple(int(x) for x in v)
+        return tuple(int(v[0]) for _ in range(n))
+    return tuple(int(v) for _ in range(n))
+
+
+def _acc(x):
+    """x in its accumulation dtype: fp32 for bf16, fp16 and fp32 (the
+    reference's ``astype(float32)``), fp64 kept as it is."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def mean_fp32acc(x, dim=None):
+    """``jnp.mean``'s rounding: the sum accumulated in fp32, divided by
+    the count and rounded once to x's dtype (bf16 included).  torch's
+    own mean over bf16 also rounds once, but forms the quotient as
+    ``sum * (1 / n)`` on CUDA; this form is the same on both devices."""
+    if dim is None:
+        dim = tuple(range(x.dim()))
+    n = math.prod(x.shape[d] for d in dim)
+    return (_acc(x).sum(dim=dim) / n).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _fp32_conv(x):
+    """Around a cuDNN convolution of fp32 CUDA tensors: TF32 off, so fp32
+    computes in fp32 as the JAX op does.  ``torch.backends.cudnn.
+    allow_tf32`` is True by default, and the library reads it when the
+    convolution (or its backward) runs, so the flag is held off around
+    both."""
+    if not (x.is_cuda and x.dtype == torch.float32
+            and torch.backends.cudnn.allow_tf32):
+        yield
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+class _Conv2d(torch.autograd.Function):
+    """The library's 2-D convolution (cuDNN on the card) with its
+    backward under the same TF32 rule as its forward.  With the
+    library's defaults (no ``benchmark``, no ``deterministic``) the
+    algorithms cuDNN picked for ResNet-50's forward, dgrad and wgrad gave
+    the same bits run to run on the H100 (chip_smoke 12c), so no
+    convolution of the port's own is needed for repeatable steps."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (stride, padding, dilation, groups)
+        with _fp32_conv(x):
+            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.cfg
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        with _fp32_conv(x):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, dilation, False, [0, 0],
+                groups, mask)
+        return dx, dw, None, None, None, None
+
+
+def _same_pads(size, k, stride, dilation):
+    """XLA's ``SAME`` padding of one axis: (lo, hi), the odd one at hi."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x, weight, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """``_conv2d_plain``: the weight cast to x's dtype (``_conv_dtype``:
+    an fp32 master weight joins a bf16 stream as bf16); stride, padding
+    and dilation as ints, pairs or (padding) ``"SAME"`` / ``"VALID"``;
+    ``groups``.  NCHW takes an OIHW weight; NHWC, as in the reference,
+    an HWIO one.  Computed by the library's convolution (cuDNN on the
+    card) in whatever memory format x and the weight carry; fp32 on the
+    card computes in fp32 (TF32 off, see ``_fp32_conv``)."""
+    w = weight.to(x.dtype)
+    if data_format == "NHWC":
+        x, w = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    elif data_format != "NCHW":
+        raise ValueError(f"unknown data_format {data_format!r}")
+    stride, dilation = _pair(stride), _pair(dilation)
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = [(0, 0), (0, 0)] if mode == "VALID" else [
+            _same_pads(x.shape[2 + i], w.shape[2 + i], stride[i],
+                       dilation[i]) for i in range(2)]
+        if any(lo != hi for lo, hi in pads):
+            x = F.pad(x, (*pads[1], *pads[0]))
+            pads = [(0, 0), (0, 0)]
+        padding = (pads[0][0], pads[1][0])
+    else:
+        padding = _pair(padding)
+    out = _Conv2d.apply(x, w, stride, padding, dilation, int(groups))
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+def _pool_args(x, kernel_size, stride, padding, data_format):
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    elif data_format != "NCHW":
+        raise ValueError(f"unknown data_format {data_format!r}")
+    k = _pair(kernel_size)
+    return (x, k, _pair(kernel_size if stride is None else stride),
+            _pair(padding))
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, data_format="NCHW"):
+    """``_max_pool2d_plain``: the max over each window, padding at -inf
+    (the output size is the floor one).  The gradient goes to the first
+    maximum in window order, as XLA's ``select_and_scatter`` gives it
+    (``ge`` keeps the element already selected) and as the library's
+    max-pool backward does (its argmax takes a later element only when
+    strictly greater)."""
+    x, k, s, p = _pool_args(x, kernel_size, stride, padding, data_format)
+    if p[0] > k[0] // 2 or p[1] > k[1] // 2:    # past the library's limit
+        x = F.pad(x, (p[1], p[1], p[0], p[0]), value=float("-inf"))
+        p = (0, 0)
+    out = F.max_pool2d(x, k, s, p)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               data_format="NCHW"):
+    """``_avg_pool2d_plain``: window sums over the zero-padded input
+    divided by the window size, or, with ``exclusive`` (the default), by
+    the number of elements of the window inside the input."""
+    x, k, s, p = _pool_args(x, kernel_size, stride, padding, data_format)
+    if p[0] > k[0] // 2 or p[1] > k[1] // 2:    # past the library's limit
+        pad = (p[1], p[1], p[0], p[0])
+        out = F.avg_pool2d(F.pad(x, pad), k, s)
+        if exclusive:
+            ones = torch.ones_like(x[:1, :1])
+            out = out / F.avg_pool2d(F.pad(ones, pad), k, s)
+    else:
+        out = F.avg_pool2d(x, k, s, p, count_include_pad=not exclusive)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """``_adaptive_avg_pool2d_plain``: a reshape and a mean when the
+    sizes divide, else the mean of each interval ``[i*h // oh,
+    ceil((i+1)*h / oh))``; means as ``jnp.mean`` rounds them
+    (``mean_fp32acc``)."""
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    n, c, h, w = x.shape
+    oh, ow = _pair(output_size)
+    if h % oh == 0 and w % ow == 0:
+        out = mean_fp32acc(x.reshape(n, c, oh, h // oh, ow, w // ow), (3, 5))
+    else:
+        hs = [(i * h // oh, ((i + 1) * h + oh - 1) // oh) for i in range(oh)]
+        ws = [(j * w // ow, ((j + 1) * w + ow - 1) // ow) for j in range(ow)]
+        out = torch.stack([torch.stack(
+            [mean_fp32acc(x[:, :, h0:h1, w0:w1], (2, 3)) for w0, w1 in ws], -1)
+            for h0, h1 in hs], -2)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+# -- vision: batch norm -----------------------------------------------------------
+
+def _bn_axes_shape(ndim, data_format):
+    """The reduced axes and the per-channel broadcast shape of the fused
+    train op (``_bn_axes_shape``)."""
+    if ndim == 2:
+        return (0,), (1, -1)
+    if data_format in ("NCHW", "NCL", "NCDHW"):
+        return (0,) + tuple(range(2, ndim)), (1, -1) + (1,) * (ndim - 2)
+    return tuple(range(ndim - 1)), (1,) * (ndim - 1) + (-1,)
+
+
+def batch_norm_stats(x, data_format="NCHW"):
+    """``_batch_norm_stats``: the batch mean and the biased variance in
+    x's dtype (each accumulated in fp32 and rounded once, as ``jnp.mean``
+    and ``jnp.var`` do).  The axes are the reference's: (0, 2, 3) for a
+    4-D NCHW input, every axis but the last for any other input of more
+    than two (its channel axis is taken to be the last), 0 for 2-D."""
+    if data_format == "NCHW" and x.dim() == 4:
+        axes = (0, 2, 3)
+    elif x.dim() > 2:
+        axes = tuple(range(x.dim() - 1))
+    else:
+        axes = (0,)
+    n = math.prod(x.shape[a] for a in axes)
+    xf = _acc(x)
+    m = xf.sum(dim=axes, keepdim=True) / n
+    var = (xf - m).square().sum(dim=axes) / n
+    return mean_fp32acc(x, axes), var.to(x.dtype)
+
+
+def batch_norm_infer(x, mean, var, weight=None, bias=None, epsilon=1e-5,
+                     data_format="NCHW"):
+    """``_batch_norm_infer``: ``rsqrt`` of the fp32 variance plus epsilon,
+    cast to x's dtype; mean, weight and bias cast to x's dtype, so fp32
+    statistics never promote a bf16 stream.  Per-channel shape as the
+    reference has it: (1, C, 1, 1) for 4-D NCHW, (1, C) for 2-D, the
+    last axis otherwise."""
+    if data_format == "NCHW" and x.dim() == 4:
+        shape = (1, -1, 1, 1)
+    elif x.dim() == 2:
+        shape = (1, -1)
+    else:
+        shape = (1,) * (x.dim() - 1) + (-1,)
+    dt = x.dtype
+    inv = torch.rsqrt(_acc(var).reshape(shape) + epsilon).to(dt)
+    out = (x - mean.to(dt).reshape(shape)) * inv
+    if weight is not None:
+        out = out * weight.to(dt).reshape(shape)
+    if bias is not None:
+        out = out + bias.to(dt).reshape(shape)
+    return out
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """``_bn_train_fwd`` / ``_bn_train_bwd``: one fp32 pass for Σx and Σx²,
+    ``var = max(E[x²] - E[x]², 0)``; x̂ formed in x's dtype and y = x̂·w
+    + b in x's dtype.  The backward recomputes x̂ from what the forward
+    saved (x, w, mean, inv: saving x̂ would double the activation memory
+    batch norm keeps), takes Σg and Σg·x̂ in fp32, forms w·inv in fp32
+    and casts it, and returns dγ, dβ in w's dtype.  The batch mean and
+    variance (fp32) come out beside y, without gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, epsilon, data_format):
+        axes, shape = _bn_axes_shape(x.dim(), data_format)
+        n = math.prod(x.shape[a] for a in axes)
+        xf = _acc(x)
+        s = xf.sum(dim=axes)
+        ss = (xf * xf).sum(dim=axes)
+        del xf
+        m = s / n
+        var = torch.clamp(ss / n - m * m, min=0.0)
+        inv = torch.rsqrt(var + epsilon)
+        dt = x.dtype
+        xhat = (x - m.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
+        y = xhat * w.to(dt).reshape(shape) + b.to(dt).reshape(shape)
+        ctx.save_for_backward(x, w, m, inv)
+        ctx.cfg = (axes, shape, n)
+        ctx.mark_non_differentiable(m, var)
+        return y, m, var
+
+    @staticmethod
+    def backward(ctx, gy, _gm, _gv):
+        x, w, m, inv = ctx.saved_tensors
+        axes, shape, n = ctx.cfg
+        dt = x.dtype
+        xhat = (x - m.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
+        gyf = _acc(gy)
+        dbeta = gyf.sum(dim=axes)
+        dgamma = (gyf * _acc(xhat)).sum(dim=axes)
+        del gyf
+        wi = (_acc(w) * inv).to(dt).reshape(shape)
+        dx = wi * (gy - (dbeta / n).to(dt).reshape(shape)
+                   - xhat * (dgamma / n).to(dt).reshape(shape))
+        return dx, dgamma.to(w.dtype), dbeta.to(w.dtype), None, None
+
+
+def batch_norm_train(x, weight, bias, epsilon=1e-5, data_format="NCHW"):
+    """Training-mode batch norm with a weight and a bias (the fused op):
+    ``(y, batch mean, biased batch variance)``, the statistics in fp32
+    over every axis but the channel one (``_bn_axes_shape``)."""
+    return _BatchNormTrain.apply(x, weight, bias, float(epsilon),
+                                 data_format)
+
+
+# -- vision: softmax cross entropy ---------------------------------------------
+
+class _SoftmaxCrossEntropy(torch.autograd.Function):
+    """``_softmax_ce_fwd`` / ``_softmax_ce_bwd``: log-softmax in fp32, the
+    loss ``[..., 1]`` in fp32 (rows labelled ``ignore_index`` give 0);
+    the backward ``g·(softmax - onehot)·valid`` (soft labels:
+    ``g·(softmax·Σlabel - label)``), returned in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, label, soft_label, ignore_index, axis):
+        lsm = torch.log_softmax(_acc(logits), dim=axis)
+        ctx.save_for_backward(lsm, label)
+        ctx.cfg = (soft_label, ignore_index, axis, logits.dtype)
+        if soft_label:
+            return -(label * lsm).sum(dim=axis, keepdim=True)
+        lab = label.long().unsqueeze(axis)
+        nll = -lsm.gather(axis, lab.clamp(0, lsm.shape[axis] - 1))
+        if ignore_index is not None:
+            nll = torch.where(lab != ignore_index, nll,
+                              torch.zeros_like(nll))
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        lsm, label = ctx.saved_tensors
+        soft_label, ignore_index, axis, dtype = ctx.cfg
+        sm = torch.exp(lsm)
+        if soft_label:
+            gl = g * (sm * label.sum(dim=axis, keepdim=True) - label)
+            return gl.to(dtype), None, None, None, None
+        lab = label.long().unsqueeze(axis)
+        classes = torch.arange(lsm.shape[axis], device=lsm.device)
+        classes = classes.reshape([-1 if d == axis % lsm.dim() else 1
+                                   for d in range(lsm.dim())])
+        gl = g * (sm - (classes == lab).to(sm.dtype))
+        if ignore_index is not None:
+            gl = gl * (lab != ignore_index).to(sm.dtype)
+        return gl.to(dtype), None, None, None, None
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1):
+    """The per-row loss ``[..., 1]`` (fp32) of ``logits`` against integer
+    labels ``[...]`` (or soft labels shaped as the logits)."""
+    return _SoftmaxCrossEntropy.apply(
+        logits, label, bool(soft_label),
+        None if ignore_index is None else int(ignore_index), int(axis))
