@@ -248,6 +248,39 @@ result):
              largest value (the CPU's fp32 against fp64 beside them);
              the library's own
              conv2d at its TF32 default printed beside the port's.
+15. unet train — bench.py's config 5 (bench.py:522-569): the SD v1.5
+             UNet (UNet2DConditionModel() at its default widths, 809.9 M
+             parameters, random weights from seed 0) under bench.py's
+             noise-prediction MSE, B = 4, latents [4, 4, 32, 32] fp32,
+             int32 timesteps, a [4, 77, 768] fp32 context and fp32 noise
+             from RandomState(0), CompiledTrainStep(lr=1e-4,
+             compute_dtype="bfloat16", moments_dtype="bfloat16"): 2
+             warm-up steps (the first timed: cuDNN's first calls), 10
+             eager steps, multi_step(3) captured and replayed; step ms,
+             samples/s, TFLOP/s over the analytic count (3 x the forward
+             flops of the convs, Linears and the two attention products,
+             counted from the model's shapes on the meta device), its
+             share of the fp32 (67) and bf16 (989 TFLOP/s) peaks, peak
+             memory and the idle share, eager and replayed.  Losses
+             finite; none of the eleven kernels launches (the step
+             computes in fp32 as the reference's does: see
+             paddle_tpu_torch/models/unet.py).
+15b. unet profile — two eager steps of 15 traced with
+             testing/vision_profile.py: device ms by family (group norm,
+             conv forward / dgrad / wgrad, attention, Linear GEMMs,
+             AdamW, other; the backward parts beside), and the port's
+             group_norm against torch.nn.functional.group_norm at the
+             top level's shape (bits, time).
+15c. unet at the published latent — the same model at SD v1.5's own
+             sample_size, 64 x 64 latents (512 px images), B = 4: 2
+             warm-up and 3 eager steps, multi_step(2) captured and
+             replayed; step ms, samples/s, peak memory.
+16. unet parity — fp32, the card against the CPU, TF32 at the library
+             defaults: a narrow UNet at full depth (block_out_channels
+             (64, 128, 128, 128), 2 layers a block, cross dim 64, 16 x 16
+             latents, B = 2): eval output within 1e-5 of the largest, 3
+             train-step losses (lr 1e-4) within 1e-4 relative, and
+             interpolate nearest at 5 -> 3 and 8 -> 4 bit for bit.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -2377,9 +2410,12 @@ def _timed(device, fn):
 
 
 def _traced(fn):
-    """(wall ms, device busy ms) of one traced ``fn()``: busy is the sum
-    of the device kernels' own times, replayed graph kernels included
-    (NaN without a card)."""
+    """(wall ms, device busy ms) of one traced ``fn()``: busy is the union
+    of the device kernels' intervals, replayed graph kernels included
+    (NaN without a card).  Not their sum: kernels that cuBLAS and cuDNN
+    launch as programmatic dependents start before the one ahead ends,
+    and at the UNet's 64 x 64 step the sum exceeded the step's wall by
+    29% (PR 15)."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -2391,9 +2427,15 @@ def _traced(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return wall, busy
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e3
 
 
 def _llama_step(cfg, device, master="float32", lr=1e-4, seed=0, **kw):
@@ -3735,7 +3777,8 @@ def _reset_peak(device):
         torch.cuda.reset_peak_memory_stats()
 
 
-def _vision_steps(tag, step, batch, device, run, per_image_flops=None):
+def _vision_steps(tag, step, batch, device, run, per_image_flops=None,
+                  unit="imgs"):
     """Two warm-up steps (the first timed: cuDNN's first calls), ``steps``
     timed eager steps, then ``multi_step(k)`` twice (capture, then replay
     only); traced eager steps and a traced replay for the idle shares.
@@ -3774,7 +3817,7 @@ def _vision_steps(tag, step, batch, device, run, per_image_flops=None):
                f" | MFU {ips * 3 * per_image_flops / BF16_FLOPS:.4f} (imgs/s"
                f" x 3 x {per_image_flops:.2e} / {BF16_FLOPS / 1e12:g} "
                f"TFLOP/s bf16)")
-        log(f"[{tag}] {how}: {ms:.1f} ms a step | {ips:.1f} imgs/s{mfu}")
+        log(f"[{tag}] {how}: {ms:.1f} ms a step | {ips:.1f} {unit}/s{mfu}")
     log(f"[{tag}] first step (cuDNN's first calls) {first_ms:.1f} ms; eager "
         f"steps {', '.join(f'{m:.1f}' for m in eager_ms)} ms (median "
         f"{eager:.1f}); multi_step({k}) first call (warm-up, capture, "
@@ -4051,6 +4094,226 @@ def phase_vision_parity(device, steps=3, lr=1e-5):
     return errs
 
 
+# -- phases 15-16: the diffusion UNet ----------------------------------------------
+
+UNET_RUN = dict(batch=4, latent=32, steps=10, k=3)
+UNET_64_RUN = dict(batch=4, latent=64, steps=3, k=2)
+
+
+def unet_flops(unet_kw, batch, latent, context=77):
+    """The forward flops of ``UNet2DConditionModel(**unet_kw)`` at
+    ``[batch, 4, latent, latent]`` latents and ``context`` text tokens,
+    from its shapes: the model built on the meta device (no memory, no
+    compute) runs forward with hooks that count 2 flops a multiply-add
+    in every conv (output elements x in / groups x kh x kw), every Linear
+    (output elements x in) and the two attention products (2 x 2·B·N·M·C).
+    Returns {part: flops}."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.models import UNet2DConditionModel
+    from paddle_tpu_torch.models.unet import CrossAttention
+
+    meta = UNet2DConditionModel(device="meta", **(unet_kw or {}))
+    ctx_dim = meta.mid_attn.attn2.to_k.weight.shape[0]
+    got = {"conv": 0, "linear": 0, "attention": 0}
+
+    def conv(mod, args, out):
+        k = mod.weight.shape
+        got["conv"] += 2 * out.numel() * k[1] * k[2] * k[3]
+
+    def linear(mod, args, out):
+        got["linear"] += 2 * out.numel() * mod.weight.shape[0]
+
+    def attention(mod, args, out):
+        x = args[0]
+        ctx = args[1] if len(args) > 1 and args[1] is not None else x
+        got["attention"] += 4 * x.shape[0] * x.shape[1] * ctx.shape[1] \
+            * x.shape[2]
+
+    for mod in meta.modules():
+        hook = (conv if isinstance(mod, pnn.Conv2D) else
+                linear if isinstance(mod, pnn.Linear) else
+                attention if isinstance(mod, CrossAttention) else None)
+        if hook is not None:
+            mod.register_forward_hook(hook)
+    m = torch.device("meta")
+    with torch.no_grad():
+        meta(torch.empty(batch, meta.conv_in.weight.shape[1], latent,
+                         latent, device=m),
+             torch.empty(batch, dtype=torch.int32, device=m),
+             torch.empty(batch, context, ctx_dim, device=m))
+    return got
+
+
+def _unet_train_counters():
+    return {**_train_counters(), **_moe_counters(), **_serve_counters()}
+
+
+def phase_unet_train(device, limit, run=None, tag="unet-train",
+                     unet_kw=None):
+    """15 (and 15c at ``run=UNET_64_RUN``): bench.py's config 5 step,
+    timed as the vision phases are (``_vision_steps``), with every
+    kernel wrapper's count set to 0 before and read after: the UNet's
+    step launches none of them.  Returns (numbers, step, batch)."""
+    from paddle_tpu_torch.testing.vision_profile import unet_step
+    from paddle_tpu_torch.models import UNet2DConditionModel
+
+    run = dict(UNET_RUN, **(run or {}))
+    B, lat = run["batch"], run["latent"]
+    t0 = time.perf_counter()
+    unet = UNet2DConditionModel(device=device, seed=0, **(unet_kw or {}))
+    step, batch = unet_step(device, B, lat, unet=unet)
+    flops = unet_flops(unet_kw, B, lat)
+    step_flops = 3 * sum(flops.values())
+    log(f"[{tag}] UNet2DConditionModel: {unet.num_params()} parameters "
+        f"({unet.num_params() / 1e6:.1f} M), B={B}, latents [{B}, 4, {lat}, "
+        f"{lat}] fp32, context {list(batch[2].shape)} fp32, bf16 weights "
+        f"(norms fp32), fp32 master, "
+        f"bf16 moments, AdamW lr 1e-4; built in {time.perf_counter() - t0:.1f}"
+        f" s | forward flops a step (meta-device count): "
+        + ", ".join(f"{k} {v / 1e9:.2f} G" for k, v in flops.items())
+        + f"; train step 3 x {sum(flops.values()) / 1e12:.4f} = "
+        f"{step_flops / 1e12:.4f} TFLOP ({sum(flops.values()) / B / 1e9:.1f}"
+        f" GFLOP a sample forward) | {limit}")
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    res = _vision_steps(tag, step, batch, device, run, unit="samples")
+    launched = {k: n for k, n in _counts(counters).items() if n}
+    for how in ("eager", "graph"):
+        ms = res[f"{how}_ms"]
+        tf = step_flops / (ms / 1e3) / 1e12
+        log(f"[{tag}] {how}: {ms:.2f} ms a step | {B / (ms / 1e3):.2f} "
+            f"samples/s | {tf:.2f} TFLOP/s achieved, {tf * 1e12 / FP32_FLOPS:.4f} "
+            f"of the fp32 peak ({FP32_FLOPS / 1e12:g}), "
+            f"{tf * 1e12 / BF16_FLOPS:.4f} of the bf16 peak "
+            f"({BF16_FLOPS / 1e12:g} TFLOP/s) | peak memory "
+            f"{res[f'{how}_peak']:.2f} GiB | idle share "
+            f"{res[f'{how}_idle']:.3f}")
+    if launched:
+        raise AssertionError(f"[{tag}] the UNet step launched kernels of "
+                             f"the line: {launched}")
+    log(f"[{tag}] none of the eleven kernels launched")
+    res["flops"] = step_flops
+    return res, step, batch
+
+
+def phase_unet_profile(step, batch, device, limit, iters=20):
+    """15b: two eager steps traced by family; then the port's group_norm
+    against the library's at the top level's shape [B, 320, 32, 32] fp32,
+    32 groups: equal bits or the largest difference, and both timed
+    (``time_ms``: CUDA events, L2 flushed; forward; forward + backward)."""
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.testing import vision_profile as vp
+
+    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=2,
+                                                  plan=vp.UNET)
+    vp.report("unet-profile", fam, wall, busy, kernels, spans, log=log)
+    B = batch[0].shape[0]
+    gen = torch.Generator(device).manual_seed(7)
+    x = torch.randn(B, 320, 32, 32, device=device, generator=gen)
+    w = 1 + 0.1 * torch.randn(320, device=device, generator=gen)
+    b = 0.1 * torch.randn(320, device=device, generator=gen)
+    g = torch.randn(x.shape, device=device, generator=gen)
+    ours = nn_ops.group_norm(x, w, b, 1e-5, 32)
+    lib = torch.nn.functional.group_norm(x, 32, w, b, 1e-5)
+    same = torch.equal(ours, lib)
+    diff = float((ours - lib).abs().max())
+
+    def fwd_bwd(fn):
+        def run():
+            xr = x.detach().requires_grad_(True)
+            torch.autograd.grad(fn(xr), xr, g)
+        return run
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
+    times = {}
+    for name, fn in (("port", lambda a=x: nn_ops.group_norm(a, w, b, 1e-5,
+                                                            32)),
+                     ("library", lambda a=x: torch.nn.functional.group_norm(
+                         a, 32, w, b, 1e-5))):
+        times[name] = (time_ms(fn, flush, iters),
+                       time_ms(fwd_bwd(fn), flush, iters))
+    nbytes = x.numel() * 4
+    log(f"[unet-profile] group_norm at [{B}, 320, 32, 32] fp32, 32 groups: "
+        f"port vs torch.nn.functional.group_norm "
+        f"{'bit for bit' if same else f'differ, largest |difference| {diff:.3e}'}"
+        f" | ms forward / forward + backward: port {times['port'][0]:.4f} / "
+        f"{times['port'][1]:.4f}, library {times['library'][0]:.4f} / "
+        f"{times['library'][1]:.4f} | bounds (x read once, y written once; "
+        f"backward x, g read, dx written) {2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" / {5 * nbytes / HBM_BYTES_PER_S * 1e3:.4f} | {limit}")
+    return fam
+
+
+def phase_unet_parity(device, steps=3, lr=1e-4):
+    """16: fp32, the card against the CPU, with TF32 at the library's
+    defaults (cuDNN's on, matmul's off): a UNet at full depth and narrow
+    widths (every block type, both samplers, all the skips), its eval
+    output within 1e-5 of the largest, 3 train-step losses within 1e-4
+    relative; interpolate nearest at 5 -> 3 and 8 -> 4 bit for bit."""
+    from paddle_tpu_torch.models import (
+        CompiledTrainStep, UNet2DConditionModel, load_numpy_state,
+    )
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.testing.vision_profile import UNetTrain
+
+    cpu = torch.device("cpu")
+    kw = dict(block_out_channels=(64, 128, 128, 128), layers_per_block=2,
+              cross_attention_dim=64)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(5)
+    inputs = [torch.as_tensor(a) for a in (
+        rng.randn(2, 4, 16, 16).astype(np.float32),
+        rng.randint(0, 1000, (2,)).astype(np.int32),
+        rng.randn(2, 7, 64).astype(np.float32),
+        rng.randn(2, 4, 16, 16).astype(np.float32))]
+    errs = {}
+    try:
+        ref = UNet2DConditionModel(device=cpu, seed=0, **kw)
+        state = {k: v.numpy() for k, v in ref.state_dict().items()}
+        card = UNet2DConditionModel(device=device, seed=1, **kw)
+        load_numpy_state(card, state)
+        ref.eval()
+        card.eval()
+        with torch.no_grad():
+            want = ref(*inputs[:3])
+            got = card(*(a.to(device) for a in inputs[:3]))
+        errs["eval output"] = _max_rel(got, want)
+        losses = {}
+        for dev in (device, cpu):
+            model = UNet2DConditionModel(device=cpu, seed=2, **kw)
+            load_numpy_state(model, state)
+            step = CompiledTrainStep(UNetTrain(model), lr=lr, device=dev)
+            losses[dev.type] = [float(step.step(*inputs))
+                                for _ in range(steps)]
+            del step, model
+        g, w = np.array(losses[device.type]), np.array(losses["cpu"])
+        errs["train losses"] = float(np.max(np.abs(g - w) / np.abs(w)))
+        exact = {}
+        for src, dst in ((5, 3), (8, 4)):
+            x = torch.as_tensor(rng.randn(2, 3, src, src).astype(np.float32))
+            exact[f"{src}->{dst}"] = torch.equal(
+                F.interpolate(x.to(device), size=(dst, dst)).cpu(),
+                F.interpolate(x, size=(dst, dst)))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    limits = {"eval output": 1e-5, "train losses": 1e-4}
+    log(f"[unet-parity] fp32 card vs CPU, TF32 at the library defaults "
+        f"(cuDNN on, matmul off), UNet {kw}, 16 x 16 latents, B = 2, lr "
+        f"{lr}: " + "; ".join(f"{k} {v:.3e} (limit {limits[k]:g})"
+                              for k, v in errs.items())
+        + f" | interpolate nearest card = CPU bit for bit: {exact} | losses "
+        f"card {losses[device.type]}, cpu {losses['cpu']}")
+    bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+    if bad or not all(exact.values()):
+        raise AssertionError(f"[unet-parity] beyond the limits: {bad} "
+                             f"{exact}")
+    return errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -4061,14 +4324,20 @@ def main():
 
     t0 = time.perf_counter()
     device = torch.device("cuda", 0)
+
+    def elapsed(what):
+        log(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
+
     name, limit = phase_device()
     phase_build()
+    elapsed("build")
     rows = [phase_kernels(device)]
     train_rows = phase_train_kernels(device)
     quant_rows = phase_quant_kernels(device)
     phase_verify_kernels(device)
     short_rows = phase_short_kernels(device)
     grouped_rows = phase_grouped_kernels(device)
+    elapsed("kernel checks")
     launches, streams = phase_serve_ab(device)
     rows[0]["launches"] = launches["paged_decode"]
     phase_aot(device, streams)
@@ -4082,6 +4351,7 @@ def main():
     phase_parity(device)
     phase_parity(device, quant="int8")
     phase_parity_features(device)
+    elapsed("serving")
     launches, step, batch = phase_train(device, limit)
     for row in train_rows:
         if not launches[row["name"]]:
@@ -4117,6 +4387,7 @@ def main():
     phase_graph_ab(device, limit, master="bfloat16_sr")
     phase_remat_policies(device, limit)
     phase_guarded(device, limit)
+    elapsed("llama training")
     launches, step, batch = phase_bert_train(device, limit)
     for row in short_rows:
         row["launches"] = launches[row["name"]]
@@ -4126,6 +4397,7 @@ def main():
     torch.cuda.empty_cache()
     phase_bert_graph(device, limit)
     phase_bert_parity(device)
+    elapsed("bert")
     launches, step, batch = phase_moe_train(device, limit)
     grouped_rows[0]["launches"] = launches["grouped_ffn"]
     phase_moe_profile(step, batch)
@@ -4135,12 +4407,23 @@ def main():
     torch.cuda.empty_cache()
     phase_moe_parity(device)
     rows += grouped_rows
+    elapsed("moe")
     resnet = phase_resnet_train(device, limit)
     phase_resnet_profile(device, limit, layout=min(
         resnet, key=lambda n: resnet[n]["eager_ms"]))
     phase_resnet_graph(device, limit)
     phase_detection_train(device, limit)
     phase_vision_parity(device)
+    elapsed("vision")
+    _, step, batch = phase_unet_train(device, limit)
+    phase_unet_profile(step, batch, device, limit)
+    del step, batch
+    _empty(device)
+    phase_unet_train(device, limit, run=UNET_64_RUN, tag="unet-train-64",
+                     unet_kw=dict(sample_size=64))
+    _empty(device)
+    phase_unet_parity(device)
+    elapsed("unet")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -32,7 +32,14 @@ step with the batch norms' running statistics left as they were, as in
 ``paddle_tpu``'s compiled step.  No Pallas kernel lies on that path: the
 convolution is cuDNN's (fp32 held to fp32, TF32 off), batch norm and the
 cross entropy are ``torch.autograd.Function`` s with the reference's
-rounding points and hand-written backward.
+rounding points and hand-written backward; and the SD v1.5 diffusion
+UNet (``models.UNet2DConditionModel`` over ``nn.GroupNorm``,
+``nn.functional.interpolate``, ``nn.Silu``, ``nn.GELU`` and
+``nn.LayerList``), trained through the same step.  No Pallas kernel
+lies on that path either: GroupNorm, the resize and the attention (an
+einsum, a softmax, an einsum) are plain PyTorch, the convs cuDNN's, and
+under ``compute_dtype="bfloat16"`` the step computes in fp32 over
+bf16-rounded weights, as ``paddle_tpu``'s does.
 
 Importing the package is light: it pulls in neither ``triton`` nor the
 kernel build, and never ``jax`` or ``paddle_tpu``.

@@ -1,6 +1,7 @@
 """Models of the port: Llama (serving parameters and the training
-module) and BERT (the encoder and its QA, classification and MLM heads),
-the AdamW train step, and the numpy weight bridge from ``paddle_tpu``
+module), BERT (the encoder and its QA, classification and MLM heads) and
+the SD v1.5 diffusion UNet (``UNet2DConditionModel``), the AdamW train
+step, and the numpy weight bridge from ``paddle_tpu``
 (parameters and buffers).  The vision models are in ``vision.models``."""
 from .bert import (  # noqa: F401
     BertConfig, BertForMaskedLM, BertForQuestionAnswering,
@@ -14,3 +15,4 @@ from .llama import (  # noqa: F401
     rope_tables,
 )
 from .training import CompiledTrainStep  # noqa: F401
+from .unet import UNet2DConditionModel, timestep_embedding  # noqa: F401

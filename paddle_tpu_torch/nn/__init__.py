@@ -1,19 +1,26 @@
 """Layers of the port.  Counterpart of ``paddle_tpu/nn`` for what the
-Llama, BERT and vision training paths use: ``Linear`` (weight ``[in,
-out]``, the paddle layout, optional bias), ``Embedding``, ``Dropout``
-(explicit generator), ``RMSNorm``, ``LayerNorm``, the transformer encoder
+Llama, BERT, vision and diffusion training paths use: ``Linear`` (weight
+``[in, out]``, the paddle layout, optional bias), ``Embedding``,
+``Dropout`` (explicit generator), ``RMSNorm``, ``LayerNorm``,
+``GroupNorm``, ``InstanceNorm2D``, the transformer encoder
 (``MultiHeadAttention``, ``TransformerEncoderLayer``,
-``TransformerEncoder``), ``Conv2D``, the pools, the batch norms, and
-``ReLU``, ``Sequential`` and ``Identity`` (torch's own: ``Sequential``
-names its children ``0``, ``1``, ... as ``paddle_tpu``'s does, so state
-dict keys such as ``layer1.0.downsample.0.weight`` match)."""
+``TransformerEncoder``), ``Conv2D``, the pools, the batch norms,
+``Silu``, ``GELU``, ``Softmax``, ``Upsample``, and ``ReLU``,
+``Sequential``, ``LayerList`` and ``Identity`` (torch's own ``ReLU``,
+``Sequential``, ``ModuleList`` and ``Identity``: ``Sequential`` and
+``LayerList`` name their children ``0``, ``1``, ... as ``paddle_tpu``'s
+do, so state dict keys such as ``layer1.0.downsample.0.weight`` and
+``down_blocks.0.1.1.attn2.to_k.weight`` match)."""
 from torch.nn import Identity, ReLU, Sequential  # noqa: F401
+from torch.nn import ModuleList as LayerList  # noqa: F401
 
-from .common import Dropout, Embedding, Linear  # noqa: F401
+from .common import (  # noqa: F401
+    GELU, Dropout, Embedding, Linear, Silu, Softmax, Upsample,
+)
 from .conv import Conv2D  # noqa: F401
 from .norm import (  # noqa: F401
-    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm, RMSNorm,
-    running_stats_frozen,
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm2D, LayerNorm, RMSNorm, running_stats_frozen,
 )
 from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D  # noqa: F401
 from .transformer import (  # noqa: F401

@@ -1,5 +1,6 @@
 """``Linear``, ``Embedding`` and ``Dropout`` with ``paddle_tpu``'s
-parameter layout and an explicit generator.
+parameter layout and an explicit generator; the activation layers
+``Silu``, ``GELU`` and ``Softmax``, and ``Upsample``.
 
 ``torch.nn.Linear`` keeps its weight ``[out, in]``; paddle's is
 ``[in, out]`` and a projection is ``x @ w (+ b)``.  Keeping paddle's
@@ -26,7 +27,11 @@ class Linear(nn.Module):
     projections have none) registers no bias; ``bias=True`` adds one of
     ``[out_features]``, cast to the product's dtype before the add (as
     ``F.linear`` in ``paddle_tpu`` does, so an fp32 bias never promotes a
-    bf16 stream)."""
+    bf16 stream).  x and a weight of two float dtypes meet in jnp's
+    promotion, as ``ops.nn_ops.einsum``'s operands do: an fp32 x times a
+    bf16 weight computes in fp32 (a UNet step under bf16 compute feeds
+    its bf16 ``time_mlp1`` an fp32 embedding), where ``torch.matmul``
+    would refuse the pair."""
 
     def __init__(self, in_features, out_features, device=None,
                  dtype=torch.float32, bias=False):
@@ -39,7 +44,11 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        out = torch.matmul(x, self.weight)
+        w = self.weight
+        if w.dtype != x.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+        out = torch.matmul(x, w)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -121,3 +130,52 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}, mode={self.mode}"
+
+
+class Silu(nn.Module):
+    """``x * sigmoid(x)`` (``F.silu``)."""
+
+    def forward(self, x):
+        return F.silu(x)
+
+
+class GELU(nn.Module):
+    """GELU (``F.gelu``); ``approximate=True`` is not ported yet."""
+
+    def __init__(self, approximate=False):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        return F.gelu(x, self.approximate)
+
+
+class Softmax(nn.Module):
+    """Softmax along ``axis`` (``F.softmax``)."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.softmax(x, self.axis)
+
+
+class Upsample(nn.Module):
+    """``F.interpolate`` to ``size`` or by ``scale_factor`` (``"nearest"``:
+    the reference's index rule, torch's ``"nearest-exact"``)."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, data_format="NCHW"):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size,
+                             scale_factor=self.scale_factor, mode=self.mode,
+                             align_corners=self.align_corners,
+                             data_format=self.data_format)

@@ -2,8 +2,9 @@
 ``paddle_tpu/nn/functional/__init__.py`` ``rms_norm``, ``layer_norm``,
 ``dropout`` and ``scaled_dot_product_attention``, and for the vision
 path ``conv2d``, the pools, ``batch_norm`` (with ``_bn_running_update``),
-``cross_entropy``, ``binary_cross_entropy_with_logits`` and ``relu``;
-the other ops of the language-model training paths are called from
+``cross_entropy``, ``binary_cross_entropy_with_logits`` and ``relu``,
+and for the diffusion path ``group_norm``, ``interpolate`` /
+``upsample``, ``silu``, ``gelu`` and ``softmax``; the other ops of the language-model training paths are called from
 ``ops.nn_ops`` directly.  Random draws take an explicit
 ``torch.Generator``."""
 from __future__ import annotations
@@ -55,6 +56,51 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def relu(x):
     return torch.relu(x)
+
+
+def silu(x):
+    return nn_ops.silu(x)
+
+
+def gelu(x, approximate=False):
+    """GELU; only the exact erf form (``approximate=False``) is ported."""
+    if approximate:
+        raise NotImplementedError(
+            "gelu(approximate=True) is not ported yet (ROADMAP.md Queue 1)")
+    return nn_ops.gelu(x)
+
+
+def softmax(x, axis=-1):
+    return nn_ops.softmax(x, axis)
+
+
+# -- diffusion: group norm, resizing ------------------------------------------------
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """``ops.nn_ops.group_norm``: statistics in x's dtype, then weight and
+    bias with the reference's type promotion (fp32 parameters make a bf16
+    x's output fp32)."""
+    return nn_ops.group_norm(x, weight, bias, float(epsilon),
+                             int(num_groups), data_format)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    """``paddle_tpu``'s ``F.interpolate``: without ``size`` the output is
+    ``int(h * scale_factor)`` by ``int(w * scale_factor)``; resized by
+    ``ops.nn_ops.interpolate`` (``"nearest"`` is torch's
+    ``"nearest-exact"``; ``align_corners`` is ignored, as the reference
+    ignores it)."""
+    if size is None:
+        h, w = (x.shape[2], x.shape[3]) if data_format == "NCHW" \
+            else (x.shape[1], x.shape[2])
+        size = (int(h * scale_factor), int(w * scale_factor))
+    return nn_ops.interpolate(x, tuple(int(s) for s in size), mode,
+                              data_format)
+
+
+upsample = interpolate
 
 
 # -- conv / pool ----------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Parameter initializers with ``paddle_tpu``'s fan rule and an explicit
 ``torch.Generator``.  Counterpart of the part of ``paddle_tpu/nn/
-initializer.py`` that the MoE and vision layers use: ``XavierUniform``
-(``xavier_uniform_``), the zero bias, and ``Constant``, ``Uniform`` and
-``KaimingUniform`` as objects that fill a tensor in place.  Uniform
+initializer.py`` that the MoE, vision and diffusion layers use:
+``XavierUniform`` (``xavier_uniform_``, and as an object), the zero
+bias, and ``Constant``, ``Uniform`` and ``KaimingUniform`` as objects
+that fill a tensor in place.  Uniform
 draws are made in fp32 and cast to the tensor's dtype, as the reference
 draws them."""
 from __future__ import annotations
@@ -29,7 +30,11 @@ def fans(shape):
 
 
 def seeded_generator(device, seed=0):
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; ``None``
+    on the ``meta`` device, whose tensors hold no values (a model built
+    there, to count its shapes, draws nothing)."""
+    if torch.device(device).type == "meta":
+        return None
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
@@ -58,6 +63,18 @@ def uniform_(t, low, high, generator):
 def zeros_(t):
     """Fill ``t`` with zeros (the bias default)."""
     return t.zero_()
+
+
+class XavierUniform:
+    """U(-limit, limit), ``limit = gain * sqrt(6 / (fan_in + fan_out))``
+    (``xavier_uniform_``): ``paddle_tpu``'s default for a Linear weight
+    ``[in, out]``."""
+
+    def __init__(self, gain=1.0):
+        self.gain = gain
+
+    def __call__(self, t, generator):
+        return xavier_uniform_(t, generator, self.gain)
 
 
 class Constant:

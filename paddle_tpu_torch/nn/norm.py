@@ -1,10 +1,11 @@
-"""``RMSNorm``, ``LayerNorm`` and the batch norms.  Counterparts of
-``paddle_tpu/nn/norm.py`` ``RMSNorm``, ``LayerNorm``, ``_BatchNormBase``,
+"""``RMSNorm``, ``LayerNorm``, ``GroupNorm`` and the batch norms.
+Counterparts of ``paddle_tpu/nn/norm.py`` ``RMSNorm``, ``LayerNorm``,
+``GroupNorm``, ``InstanceNorm2D``, ``_BatchNormBase``,
 ``BatchNorm1D/2D/3D`` and ``BatchNorm``: weights of ones (and a bias of
 zeros) on ``device`` (default CUDA, see ``device.resolve_device``),
 applied through ``nn.functional`` (``rms_norm``: the fused kernel under
-``FLAGS_use_fused_rms_norm``, else the plain op; ``layer_norm``: the
-plain op; ``batch_norm``).  A batch norm's running statistics are fp32
+``FLAGS_use_fused_rms_norm``, else the plain op; ``layer_norm`` and
+``group_norm``: the plain ops; ``batch_norm``).  A batch norm's running statistics are fp32
 buffers named as in the reference's state dict, ``_mean`` (zeros) and
 ``_variance`` (ones)."""
 from __future__ import annotations
@@ -56,6 +57,47 @@ class LayerNorm(nn.Module):
 
     def extra_repr(self):
         return f"{self.weight.shape[0]}, epsilon={self._epsilon}"
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm of ``num_channels`` in ``num_groups`` groups, with a
+    weight of ones and a bias of zeros (``weight_attr=False`` /
+    ``bias_attr=False`` drop them).  Its output follows the reference's
+    promotion (``F.group_norm``): the fp32 parameters a train step keeps
+    (their names hold ``"norm"``) make a bf16 input's output fp32."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = (nn.Parameter(torch.ones(num_channels, device=device,
+                                               dtype=dtype))
+                       if weight_attr is not False else None)
+        self.bias = (nn.Parameter(torch.zeros(num_channels, device=device,
+                                              dtype=dtype))
+                     if bias_attr is not False else None)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self.weight, self.bias,
+                            self._epsilon, self._data_format)
+
+    def extra_repr(self):
+        return f"{self._num_groups}, epsilon={self._epsilon}"
+
+
+class InstanceNorm2D(GroupNorm):
+    """GroupNorm with one group per channel."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 device=None, dtype=torch.float32):
+        super().__init__(num_features, num_features, epsilon=epsilon,
+                         weight_attr=weight_attr, bias_attr=bias_attr,
+                         data_format=data_format, device=device, dtype=dtype)
 
 
 class _BatchNormBase(nn.Module):

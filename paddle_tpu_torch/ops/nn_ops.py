@@ -3,7 +3,8 @@
 Counterparts of ``paddle_tpu/ops/nn_ops.py`` (``_rms_norm_plain``,
 ``_layer_norm_plain``, ``_rope_plain``, ``_sdpa_plain``, ``dropout_raw``,
 ``fused_linear_cross_entropy``, ``_softmax_ce_plain``) and
-``paddle_tpu/ops/activation.py`` (``_swiglu_plain``, ``gelu``), with the
+``paddle_tpu/ops/activation.py`` (``_swiglu_plain``, ``gelu``,
+``silu``), with the
 same dtype rules, so a bf16 stream rounds at the same places in both
 packages.  Of these, only attention reaches a kernel here (``sdpa``
 routes long sequences, and the region JAX gives its stock flash kernel,
@@ -20,6 +21,11 @@ So the conv here is the library's (cuDNN on the card), and the others
 are plain PyTorch with the reference's rounding points; batch norm and
 the cross entropy are ``torch.autograd.Function`` s whose backward is the
 reference's hand-written VJP.
+
+The diffusion path's ops (``group_norm``, ``interpolate``, ``softmax``)
+are XLA ops in ``paddle_tpu`` as well (``_group_norm_plain``,
+``jax.image.resize``, ``jax.nn.softmax``), so they are plain PyTorch
+here, with the reference's rounding points and dtype promotion.
 """
 from __future__ import annotations
 
@@ -123,6 +129,85 @@ def gelu(x):
     """GELU in its exact erf form (``ops.gelu``'s default,
     ``approximate=False``, which BERT uses), in x's dtype."""
     return torch.nn.functional.gelu(x)
+
+
+def silu(x):
+    """``x * sigmoid(x)`` in x's dtype (``ops.silu``); its gradient is the
+    reference's ``g * s * (1 + x * (1 - s))``."""
+    return torch.nn.functional.silu(x)
+
+
+def softmax(x, axis=-1):
+    """Softmax along ``axis`` in x's dtype.  The reference's custom
+    backward, ``out * (g - sum(out * g))``, is the library's own."""
+    return torch.softmax(x, dim=axis)
+
+
+# -- diffusion: group norm and resizing -------------------------------------------
+
+def group_norm(x, weight=None, bias=None, epsilon=1e-5, groups=32,
+               data_format="NCHW"):
+    """``_group_norm_plain``: x viewed as ``[N, groups, C / groups,
+    *spatial]``, its mean, then ``mean(square(xg - mean))`` (two passes,
+    not E[x²] - E[x]²), both in **x's dtype** (sums accumulated in fp32
+    and rounded once, as ``jnp.mean``), times ``rsqrt(var + epsilon)``
+    (taken in fp32 and rounded once, as ``layer_norm`` takes it).  Then
+    ``* weight`` and ``+ bias`` with jnp's type promotion: a bf16 x and
+    fp32 norm parameters give an **fp32** output.  That is the opposite
+    of ``layer_norm``, which casts its parameters into x's dtype, and it
+    is why a UNet step under ``compute_dtype="bfloat16"`` computes in
+    fp32 from its first GroupNorm on (ROADMAP.md Queue 3).  ``NHWC``
+    moves the channel axis to 1 and back."""
+    if data_format != "NCHW":
+        x = torch.movedim(x, -1, 1)
+    n, c = x.shape[:2]
+    spatial = x.shape[2:]
+    xg = x.reshape(n, groups, c // groups, *spatial)
+    axes = tuple(range(2, xg.dim()))
+    count = math.prod(xg.shape[2:])
+    mean = (_acc(xg).sum(dim=axes, keepdim=True) / count).to(x.dtype)
+    d = xg - mean
+    var = (_acc(d.square()).sum(dim=axes, keepdim=True) / count).to(x.dtype)
+    rstd = torch.rsqrt((var + epsilon).float()).to(x.dtype)
+    out = (d * rstd).reshape(x.shape)
+    shape = (1, c) + (1,) * len(spatial)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    if data_format != "NCHW":
+        out = torch.movedim(out, 1, -1)
+    return out
+
+
+def interpolate(x, size, mode="nearest", data_format="NCHW"):
+    """``_interp_plain`` (``jax.image.resize``) to spatial ``size`` (h, w).
+    ``jax.image.resize``'s ``"nearest"`` takes the source pixel under each
+    output pixel's centre, which is torch's ``"nearest-exact"``: torch's
+    ``"nearest"`` floors ``i * in / out`` instead and differs off integer
+    upsampling (5 -> 3, 8 -> 4 give other pixels).  ``"bilinear"`` is
+    ``jax.image.resize``'s ``"linear"``: half-pixel centres whatever
+    ``align_corners`` says (the reference ignores it, and so does this),
+    and a triangle filter widened by the scale when it shrinks, which is
+    torch's ``bilinear`` with ``antialias=True``; a bf16 input is resized
+    in fp32 and rounded once.  ``"bicubic"`` raises: the reference's cubic
+    is Keys' with a = -0.5 and torch's a = -0.75 (ROADMAP.md Queue 1)."""
+    if mode == "bicubic":
+        raise NotImplementedError(
+            "bicubic interpolate is not ported yet: jax.image.resize's "
+            "cubic (Keys, a = -0.5) is not torch's (a = -0.75); ROADMAP.md "
+            "Queue 1")
+    if mode not in ("nearest", "bilinear"):
+        raise ValueError(f"unknown interpolate mode {mode!r}")
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    size = tuple(int(s) for s in size)
+    if mode == "nearest":
+        out = F.interpolate(x, size=size, mode="nearest-exact")
+    else:
+        out = F.interpolate(x.float(), size=size, mode="bilinear",
+                            align_corners=False, antialias=True).to(x.dtype)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
 def _need_generator(generator, device, what):
