@@ -66,7 +66,7 @@ result):
              verify's M = 40 on the gate/up shape beside its bound and
              torch.matmul.
 4. serve   — Llama-2-7B at full width and depth in bf16, random weights
-             from seed 0 made on the card, 16 seeded requests through
+             from seed 0 made on the card, 8 seeded requests through
              ServingEngine (8 slots, 16-token pages, 2048-token window,
              512-token prefill chunks), served twice: decode eager (the
              forward launched op by op, the A/B baseline) and decode as
@@ -92,9 +92,9 @@ result):
              decode_n(8) at batch 8 equal to 8 decode steps, each timed.
 4f. features — Llama-2-7B at full width and depth, phase 4's engine,
              the page pool's invariants checked after every step of every
-             leg: (a) the prefix cache on vs off on 16 requests of 128-512
+             leg: (a) the prefix cache on vs off on 8 requests of 128-512
              tokens, 60% behind one of two 512-token prefixes, bf16 and
-             int8, and on a 320-page pool where the tree must evict; (b)
+             int8, and on a 160-page pool where the tree must evict; (b)
              n-gram speculative decode (k = 4) vs off on prompts 75%
              tiled from 4 tokens, bf16 and int8, paged decode and
              quant_matmul counted under serve.verify replays, decode and
@@ -105,11 +105,39 @@ result):
              evictions, tokens per decode step, acceptance, TTFT / TPOT,
              host_overlap_ratio and replans per leg; prefix and spec
              agreement with off is reported, not gated (bf16).
+4g. durable serving — Llama-2-7B at full width and depth in bf16, phase
+             4's engine shape and load, as a ServingCluster of 2 replicas
+             sharing the weights: the journal off, then on (streams
+             equal; records, fsyncs, their seconds and write_s over the
+             serving wall, the journal's tax measured in the run); a child
+             process (python -m paddle_tpu_torch.testing.durability_worker)
+             serving the load into a journal and killed by an armed
+             serve.step crash (exit 53), then ServingCluster.recover in
+             this process (replay and rebuild seconds, ticks and seconds
+             to the first recovered token); in process a replica crash
+             (recompute failover) and a hang (its pages salvaged); an
+             int8 fleet stopped mid-load and recovered.  Gated: every
+             request finishes once with its max_new_tokens tokens, streams
+             served from the journal and journaled prefixes equal the
+             uninterrupted run's, the pools' invariants hold after every
+             step, and the recovered fleets launch paged_decode (int8:
+             paged_decode_quant and quant_matmul).  Tokens after a resume
+             point are reported, not gated (bf16 recompute re-prefills
+             at other GEMM shapes).
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
              card (the kernels) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
-             atol 1e-3, plain and with quant="int8", with aot="off" and
-             with aot="warm" (the card's decode replayed).
+             atol 1e-3, plain and with quant="int8"; the card's aot="warm"
+             run (its decode replayed) must give the same streams (the
+             CPU's aot="warm" path is held against paddle_tpu by
+             tests/test_torch_aot.py).
+5c. durable parity — phase 5's 2-layer cut in fp32 as a 2-replica fleet:
+             the journal of an uninterrupted run on the card must equal
+             the CPU's byte for byte; a card child killed by a wal.append
+             crash at a seeded journal depth and one killed by SIGKILL at
+             a seeded depth are each recovered on the card, and every
+             stream must equal the CPU's uninterrupted run token for
+             token.
 5b. feature parity — the same 2-layer fp32 model, 5 requests behind one
              shared prefix with tiled prompts: the prefix cache, spec
              decode and async, each on alone, give the off leg's streams
@@ -288,10 +316,14 @@ of paddle_tpu.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1365,8 +1397,10 @@ def phase_verify_kernels(device, iters=50):
 # -- phase 4 -----------------------------------------------------------------
 
 SERVE_KW = dict(max_seqs=8, page_size=16, max_len=2048, prefill_chunk=512)
-SERVE_LOAD = dict(n_requests=16, mean_interarrival=2.0,
-                  prompt_len=(128, 1024), max_new=(32, 64), vocab=32000,
+#: 8 requests of 16-32 new tokens (16 of 32-64 before the time cut):
+#: the same load as the durable-serving worker's ``7b`` setup (phase 4g)
+SERVE_LOAD = dict(n_requests=8, mean_interarrival=2.0,
+                  prompt_len=(128, 1024), max_new=(16, 32), vocab=32000,
                   seed=0)
 
 
@@ -1727,7 +1761,7 @@ def _agreement(got, want):
 
 
 def phase_aot(device, phase4, cfg=None, load=None, dtype=torch.bfloat16,
-              engine_kw=None, n=8, rounds=3, prompt=512):
+              engine_kw=None, n=8, rounds=2, prompt=512):
     """Phase 4e: engines with aot="warm" and aot="strict" (decode at every
     batch and decode_n at n captured at build) serve phase 4's load with
     no failed warmup entry.  The ladder floors prefill chunks onto powers
@@ -1836,15 +1870,15 @@ def phase_aot(device, phase4, cfg=None, load=None, dtype=torch.bfloat16,
 #: 4f's loads: phase 4's shape at prompts of 128-512 tokens, with a 60%
 #: share of requests behind one of two 512-token system prompts (a), and
 #: with 75% of the prompts tiled from their first 4 tokens (b)
-FEATURE_LOAD = dict(n_requests=16, mean_interarrival=2.0,
-                    prompt_len=(128, 512), max_new=(32, 64), vocab=32000,
+FEATURE_LOAD = dict(n_requests=8, mean_interarrival=2.0,
+                    prompt_len=(128, 512), max_new=(16, 32), vocab=32000,
                     seed=0)
 PREFIX_LOAD = dict(FEATURE_LOAD, prefix_share=0.6, prefix_len=512,
                    prefix_pool=2)
 REPEAT_LOAD = dict(FEATURE_LOAD, repeat_share=0.75, repeat_period=4)
 #: the pool of 4f's eviction leg: room for the running set's pages, not
 #: for the running set and every prompt the tree has published
-EVICT_PAGES = 320
+EVICT_PAGES = 160
 
 
 def _feature_line(tag, engine):
@@ -1902,14 +1936,11 @@ def phase_features(device, phase4, cfg=None, dtype=torch.bfloat16,
         st = _feature_line(tag, eng)
         return got, eng, streams, st
 
-    # (a) the prefix cache; bf16 in turns off, on, on, off to show the
-    # spread of TTFT between runs of one configuration
+    # (a) the prefix cache, off then on
     for quant in ("none", "int8"):
         sfx = "" if quant == "none" else "-int8"
-        order = ("off", "on", "on", "off") if quant == "none" else \
-            ("off", "on")
         runs = {"off": [], "on": []}
-        for mode in order:
+        for mode in ("off", "on"):
             _, eng, streams, st = leg(f"4f-prefix-{mode}{sfx}", prefix_load,
                                       quant, prefix_cache=mode == "on")
             if mode == "on" and st["cached_tokens"] <= 0:
@@ -1976,9 +2007,8 @@ def phase_features(device, phase4, cfg=None, dtype=torch.bfloat16,
         del eng, ex
         _empty(device)
 
-    # (c) async vs sync, in turns sync, async, async, sync: every run
-    # must give phase 4's streams
-    for i, mode in enumerate(("sync", "async", "async", "sync")):
+    # (c) async vs sync: each must give phase 4's streams
+    for i, mode in enumerate(("sync", "async")):
         tag = f"4f-{mode}-{i}"
         _, eng, got, _ = leg(tag, serve_load, async_exec=mode == "async")
         if got != phase4:
@@ -2026,6 +2056,7 @@ def phase_features(device, phase4, cfg=None, dtype=torch.bfloat16,
 # -- phase 5 -----------------------------------------------------------------
 
 PARITY_KW = dict(max_seqs=4, page_size=16, max_len=256, prefill_chunk=32)
+#: 5b and 5c keep their own loads
 PARITY_LOAD = dict(n_requests=4, mean_interarrival=1.0,
                    prompt_len=(16, 64), max_new=(8, 8), vocab=32000,
                    seed=1)
@@ -2068,7 +2099,7 @@ def phase_parity(device, cfg=None, quant="none"):
     streams = {}
     cpu = torch.device("cpu")
     for dev, p, aot in ((device, params, "off"), (cpu, cpu_params, "off"),
-                        (device, params, "warm"), (cpu, cpu_params, "warm")):
+                        (device, params, "warm")):
         before = {k: f.launches for k, f in counters.items()}
         eng = ServingEngine(cfg, p, dtype=torch.float32, device=dev,
                             quant=quant, aot=aot, **PARITY_KW)
@@ -2084,16 +2115,13 @@ def phase_parity(device, cfg=None, quant="none"):
         if dev.type == "cuda" and not all(launched.values()):
             raise AssertionError(f"[{tag}] the card run missed a kernel: "
                                  f"{launched}")
-    if streams[device.type, "warm"] != streams[device.type, "off"]:
-        raise AssertionError(f"[{tag}] aot=warm and aot=off streams "
-                             f"differ on {device.type}: {streams}")
     for aot in ("off", "warm"):
-        if streams[device.type, aot] != streams["cpu", aot]:
-            raise AssertionError(f"[{tag}] aot={aot}: greedy streams "
-                                 f"differ: {streams}")
-        log(f"[{tag}] aot={aot}: greedy streams identical on "
-            f"{device.type} and cpu for {len(work)} requests "
-            f"({sum(map(len, streams['cpu', aot].values()))} tokens)")
+        if streams[device.type, aot] != streams["cpu", "off"]:
+            raise AssertionError(f"[{tag}] {device.type} aot={aot}: greedy "
+                                 f"streams differ from the CPU's: {streams}")
+        log(f"[{tag}] {device.type} aot={aot}: greedy streams identical to "
+            f"the CPU's (aot=off) for {len(work)} requests "
+            f"({sum(map(len, streams['cpu', 'off'].values()))} tokens)")
 
 
 #: 5b's load: phase 5's shape with a shared 32-token prefix and tiled
@@ -2194,6 +2222,446 @@ def phase_parity_features(device, cfg=None):
     log(f"[parity-5b] verify of two windows drafted from the off streams "
         f"(all 4 right; 2 right then wrong): accepted 4 and 2, the off "
         f"streams' next tokens, identical on {device.type} and cpu")
+
+
+# -- phases 4g and 5c: durable serving --------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the seed of every fault point's hit count drawn in 4g and 5c
+DURABLE_SEED = 0
+
+
+def _fleet_audit(cl):
+    from paddle_tpu_torch.inference.server import check_pool_invariants
+    from paddle_tpu_torch.inference.server.cluster import DEAD_STATES
+
+    for rep in cl.replicas:
+        if rep.state not in DEAD_STATES:
+            check_pool_invariants(rep.engine.executor.cache,
+                                  rep.engine.prefix)
+
+
+def _drive_fleet(cl, work, until=None, handles=None, on_step=None):
+    """Submit each request of ``work`` not in ``handles`` at its arrival
+    tick and step the fleet until it drains (or its tick reaches
+    ``until``), checking every live replica's pool after every step and
+    calling ``on_step(cl, handles)``.  Returns (handles, seconds
+    stepping, seconds auditing)."""
+    handles = {} if handles is None else handles
+    pending = [w for w in work if w["rid"] not in handles]
+    serve = audit = 0.0
+    while pending or cl.in_flight:
+        if until is not None and cl.tick >= until:
+            break
+        if cl.tick > 2000:
+            raise AssertionError("the fleet did not drain in 2000 ticks")
+        t0 = time.perf_counter()
+        while pending and pending[0]["arrival_tick"] <= cl.tick:
+            w = pending.pop(0)
+            handles[w["rid"]] = cl.submit(
+                w["prompt_ids"], max_new_tokens=w["max_new_tokens"],
+                rid=w["rid"])
+        cl.step()
+        t1 = time.perf_counter()
+        serve += t1 - t0
+        _fleet_audit(cl)
+        audit += time.perf_counter() - t1
+        if on_step is not None:
+            on_step(cl, handles)
+    return handles, serve, audit
+
+
+def _precapture(cl):
+    """Capture every live replica's decode step at every batch size;
+    returns the seconds."""
+    from paddle_tpu_torch.inference.server.cluster import DEAD_STATES
+
+    t0 = time.perf_counter()
+    for rep in cl.replicas:
+        if rep.state in DEAD_STATES:
+            continue
+        ex = rep.engine.executor
+        for B in range(1, ex.cache.max_seqs + 1):
+            ex.programs["decode"].aot_capture((B,))
+    return time.perf_counter() - t0
+
+
+def _check_complete(tag, handles, work):
+    """Every request of ``work`` has one handle, FINISHED with exactly
+    its max_new_tokens tokens."""
+    from paddle_tpu_torch.inference.server import RequestState
+
+    if sorted(handles) != sorted(w["rid"] for w in work):
+        raise AssertionError(f"[{tag}] handles {sorted(handles)}")
+    for w in work:
+        h = handles[w["rid"]]
+        if h.state is not RequestState.FINISHED \
+                or len(h.tokens) != w["max_new_tokens"]:
+            raise AssertionError(
+                f"[{tag}] {w['rid']}: {h.state.value}, {len(h.tokens)} of "
+                f"{w['max_new_tokens']} tokens")
+
+
+def _run_child(cmd, kill_after=None, timeout=600):
+    """Run a durability worker, SIGKILLing it once its journal holds
+    ``kill_after`` records.  Returns (returncode, last progress line,
+    seconds, output tail)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PT_FAULTS="")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=ROOT)
+    last, tail = None, collections.deque(maxlen=30)
+    try:
+        for line in proc.stdout:
+            tail.append(line)
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"worker ran past {timeout} s")
+            if line.startswith("tick "):
+                last = line.strip()
+                if kill_after is not None \
+                        and int(line.split()[-1]) >= kill_after:
+                    proc.send_signal(signal.SIGKILL)
+                    break
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, last, time.perf_counter() - t0, "".join(tail)
+
+
+def _worker(wal_dir, spec, config, device):
+    return [sys.executable, "-m",
+            "paddle_tpu_torch.testing.durability_worker", str(wal_dir),
+            spec, "--device", device.type, "--config", config]
+
+
+def _expect_exit(tag, got, want):
+    rc, last, sec, tail = got
+    if rc != want:
+        raise AssertionError(f"[{tag}] the child exited {rc}, expected "
+                             f"{want}; its output ends:\n{tail}")
+    log(f"[{tag}] the child exited {rc} after {sec:.1f} s (last progress "
+        f"line: {last})")
+
+
+def _recover_and_serve(tag, cl, work, base, counters, t_rebuild,
+                       what="the uninterrupted run's"):
+    """Resubmit every request to a recovered fleet (at-least-once: a
+    journaled rid dedups to its restored request), step until drained
+    and hold the result: every request finished once; streams served
+    from the journal and journaled prefixes equal to ``base`` (``what``
+    names it).  Returns ({kernel: launches}, streams)."""
+    rec = cl.recovery
+    journaled = {rid: list(h.tokens)
+                 for rid, h in cl.recovered_handles.items()}
+    for f in counters.values():
+        f.launches = 0
+    first = []
+    t0 = time.perf_counter()
+
+    def on_step(c, handles):
+        if not first and any(len(h.tokens) > len(journaled.get(rid, ()))
+                             for rid, h in handles.items()):
+            first.append((c.tick, time.perf_counter() - t0))
+
+    handles = {w["rid"]: cl.submit(w["prompt_ids"],
+                                   max_new_tokens=w["max_new_tokens"],
+                                   rid=w["rid"]) for w in work}
+    if cl.dedup_hits != len(journaled):
+        raise AssertionError(f"[{tag}] {cl.dedup_hits} dedups for "
+                             f"{len(journaled)} journaled requests")
+    handles, serve_s, audit_s = _drive_fleet(cl, work, handles=handles,
+                                             on_step=on_step)
+    launches = {k: f.launches for k, f in counters.items()}
+    _check_complete(tag, handles, work)
+    streams = {rid: list(h.tokens) for rid, h in handles.items()}
+    served = [rid for rid, h in cl.recovered_handles.items()
+              if h._req.rid in cl._served]
+    for rid in served:
+        if streams[rid] != base[rid]:
+            raise AssertionError(f"[{tag}] {rid} served from the journal "
+                                 f"differs from {what} stream")
+    for rid, toks in journaled.items():
+        if toks != base[rid][:len(toks)]:
+            raise AssertionError(f"[{tag}] {rid}: journaled prefix "
+                                 f"{toks} is not {what}")
+    resumed = {rid: streams[rid] for rid in streams if rid not in served}
+    same, lead, total = _agreement(resumed, {r: base[r] for r in resumed})
+    n_prefix = sum(len(journaled.get(r, ())) for r in resumed)
+    log(f"[{tag}] recovery {rec}: {len(served)} streams served from the "
+        f"journal equal {what}; {len(resumed)} resumed "
+        f"(journaled prefixes {n_prefix} tokens, all equal); rebuild "
+        f"{t_rebuild:.3f} s (the fleet and its graph captures); first "
+        f"recovered token after {first[0][0] if first else None} ticks, "
+        f"{first[0][1] if first else float('nan'):.3f} s; drained in "
+        f"{cl.tick} ticks, {serve_s:.3f} s (+ {audit_s:.3f} s of pool "
+        f"audits); launches {launches}; after the resume points {same} of "
+        f"{len(resumed)} resumed streams equal {what}, "
+        f"{lead} of {total} tokens before each first difference "
+        f"(reported, not gated)")
+    return launches, streams
+
+
+def phase_durable(device, config="7b"):
+    """Phase 4g (see the module docstring) on the durability worker's
+    setup ``config`` (another than ``7b`` to rehearse on the CPU).
+    Returns {kernel: launches in the recovered fleets}."""
+    from paddle_tpu_torch.inference.server import ServingCluster
+    from paddle_tpu_torch.inference.server.wal import replay
+    from paddle_tpu_torch.testing import durability_worker as worker
+    from paddle_tpu_torch.testing import faults
+
+    counters = _serve_counters()
+    cfg, params, kw, work = worker.build(config, device)
+    _sync(device)
+    weights = (sum(t.numel() * t.element_size()
+                   for t in params["layers"].values())
+               + sum(params[k].numel() * params[k].element_size()
+                     for k in ("embed", "norm", "lm_head"))) / 2**30
+    rng = np.random.RandomState(DURABLE_SEED)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-4g-") as tmp:
+        # (a) the journal off, then on, each fleet's decode graphs
+        # captured before the load: equal streams, and the journal's
+        # tax measured inside the journaled run (write_s, its fsyncs)
+        streams = {}
+        for mode in ("off", "on"):
+            tag = f"4g-wal-{mode}"
+            cl = ServingCluster(cfg, params, n_replicas=2, cluster=True,
+                                wal=os.path.join(tmp, "uninterrupted")
+                                if mode == "on" else False, **kw)
+            if mode == "off":
+                shared = all(
+                    rep.engine.executor.layers[n].data_ptr()
+                    == params["layers"][n].data_ptr()
+                    for rep in cl.replicas for n in params["layers"])
+                if not shared:
+                    raise AssertionError(f"[{tag}] a replica copied the "
+                                         f"weights")
+                pool = [sum(t.numel() * t.element_size() for t in (
+                    rep.engine.executor.cache._k_all,
+                    rep.engine.executor.cache._v_all)) / 2**30
+                    for rep in cl.replicas]
+                log(f"[4g] 2 replicas share one copy of the weights "
+                    f"({weights:.2f} GiB, the same tensors); each holds "
+                    f"its KV pool ({', '.join(f'{g:.2f}' for g in pool)} "
+                    f"GiB) and its graphs; "
+                    + (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                       f"allocated" if device.type == "cuda" else ""))
+            cap = _precapture(cl)
+            fsync = [0.0]
+            if cl.wal is not None:
+                inner = cl.wal._do_fsync
+
+                def timed(inner=inner):
+                    t0 = time.perf_counter()
+                    try:
+                        inner()
+                    finally:
+                        fsync[0] += time.perf_counter() - t0
+
+                cl.wal._do_fsync = timed
+            handles, serve_s, audit_s = _drive_fleet(cl, work)
+            _check_complete(tag, handles, work)
+            st = cl.stats()
+            streams[mode] = {r: list(h.tokens) for r, h in handles.items()}
+            wst = None if cl.wal is None else cl.wal.statusz()
+            log(f"[{tag}] {len(work)} requests finished in {st['steps']} "
+                f"ticks, {serve_s:.3f} s (+ {audit_s:.3f} s of pool "
+                f"audits; {cap:.3f} s of captures before): "
+                f"{st['decode_tokens']} decode tokens, "
+                f"{st['decode_tokens'] / serve_s:.2f} decode tok/s, "
+                f"{st['agg_tok_per_step']} tokens a tick; per replica "
+                f"{[p['requests']['submitted'] for p in st['per_replica'].values()]} "
+                f"requests"
+                + ("" if wst is None else
+                   f" | journal: {wst['appended']} records, "
+                   f"{wst['fsyncs']} fsyncs (every {cl.wal.fsync_every}), "
+                   f"write_s {wst['write_s']} (fsync {fsync[0]:.6f} s), "
+                   f"{wst['write_s'] / serve_s:.4f} of the serving wall "
+                   f"(the journal's tax, reported beside the reference's "
+                   f"budget of a 0.95x throughput, wal.py), {wst['bytes']} "
+                   f"bytes, {wst['errors']} errors"))
+            del cl, handles
+            _empty(device)
+        base, ticks = streams["on"], st["steps"]
+        if streams["off"] != base:
+            raise AssertionError(
+                f"[4g] journal on vs off: streams differ at "
+                f"{_first_diff(streams['off'], base)}")
+        log(f"[4g] journal on = off: identical greedy streams "
+            f"({sum(map(len, base.values()))} tokens)")
+
+        # (b) a whole-process crash: a child serves the load into a
+        # journal and dies at the end of a seeded tick inside decode
+        # (serve.step fires after each replica's step: 2 a tick)
+        T = int(rng.randint(ticks // 2, 3 * ticks // 4 + 1))
+        d = os.path.join(tmp, "crashed")
+        _expect_exit("4g-crash", _run_child(_worker(
+            d, f"serve.step:after:{2 * T}=crash", config, device)),
+            faults.EXIT_CODE)
+        t0 = time.perf_counter()
+        recs, rep = replay(d, repair=False)
+        replay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cl = ServingCluster.recover(cfg, params, d, n_replicas=2,
+                                    cluster=True, **kw)
+        _precapture(cl)
+        rebuild = time.perf_counter() - t0
+        log(f"[4g-recover] the child crashed at the end of tick {T} of "
+            f"{ticks}; its journal: {rep}, replayed in {replay_s:.4f} s")
+        out = _recover_and_serve("4g-recover", cl, work, base, counters,
+                                 rebuild)[0]
+        if device.type == "cuda" and not out["paged_decode"]:
+            raise AssertionError("[4g-recover] paged_decode never launched")
+        del cl
+        _empty(device)
+
+        # (c) in process: a replica crash fails over by recompute; a hang
+        # is salvaged (its running requests' pages copied)
+        for action in ("crash", "hang"):
+            tag = f"4g-{action}"
+            K = 2 * int(rng.randint(ticks // 3, ticks // 2 + 1)) + 1
+            faults.reset(f"replica.fail:before:{K}={action}")
+            try:
+                cl = ServingCluster(cfg, params, n_replicas=2, cluster=True,
+                                    wal=False, beat_timeout=2, **kw)
+                handles, serve_s, _ = _drive_fleet(cl, work)
+            finally:
+                faults.reset("")
+            _check_complete(tag, handles, work)
+            got = {r: list(h.tokens) for r, h in handles.items()}
+            same, lead, total = _agreement(got, base)
+            log(f"[{tag}] replica.fail:before:{K}={action}: "
+                f"{cl.failovers} failovers, {cl.salvages} salvaged "
+                f"requests ({cl.salvaged_pages} pages, "
+                f"{cl.salvages_failed} fell back), {cl.restarts} restarts, "
+                f"states {[r.state for r in cl.replicas]}; {len(work)} "
+                f"requests finished in {cl.tick} ticks, {serve_s:.3f} s; "
+                f"{same} of {len(base)} streams equal the uninterrupted "
+                f"run's, {lead} of {total} tokens before each first "
+                f"difference (reported, not gated)")
+            if not cl.failovers or not cl.restarts:
+                raise AssertionError(f"[{tag}] no failover or restart")
+            if action == "hang" and not cl.salvages:
+                raise AssertionError(f"[{tag}] nothing was salvaged")
+            del cl, handles
+            _empty(device)
+
+        # (d) int8, in process and short: a journaled fleet stopped at a
+        # seeded tick, dropped, and recovered from its journal
+        d = os.path.join(tmp, "int8")
+        T8 = int(rng.randint(ticks // 4, ticks // 3 + 1))
+        cl = ServingCluster(cfg, params, n_replicas=2, cluster=True,
+                            wal=d, quant="int8", **kw)
+        handles, _, _ = _drive_fleet(cl, work, until=T8)
+        pre = {w["rid"]: list(handles[w["rid"]].tokens)
+               if w["rid"] in handles else [] for w in work}
+        del cl, handles
+        _empty(device)
+        t0 = time.perf_counter()
+        cl = ServingCluster.recover(cfg, params, d, n_replicas=2,
+                                    cluster=True, quant="int8", **kw)
+        _precapture(cl)
+        rebuild = time.perf_counter() - t0
+        log(f"[4g-int8] an int8 fleet journaled "
+            f"{sum(map(len, pre.values()))} tokens of "
+            f"{sum(1 for t in pre.values() if t)} requests by tick {T8}, "
+            f"then was dropped")
+        launches, _ = _recover_and_serve(
+            "4g-int8", cl, work, pre, counters, rebuild,
+            what="the dropped fleet's")
+        if device.type == "cuda" and not (launches["paged_decode_quant"]
+                                          and launches["quant_matmul"]):
+            raise AssertionError(f"[4g-int8] launches {launches}")
+        out["paged_decode_quant"] = launches["paged_decode_quant"]
+        out["quant_matmul"] = launches["quant_matmul"]
+        del cl
+        _empty(device)
+    return out
+
+
+def phase_parity_durable(device, config="parity"):
+    """Phase 5c (see the module docstring) on the durability worker's
+    setup ``config`` (``tiny`` to rehearse on the CPU)."""
+    from paddle_tpu_torch.inference.server import ServingCluster
+    from paddle_tpu_torch.inference.server.wal import replay, segment_paths
+    from paddle_tpu_torch.models import params_to
+    from paddle_tpu_torch.testing import durability_worker as worker
+    from paddle_tpu_torch.testing import faults
+
+    counters = _serve_counters()
+    cfg, params, kw, work = worker.build(config, device)
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(DURABLE_SEED + 1)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-5c-") as tmp:
+        journals, streams = {}, {}
+        for dev, p in ((cpu, params_to(params, device="cpu")),
+                       (device, params)):
+            d = os.path.join(tmp, "uninterrupted", str(len(journals)))
+            cl = ServingCluster(cfg, p, n_replicas=2, cluster=True, wal=d,
+                                **dict(kw, device=dev))
+            cl.wal.fsync_every = 1      # as the worker's
+            handles, serve_s, _ = _drive_fleet(cl, work)
+            _check_complete(f"5c-{dev.type}", handles, work)
+            cl.wal.close()
+            streams[dev.type] = {r: list(h.tokens)
+                                 for r, h in handles.items()}
+            journals[dev.type] = [open(q, "rb").read()
+                                  for q in segment_paths(d)]
+            log(f"[5c] {dev.type}: {len(work)} requests in {cl.tick} ticks, "
+                f"{serve_s:.3f} s; journal {cl.wal.appended} records, "
+                f"{sum(map(len, journals[dev.type]))} bytes")
+            del cl, handles, p
+        if journals[device.type] != journals["cpu"]:
+            raise AssertionError("[5c] the card's journal differs from the "
+                                 "CPU's")
+        base = streams["cpu"]
+        if streams[device.type] != base:
+            raise AssertionError(f"[5c] card streams differ from the CPU's "
+                                 f"at {_first_diff(streams[device.type], base)}")
+        log(f"[5c] the card's journal of the uninterrupted run equals the "
+            f"CPU's byte for byte ({sum(map(len, journals['cpu']))} bytes), "
+            f"and so do its streams ({sum(map(len, base.values()))} tokens)")
+        records, _ = replay(os.path.join(tmp, "uninterrupted", "0"),
+                            repair=False)
+        n = len(records)
+        max_new = {w["rid"]: w["max_new_tokens"] for w in work}
+        N = int(rng.randint(5 * n // 8, 7 * n // 8 + 1))  # late
+        K = int(rng.randint(n // 4, n // 2 + 1))  # early: all in flight
+        last = records[N - 1]
+        split = (last["t"] == "token"
+                 and last["i"] == max_new[last["rid"]] - 1)
+        log(f"[5c] the crash depth {N} of {n} records is a {last['t']} "
+            f"record" + (f": {last['rid']}'s last token, so its finish "
+                         f"record is lost and recovery must finish it from "
+                         f"the log" if split else ""))
+        for tag, spec, kill, rc in (
+                ("5c-crash", f"wal.append:after:{N}=crash", None,
+                 faults.EXIT_CODE),
+                ("5c-sigkill", "", K, -signal.SIGKILL)):
+            d = os.path.join(tmp, tag)
+            _expect_exit(tag, _run_child(_worker(d, spec, config, device),
+                                         kill_after=kill), rc)
+            t0 = time.perf_counter()
+            cl = ServingCluster.recover(cfg, params, d, n_replicas=2,
+                                        cluster=True, **kw)
+            _precapture(cl)
+            rebuild = time.perf_counter() - t0
+            launches, got = _recover_and_serve(tag, cl, work, base, counters,
+                                               rebuild, what="the CPU's")
+            if got != base:
+                raise AssertionError(f"[{tag}] recovered streams differ from "
+                                     f"the CPU's at {_first_diff(got, base)}")
+            if device.type == "cuda" and not launches["paged_decode"]:
+                raise AssertionError(f"[{tag}] paged_decode never launched")
+            log(f"[{tag}] ({'wal.append crash after record ' + str(N) if kill is None else f'SIGKILL at {K} records'} "
+                f"of {n}): every recovered stream equals the CPU's "
+                f"uninterrupted run token for token")
+            del cl
+            _empty(device)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -4340,18 +4808,29 @@ def main():
     elapsed("kernel checks")
     launches, streams = phase_serve_ab(device)
     rows[0]["launches"] = launches["paged_decode"]
+    elapsed("phase 4")
     phase_aot(device, streams)
+    elapsed("phase 4e")
     launches, _ = phase_serve_ab(device, quant="int8")
     for row in quant_rows:
         row["launches"] = launches[row["name"]]
+    elapsed("phase 4c")
     # the serving kernels' launches under serve.verify replays (4f)
     verify = phase_features(device, streams)
     for row in [rows[0]] + quant_rows:
         row["verify_launches"] = verify[row["name"]]
+    elapsed("phase 4f")
     phase_parity(device)
     phase_parity(device, quant="int8")
+    elapsed("phase 5")
     phase_parity_features(device)
     elapsed("serving")
+    durable = phase_durable(device)
+    for row in [rows[0]] + quant_rows:
+        row["durable_launches"] = durable[row["name"]]
+    elapsed("phase 4g")
+    phase_parity_durable(device)
+    elapsed("durable serving")
     launches, step, batch = phase_train(device, limit)
     for row in train_rows:
         if not launches[row["name"]]:
@@ -4429,7 +4908,8 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("replay_launches", "verify_launches")
+        {k: r[k] for k in keys + ("replay_launches", "verify_launches",
+                                  "durable_launches")
          if k in r}
         for r in rows]}))
     print(limit)

@@ -15,6 +15,13 @@ Not ported: ``CompileCache``, ``signature`` and ``cache_root``.  A CUDA
 graph holds device addresses of the process that captured it and cannot
 be serialized, so there is no executable to keep on disk; a warm engine
 captures at build (a fraction of a second per rung).
+
+Fault points: an explicit :meth:`CountedGraph.aot_capture` (the warmup)
+fires ``aot.lower`` around the warm-up run of the forward and
+``aot.compile`` around the graph's capture, never inside the captured
+region.  A raise there fails that warmup entry only (the executor's
+warmup records it and serving goes on; the rung captures at its first
+call).  ``aot.cache`` has no site: nothing is kept on disk.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import time
 import weakref
 
 import torch
+
+from ..testing import faults
 
 MODES = ("off", "warm", "strict")
 
@@ -158,6 +167,10 @@ def _weak(fn):
     return lambda: fn
 
 
+def _no_fire(point, phase):
+    return None
+
+
 class CountedGraph:
     """A forward over fixed-address buffers, captured once per shape rung
     and replayed: the port's ``CountedJit``.
@@ -227,17 +240,24 @@ class CountedGraph:
     def _scratch(self):
         return self._scratch_ref()()
 
-    def _warm_and_capture(self, rung):
+    def _warm_and_capture(self, rung, points):
+        fire = faults.fire if points else _no_fire
         fn = self.fn
         if self.device.type != "cuda":
+            fire("aot.lower", "before")
             fn(rung)
+            fire("aot.lower", "after")
+            fire("aot.compile", "before")
+            fire("aot.compile", "after")
             return None, None, [(0, {}) for _ in self._counters]
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
+        fire("aot.lower", "before")
         with torch.cuda.stream(side):
             fn(rung)
         stream.wait_stream(side)
+        fire("aot.lower", "after")
         if self._release:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
@@ -248,6 +268,7 @@ class CountedGraph:
         # no collection during the capture: a finalizer that frees another
         # graph or an event there (a CUDA call the capture forbids)
         # invalidates it
+        fire("aot.compile", "before")
         enabled = gc.isenabled()
         gc.disable()
         try:
@@ -256,13 +277,17 @@ class CountedGraph:
         finally:
             if enabled:
                 gc.enable()
+        fire("aot.compile", "after")
         tally = [(n - n0, {k: v - r0.get(k, 0) for k, v in r.items()})
                  for (n, r), (n0, r0) in zip(_read(self._counters), before)]
         return graph, out, tally
 
-    def aot_capture(self, rung) -> str:
+    def aot_capture(self, rung, points=True) -> str:
         """Capture the program at ``rung`` unless it already is; returns
-        ``"warm"`` (already captured) or ``"capture"``."""
+        ``"warm"`` (already captured) or ``"capture"``.  ``points``: fire
+        the ``aot.*`` fault points (the warmup's captures do; a capture
+        at a first call does not, as the reference's plain jit does
+        not)."""
         rung = tuple(rung)
         if rung in self._exe:
             return "warm"
@@ -270,7 +295,7 @@ class CountedGraph:
         t0 = time.perf_counter()
         try:
             with self._scratch():
-                exe = self._warm_and_capture(rung)
+                exe = self._warm_and_capture(rung, points)
         finally:
             _restore(self._counters, state)
         self._exe[rung] = exe
@@ -291,7 +316,7 @@ class CountedGraph:
                     f"[{self.name}] PT_AOT=strict: dispatch at rung {rung} "
                     f"after seal(), which the warmup never captured (the "
                     f"shape ladder must cover every runtime shape)")
-            self.aot_capture(rung)
+            self.aot_capture(rung, points=False)
         self.dispatches += 1
         graph, out, tally = self._exe[rung]
         if graph is None:

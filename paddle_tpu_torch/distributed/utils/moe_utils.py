@@ -22,7 +22,7 @@ einsum path's cumsum counts.
 
 Expert parallelism (``global_scatter`` / ``global_gather`` and
 :func:`ep_moe_local` with an axis name) is not ported: it raises
-``NotImplementedError`` (ROADMAP.md Queue 1, item 9).
+``NotImplementedError`` (ROADMAP.md Queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from ...ops.manipulation import topk
 from ...ops.nn_ops import einsum
 
 _EP = ("expert parallelism over torch.distributed is not ported yet "
-       "(ROADMAP.md Queue 1, item 9)")
+       "(ROADMAP.md Queue 1, item 8)")
 
 
 def global_scatter(expert_in, axis_name, n):

@@ -13,8 +13,9 @@ moe_utils.resolve_moe_impl``):
 Parameter names are ``paddle_tpu``'s (``gate.wg``, ``experts.w1``,
 ``experts.b1``, ``experts.w2``, ``experts.b2``), so ``models.convert.
 load_numpy_state`` loads its ``state_dict()`` as it is.  Not ported, and
-refused with ``NotImplementedError``: ``dispatch_mode="alltoall"``, a
-``mesh``, per-expert layer lists (ROADMAP.md Queue 1, item 9).
+refused with ``NotImplementedError``: ``dispatch_mode="alltoall"`` and
+a ``mesh`` (ROADMAP.md Queue 1, item 8), per-expert layer lists (item
+7).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from .....ops.kernels.grouped_gemm import einsum_ffn, grouped_ffn
 from .....ops.nn_ops import einsum
 from .gate import GShardGate, NaiveGate, SwitchGate
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 9)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, items 7 and 8)"
 
 
 class ExpertFFN(nn.Module):

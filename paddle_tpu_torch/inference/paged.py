@@ -49,9 +49,15 @@ Speculative decode's verify step reads two more step buffers, filled by
 the same staging copy: the window ids ``[max_seqs, max_window]`` and the
 commit limits ``[max_seqs]`` (:meth:`stage_verify`).
 
-Not ported (later slices): the sequence-parallel writes
-(``write_sharded``, ``gather_shards``) and the ``prefix.cow`` fault
-point.
+Fault points, as in the reference: ``prefix.cow`` brackets one
+copy-on-write, ``quant.kv_write`` one host-side int8 page write
+(``write_at`` / ``append``; after = pages and scales written, length not
+yet advanced) and ``quant.dequant`` one dequantizing ``gather_dense``.
+The per-layer decode writes (``write_token``) run inside the captured
+decode step and fire nothing.
+
+Not ported (ROADMAP.md Queue 1, item 8): the sequence-parallel writes
+(``write_sharded``, ``gather_shards``).
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ import torch
 from ..device import resolve_device
 from ..ops import quant as _quant
 from ..ops.kernels.paged_decode import paged_decode, paged_decode_quant
+from ..testing import faults as _faults
 
 _POOL_EXHAUSTED = "KV page pool exhausted"
 
@@ -226,6 +233,7 @@ class PagedKVCache:
                 self._cow(seq, slot)
 
     def _cow(self, seq: int, slot: int) -> None:
+        _faults.fire("prefix.cow", "before")
         if not self._free:
             self._reclaim(1)
         if not self._free:
@@ -245,6 +253,7 @@ class PagedKVCache:
         self.page_table[seq, slot] = new
         self.page_refs[old] -= 1
         self.cow_count += 1
+        _faults.fire("prefix.cow", "after")
 
     def trim(self, seq: int) -> int:
         """Release every assigned page-table slot past the page cover of
@@ -320,12 +329,14 @@ class PagedKVCache:
             row = self.page_table[seq]
             pos = np.arange(start, start + T)
             pids = row[pos // ps]
+            _faults.fire("quant.kv_write", "before")
             _quant.kv_write(self._kv_pages, self._kv_scales,
                             torch.as_tensor(pids, device=self.device),
                             torch.as_tensor(pos % ps, device=self.device),
                             torch.stack([k, v]),
                             torch.as_tensor(np.unique(pids),
                                             device=self.device))
+            _faults.fire("quant.kv_write", "after")
             self.lengths[seq] = start + T
             return
         k = k.to(self.k_pages.dtype)
@@ -373,9 +384,14 @@ class PagedKVCache:
             self.make_writable(s, pos, pos + 1)
         table, lens = self.tables(seqs)
         pids, offs = self.token_slots(table, lens.long())
+        quant = self.k_scales is not None
+        if quant:
+            _faults.fire("quant.kv_write", "before")
         for layer in range(self.k_pages.shape[0]):
             self.write_token(layer, pids, offs, k[layer].transpose(0, 1),
                              v[layer].transpose(0, 1))
+        if quant:
+            _faults.fire("quant.kv_write", "after")
         for s in seqs:
             self.lengths[s] += 1
 
@@ -398,10 +414,12 @@ class PagedKVCache:
         k = self.k_pages[:, :, pids]           # [L, KV, n, ps, D]
         v = self.v_pages[:, :, pids]
         if self.k_scales is not None:
+            _faults.fire("quant.dequant", "before")
             k = _quant.kv_dequant(k, self.k_scales[:, :, pids],
                                   self.compute_dtype)
             v = _quant.kv_dequant(v, self.v_scales[:, :, pids],
                                   self.compute_dtype)
+            _faults.fire("quant.dequant", "after")
         sh = (k.shape[0], k.shape[1], n * self.page_size, k.shape[4])
         return k.reshape(sh), v.reshape(sh)
 

@@ -47,6 +47,15 @@ environment when its argument is ``None`` (a bad value fails at build):
   ``serve.verify`` at every batch.
 * ``async_exec`` (``PT_ASYNC_EXEC=off|on``): double-buffered steps, the
   next step planned while the card runs this one.
+
+Durability: ``wal`` is ``None`` (follow ``PT_WAL``, default off, which
+is bit-exact with no journal), ``False`` (off), a directory path or a
+:class:`~.wal.WriteAheadLog` (on).  On, every accepted request is
+journaled (``submit`` before the scheduler sees it, then the
+scheduler's ``admit`` / ``token`` / ``finish``), and a second submit of
+a known rid returns the original request's handle and journals
+``dedup`` (at-least-once clients get exactly one stream).
+``ServingCluster.recover`` rebuilds the streams from the journal.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ from .prefix_cache import PrefixCache
 from .request import Request, RequestHandle
 from .scheduler import Scheduler
 from .spec_decode import SpecDecode, spec_mode
+from .wal import resolve_wal
 
 
 def _gate(name):
@@ -77,7 +87,7 @@ class ServingEngine:
                  policy="fifo", prefill_chunk=None, eos_token_id=None,
                  max_preemptions=4, clock=None, device=None, quant=None,
                  aot=None, decode_n_steps=(), prefix_cache=None,
-                 spec_decode=None, async_exec=None):
+                 spec_decode=None, async_exec=None, wal=None):
         if aot is None:
             aot = aot_mod.mode()
         if aot not in aot_mod.MODES:
@@ -95,6 +105,9 @@ class ServingEngine:
         if async_exec is None:
             async_exec = _gate("PT_ASYNC_EXEC")
         self.spec = SpecDecode() if spec_decode else None
+        # resolved before the executor is built: a bad PT_WAL fails fast
+        self.wal = resolve_wal(wal)
+        self.dedup_hits = 0
         self.executor = PagedExecutor(
             config, params, max_seqs=max_seqs, page_size=page_size,
             max_len=max_len, dtype=dtype, num_pages=num_pages,
@@ -115,7 +128,7 @@ class ServingEngine:
             self.executor, self.metrics, policy=policy,
             prefill_chunk=prefill_chunk, eos_token_id=eos_token_id,
             max_preemptions=max_preemptions, prefix_cache=self.prefix,
-            spec=self.spec, async_exec=async_exec)
+            spec=self.spec, async_exec=async_exec, wal=self.wal)
         self._next_rid = 0
         self.aot_mode = aot
         self._aot_report = None
@@ -135,14 +148,14 @@ class ServingEngine:
 
         ``deadline`` is in scheduler iterations from submission;
         ``on_token(rid, tok)`` streams tokens as they land.  A ``rid``
-        already seen returns the original request's handle."""
+        already seen returns the original request's handle (a dedup)."""
         if rid is None:
             rid = f"req-{self._next_rid}"
             while rid in self.scheduler.requests:
                 self._next_rid += 1
                 rid = f"req-{self._next_rid}"
         elif rid in self.scheduler.requests:
-            return RequestHandle(self, self.scheduler.requests[rid])
+            return self._dedup(rid, self.scheduler.requests[rid])
         req = Request(rid, prompt_ids, max_new_tokens=max_new_tokens,
                       priority=priority, deadline=deadline,
                       on_token=on_token, arrival_seq=self._next_rid,
@@ -152,7 +165,21 @@ class ServingEngine:
             raise ValueError("prompt_ids must be non-empty")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.wal is not None:
+            # journal acceptance before the scheduler sees the request,
+            # so no accepted request can outrun its submit record
+            self.wal.append({
+                "t": "submit", "rid": rid,
+                "prompt": req.prompt_ids.tolist(),
+                "max_new": req.max_new_tokens,
+                "prio": req.priority, "deadline": req.deadline})
         self.scheduler.add(req)
+        return RequestHandle(self, req)
+
+    def _dedup(self, rid, req) -> RequestHandle:
+        self.dedup_hits += 1
+        if self.wal is not None:
+            self.wal.append({"t": "dedup", "rid": rid})
         return RequestHandle(self, req)
 
     def cancel(self, rid) -> None:
@@ -192,4 +219,11 @@ class ServingEngine:
         return self.scheduler.requests.get(rid)
 
     def stats(self) -> dict:
-        return self.metrics.stats()
+        """The metrics' stats plus the durability part: the journal's
+        state (None when off) and the dedup hits."""
+        out = self.metrics.stats()
+        out["durability"] = {
+            "wal": None if self.wal is None else self.wal.statusz(),
+            "dedup_hits": self.dedup_hits,
+        }
+        return out

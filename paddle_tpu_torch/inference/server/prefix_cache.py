@@ -25,12 +25,15 @@ of the whole module, held by the port, which imports nothing of the JAX
 package.  The tree is host-only; the pages it indexes live in the
 port's :class:`~paddle_tpu_torch.inference.paged.PagedKVCache`.
 
-Not ported: the fault points ``prefix.match``, ``prefix.cow`` and
-``prefix.evict`` (``testing/faults.py`` is not ported yet).
+Fault point: ``prefix.evict`` brackets one LRU leaf eviction
+(``prefix.match`` fires in the scheduler's admission, ``prefix.cow`` in
+the page pool's copy-on-write).
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ...testing import faults
 
 
 class _Node:
@@ -288,6 +291,7 @@ class PrefixCache:
             victim = self._lru_unpinned_leaf()
             if victim is None:
                 break
+            faults.fire("prefix.evict", "before")
             del victim.parent.children[self._key(victim.tokens)]
             for pid in victim.pages:
                 self.cache._deref(pid)
@@ -297,6 +301,7 @@ class PrefixCache:
             self.evictions += 1
             if self.on_evict is not None:
                 self.on_evict(n)
+            faults.fire("prefix.evict", "after")
         return freed
 
     def evictable_pages(self) -> int:

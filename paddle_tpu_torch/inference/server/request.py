@@ -8,11 +8,14 @@ port imports nothing of the JAX package).  State machine::
        +----------+------------+   (preemption: pages freed, request
                                     re-queued for recompute)
     terminal anywhere: CANCELLED (user), EVICTED (policy drop),
-                       FAILED (exception confined to this request)
+                       FAILED (exception confined to this request),
+                       REJECTED (shed at the cluster boundary before
+                       admission — ``retry_after`` says when to retry)
 
 ``finish_reason`` narrows the terminal state: "eos" (FINISHED),
 "length"/"deadline" (TRUNCATED), "cancelled", "too_large"/
-"preempt_budget" (EVICTED), or the exception repr (FAILED).
+"preempt_budget" (EVICTED), the exception repr (FAILED), or
+"overload"/"deadline_unmeetable" (REJECTED).
 """
 from __future__ import annotations
 
@@ -31,13 +34,29 @@ class RequestState(enum.Enum):
     CANCELLED = "cancelled"    # user cancellation
     EVICTED = "evicted"        # dropped by admission/preemption policy
     FAILED = "failed"          # an exception confined to this request
+    REJECTED = "rejected"      # shed by cluster admission control
 
 
 #: states from which a request never leaves.
 TERMINAL = frozenset({
     RequestState.FINISHED, RequestState.TRUNCATED,
     RequestState.CANCELLED, RequestState.EVICTED, RequestState.FAILED,
+    RequestState.REJECTED,
 })
+
+
+class RequestRejected(RuntimeError):
+    """Raised by ``result()``/``stream()`` of a shed request: the
+    cluster's admission control rejected it before any scheduler saw
+    it.  ``retry_after`` is the suggested back-off in logical steps."""
+
+    def __init__(self, rid, reason, retry_after):
+        super().__init__(
+            f"request {rid} rejected ({reason}); "
+            f"retry after {retry_after} steps")
+        self.rid = rid
+        self.reason = reason
+        self.retry_after = int(retry_after)
 
 
 class Request:
@@ -52,7 +71,8 @@ class Request:
         "preempt_count", "submit_step", "submit_time", "sched_step",
         "first_token_step", "first_token_time", "finish_step",
         "finish_time", "last_token_time", "cached_tokens",
-        "draft_proposed", "draft_accepted", "clock",
+        "draft_proposed", "draft_accepted", "clock", "retry_after",
+        "recovered",
     )
 
     def __init__(self, rid, prompt_ids, max_new_tokens=16, priority=0,
@@ -79,6 +99,8 @@ class Request:
         self.cached_tokens = 0     # prompt tokens attached from cache
         self.draft_proposed = 0    # speculative draft tokens offered
         self.draft_accepted = 0    # ...committed by verification
+        self.retry_after = None    # set when shed (state REJECTED)
+        self.recovered = False     # rebuilt from the journal after a crash
 
         self.submit_step = None
         self.submit_time = None
@@ -146,7 +168,8 @@ class RequestHandle:
         Raises the confined exception on FAILED."""
         while not self._req.terminal:
             self._engine.step()
-        if self._req.state is RequestState.FAILED:
+        if self._req.state in (RequestState.FAILED,
+                               RequestState.REJECTED):
             raise self._req.error
         return list(self._req.generated)
 
@@ -159,7 +182,8 @@ class RequestHandle:
                 yield self._req.generated[sent]
                 sent += 1
             if self._req.terminal:
-                if self._req.state is RequestState.FAILED:
+                if self._req.state in (RequestState.FAILED,
+                                       RequestState.REJECTED):
                     raise self._req.error
                 return
             self._engine.step()
@@ -185,6 +209,8 @@ class RequestHandle:
             "cached_tokens": r.cached_tokens,
             "draft_proposed": r.draft_proposed,
             "draft_accepted": r.draft_accepted,
+            "retry_after": r.retry_after,
+            "recovered": r.recovered,
         }
 
     def __repr__(self):

@@ -35,14 +35,34 @@ failed or was cancelled) the plan is rebuilt and ``replans`` counts it.
 The interleaving stays deterministic on the logical clock: the async
 stream equals the sync one token for token.
 
-Not ported: the fault points, the obs spans, the write-ahead journal and
-the sequence-parallel prefill.
+Fault points (``testing/faults.py``), at the reference's places in the
+control flow, hit for hit: ``serve.step``, ``serve.decode``,
+``serve.admit``, ``serve.request`` (a raise there fails that request
+alone), ``prefix.match``, ``spec.draft`` / ``spec.verify`` /
+``spec.rollback`` and ``async.plan`` / ``async.commit`` /
+``async.replan``.  A raise at any other point escapes :meth:`step` with
+the pool consistent, and the next step carries on; an async commit
+interrupted between dispatch and fence is completed by the next step,
+so no token is lost.  None of them fires inside a captured CUDA graph:
+``serve.decode`` brackets the whole replay.
+
+With a write-ahead journal (``wal``, a
+:class:`~.wal.WriteAheadLog`), the scheduler writes the ``admit``,
+``token`` (with its stream index ``i``) and ``finish`` (with ``n`` and
+the stream's crc) records; every token of every path funnels through
+``_on_token``, so one hook covers them all.
+
+Not ported: the obs spans (ROADMAP.md Queue 1, item 9) and the
+sequence-parallel prefill (item 8).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ... import obs
+from ...testing import faults
 from .request import RequestState
+from .wal import stream_crc
 
 _POOL_EXHAUSTED = "KV page pool exhausted"
 
@@ -71,7 +91,7 @@ class Scheduler:
     def __init__(self, executor, metrics, policy="fifo",
                  prefill_chunk=None, eos_token_id=None,
                  max_preemptions=4, prefix_cache=None, spec=None,
-                 async_exec=False):
+                 async_exec=False, wal=None):
         if policy not in ("fifo", "priority"):
             raise ValueError(
                 f"policy must be 'fifo' or 'priority', got {policy!r}")
@@ -90,11 +110,16 @@ class Scheduler:
         self.running: list = []      # hold a slot, decoding
         self.tick = 0                # logical clock (iterations)
         self._last_decode_batch = 0
+        obs.handle()    # the PT_OBS gate: on raises (not ported)
+        # write-ahead journal (None = off, bit-exact)
+        self.wal = wal
         # double-buffered execution: the plan built while the previous
-        # step was in flight, the replan counter and the host-overlap
-        # accounting (seconds on the metrics clock)
+        # step was in flight, a commit a fault interrupted mid-step, the
+        # replan counter and the host-overlap accounting (seconds on the
+        # metrics clock)
         self.async_mode = bool(async_exec)
         self._pending = None     # StepPlan parked for the next step
+        self._inflight = None    # (StepPlan, pending) awaiting commit
         self.replans = 0
         self.overlapped_s = 0.0  # host seconds hidden behind the card
         self.device_s = 0.0      # dispatch-to-fence wall seconds
@@ -123,6 +148,7 @@ class Scheduler:
 
     def step(self) -> dict:
         """One scheduler iteration.  Returns {rid: [tokens emitted]}."""
+        faults.fire("serve.step", "before")
         self.tick += 1
         emitted: dict = {}
         if self.async_mode:
@@ -139,6 +165,7 @@ class Scheduler:
                         - self.executor.free_pages),
             in_flight=len(self.queue) + len(self.prefilling)
             + len(self.running))
+        faults.fire("serve.step", "after")
         return emitted
 
     # -- sweeps ---------------------------------------------------------
@@ -201,11 +228,14 @@ class Scheduler:
             return
         sids = sorted(r.sid for r in run)
         by_sid = {r.sid: r for r in run}
+        # around the whole dispatch, never inside the captured graph
+        faults.fire("serve.decode", "before")
         toks = self.executor.decode(sids)
         self._last_decode_batch = len(sids)
         self.metrics.on_decode_tokens(len(sids))
         for sid in sids:
             self._on_token(by_sid[sid], toks[sid], emitted)
+        faults.fire("serve.decode", "after")
 
     # -- speculative decode (draft -> batched verify -> rollback) -------
 
@@ -228,7 +258,11 @@ class Scheduler:
         run = list(self.running)
         if not run:
             return None
+        # the draft sweep reads the n-gram index only: a raise here
+        # escapes step() with nothing mutated
+        faults.fire("spec.draft", "before")
         drafts = {r.rid: self.spec.propose(r) for r in run}
+        faults.fire("spec.draft", "after")
 
         def extras(sids, by_sid):
             return [self._spec_limit(by_sid[s], len(drafts[by_sid[s].rid]))
@@ -254,12 +288,14 @@ class Scheduler:
         if batch is None:
             return
         sids, by_sid, lims, dr = batch
+        faults.fire("spec.verify", "before")
         toks, accepted = self.executor.verify(sids, dr, lims, self.spec.k)
         self._emit_verify(StepPlan(self.tick, sids, by_sid, kind="verify",
                                    drafts=dr), toks, accepted, emitted)
 
     def _emit_verify(self, plan, toks, accepted, emitted):
-        """The tail of a verify step: emission, spec metrics, rollback."""
+        """The tail of a verify step: emission, spec metrics, rollback
+        (``spec.verify``'s after phase and ``spec.rollback``)."""
         sids, by_sid, dr = plan.sids, plan.by_sid, plan.drafts
         self._last_decode_batch = len(sids)
         self.metrics.on_decode_step(
@@ -274,8 +310,11 @@ class Scheduler:
                 if req.terminal:
                     break   # tokens past eos / the cap are dropped
                 self._on_token(req, tok, emitted)
+        faults.fire("spec.verify", "after")
+        faults.fire("spec.rollback", "before")
         self.executor.rollback(
             [r.sid for r in by_sid.values() if r.sid is not None])
+        faults.fire("spec.rollback", "after")
 
     # -- double-buffered execution --------------------------------------
 
@@ -294,6 +333,19 @@ class Scheduler:
         clk = self.metrics.clock
         ph = {}
         t0 = clk()
+        faults.fire("async.plan", "before")
+        if self._inflight is not None:
+            # a fault escaped between dispatch and commit last step:
+            # complete the parked commit first, so no device work and no
+            # token is lost (they land in this step's emitted map; every
+            # stream stays exact)
+            plan0, pending0 = self._inflight
+            pending0.wait()
+            self._inflight = None
+            if plan0.kind == "verify":
+                self._commit_verify(plan0, pending0, emitted)
+            else:
+                self._commit_decode(plan0, pending0, emitted)
         self._sweep_cancelled()
         self._sweep_deadlines()
         if self.spec is not None:
@@ -308,6 +360,7 @@ class Scheduler:
     def _step_async_plain(self, emitted, clk, ph, t0):
         self._last_decode_batch = 0
         plan = self._obtain_plan()
+        faults.fire("async.plan", "after")
         t1 = clk()
         ph["plan"] = t1 - t0
         if plan is None:
@@ -318,10 +371,14 @@ class Scheduler:
         self._plan_ahead(plan)
         t3 = clk()
         ph["overlap"] = t3 - t2
+        self._inflight = (plan, pending)
+        faults.fire("async.commit", "before")
         pending.wait()
+        self._inflight = None
         t4 = clk()
         ph["fence"] = t4 - t3
         self._commit_decode(plan, pending, emitted)
+        faults.fire("async.commit", "after")
         self.overlapped_s += ph["overlap"]
         self.device_s += ph["dispatch"] + ph["overlap"] + ph["fence"]
         return t4
@@ -329,19 +386,25 @@ class Scheduler:
     def _step_async_spec(self, emitted, clk, ph, t0):
         self._last_decode_batch = 0
         batch = self._spec_batch()
+        faults.fire("async.plan", "after")
         t1 = clk()
         ph["plan"] = t1 - t0
         if batch is None:
             return t1
         sids, by_sid, lims, dr = batch
         plan = StepPlan(self.tick, sids, by_sid, kind="verify", drafts=dr)
+        faults.fire("spec.verify", "before")
         pending = self.executor.verify_async(sids, dr, lims, self.spec.k)
         t2 = clk()
         ph["dispatch"] = t2 - t1
+        self._inflight = (plan, pending)
+        faults.fire("async.commit", "before")
         pending.wait()
+        self._inflight = None
         t3 = clk()
         ph["fence"] = t3 - t2
         self._commit_verify(plan, pending, emitted)
+        faults.fire("async.commit", "after")
         self.device_s += ph["dispatch"] + ph["fence"]
         return t3
 
@@ -350,7 +413,9 @@ class Scheduler:
         fresh one from live state (the replan path, counted)."""
         plan, self._pending = self._pending, None
         if plan is not None and not self._plan_valid(plan):
+            faults.fire("async.replan", "before")
             self.replans += 1
+            faults.fire("async.replan", "after")
             plan = None
         if plan is None:
             plan = self._build_plan()
@@ -460,7 +525,9 @@ class Scheduler:
             req = self._pick_next()
             hit_tokens, hit_pages = 0, []
             if self.prefix is not None:
+                faults.fire("prefix.match", "before")
                 hit_tokens, hit_pages = self.prefix.match(req.resume_ids)
+                faults.fire("prefix.match", "after")
             # admission pays only for novel pages: hit pages are attached
             # by reference; a mid-page hit budgets one page for the copy
             # of the partial page, and cold cached pages count as
@@ -480,6 +547,7 @@ class Scheduler:
                         self._preempt(victim)
                         continue
                 break  # FIFO: head-of-line blocking keeps arrival order
+            faults.fire("serve.admit", "before")
             req.sid = ex.alloc_slot()
             req.prefill_done = 0
             if hit_tokens:
@@ -491,6 +559,10 @@ class Scheduler:
             self.queue.remove(req)
             self.prefilling.append(req)
             self.metrics.on_sched(req, self.tick)
+            if self.wal is not None:
+                self.wal.append({"t": "admit", "rid": req.rid,
+                                 "tick": self.tick})
+            faults.fire("serve.admit", "after")
 
     def _pick_next(self):
         if self.policy == "priority":
@@ -535,11 +607,13 @@ class Scheduler:
                 self._preempt(req)
                 continue
             try:
+                faults.fire("serve.request", "before")
                 if start == 0 and final and ladder is None:
                     tok = self.executor.prefill(req.sid, ids)
                 else:
                     tok = self.executor.prefill_chunk(
                         req.sid, ids[start:start + chunk], start, final)
+                faults.fire("serve.request", "after")
             except RuntimeError as e:
                 if _POOL_EXHAUSTED in str(e):
                     self._preempt(req)
@@ -574,6 +648,12 @@ class Scheduler:
         if self.spec is not None:
             self.spec.on_token(req, tok)
         emitted.setdefault(req.rid, []).append(int(tok))
+        if self.wal is not None:
+            # "i" is the token's stream index: replay trusts only a
+            # contiguous-from-zero prefix
+            self.wal.append({"t": "token", "rid": req.rid,
+                             "tok": int(tok),
+                             "i": len(req.generated) - 1})
         if req.first_token_step is None:
             self.metrics.on_first_token(req, self.tick)
         if (self.eos_token_id is not None
@@ -626,3 +706,10 @@ class Scheduler:
         req.state = state
         req.finish_reason = reason
         self.metrics.on_terminal(req, self.tick)
+        if self.wal is not None:
+            # n and crc let replay prove a journaled stream complete
+            # before serving it from the log
+            self.wal.append({
+                "t": "finish", "rid": req.rid, "state": state.value,
+                "reason": reason, "n": len(req.generated),
+                "crc": stream_crc(req.generated)})

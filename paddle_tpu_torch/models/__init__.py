@@ -8,7 +8,7 @@ from .bert import (  # noqa: F401
     BertForSequenceClassification, BertModel, init_bert_params,
 )
 from .convert import (  # noqa: F401
-    from_numpy_state, load_numpy_state, serving_params,
+    from_numpy_state, load_numpy_state, numpy_state, serving_params,
 )
 from .llama import (  # noqa: F401
     LlamaConfig, LlamaForCausalLM, init_llama_params, params_to,

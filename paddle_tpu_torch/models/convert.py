@@ -1,5 +1,5 @@
-"""Weights from ``paddle_tpu`` into the port — the only crossing point —
-and from the training model into the serving engine.
+"""Weights from ``paddle_tpu`` into the port and back — the only crossing
+point — and from the training model into the serving engine.
 
 ``paddle_tpu``'s ``LlamaForCausalLM.state_dict()``, converted to numpy
 by the caller, is keyed ``llama.layers.{i}.self_attn.q_proj.weight``,
@@ -38,6 +38,23 @@ def from_numpy_state(state: dict, cfg: LlamaConfig, device=None,
         "lm_head": (None if cfg.tie_word_embeddings
                     else t(state["lm_head.weight"])),
     }
+
+
+def numpy_state(params: dict, cfg: LlamaConfig) -> dict:
+    """The inverse of :func:`from_numpy_state`: a flat fp32 numpy state
+    dict in ``paddle_tpu``'s names from the port's parameter dict (to
+    load the port's seeded weights into the reference's model)."""
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    state = {f"llama.layers.{i}.{n}": a(w[i])
+             for n, w in params["layers"].items()
+             for i in range(cfg.num_hidden_layers)}
+    state["llama.embed_tokens.weight"] = a(params["embed"])
+    state["llama.norm.weight"] = a(params["norm"])
+    if params["lm_head"] is not None:
+        state["lm_head.weight"] = a(params["lm_head"])
+    return state
 
 
 def load_numpy_state(module: torch.nn.Module, state: dict) -> None:

@@ -12,7 +12,7 @@ model (``models.bert.init_bert_params``).  Every dropout, attention
 dropout included, draws from the ``generator`` a layer is given.  Not
 ported yet: the decode caches (``Cache``, ``StaticCache``,
 ``gen_cache``), ``TransformerDecoderLayer``, ``TransformerDecoder`` and
-``Transformer`` (ROADMAP.md Queue 1, item 10).
+``Transformer`` (ROADMAP.md Queue 1, item 6).
 """
 from __future__ import annotations
 

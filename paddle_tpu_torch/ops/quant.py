@@ -84,9 +84,16 @@ def dequantize(qweight, scale, dtype=None):
 
 
 def quantize_linear(w):
-    """Pack one matmul weight into the ``{"qweight", "scale"}`` dict."""
+    """Pack one matmul weight into the ``{"qweight", "scale"}`` dict
+    (the ``quant.pack`` fault point: a raise fails the engine's build,
+    never a serving step)."""
+    from ..testing import faults
+
+    faults.fire("quant.pack", "before")
     qweight, scale = quantize_per_channel(w)
-    return {"qweight": qweight, "scale": scale}
+    out = {"qweight": qweight, "scale": scale}
+    faults.fire("quant.pack", "after")
+    return out
 
 
 def is_quantized(w):

@@ -3,18 +3,18 @@
 Counterpart of ``paddle_tpu/testing/load.py`` (a copy of its workload
 shapes): ``generate_load`` makes the same numpy draws in the same order,
 so both packages replay byte-identical requests from one seed, and
-``run_load`` submits each request when the engine's logical clock
-reaches its arrival tick.  The shared-prefix shape (``prefix_share``,
+``run_load`` submits each request when the engine's (or the fleet's)
+logical clock reaches its arrival tick.  The shared-prefix shape (``prefix_share``,
 ``prefix_len``, ``prefix_pool``, optionally Zipf-skewed by ``zipf_s``)
 feeds the prefix cache, the repetitive one (``repeat_share``,
 ``repeat_period``) speculative decode; with both shares 0 no extra draw
 is made, so earlier seeds replay byte-identically.
-
-Not ported: the fault hooks (``on_error``).
 """
 from __future__ import annotations
 
 import numpy as np
+
+from . import faults
 
 
 class LoadSpec:
@@ -89,14 +89,17 @@ def generate_load(spec: LoadSpec) -> list:
     return work
 
 
-def run_load(engine, workload, max_steps=10000) -> dict:
+def run_load(engine, workload, max_steps=10000, on_error="raise") -> dict:
     """Replay ``workload`` against ``engine`` on the logical clock: per
     iteration, submit every request whose arrival tick has come, then
-    ``engine.step()``.  Returns ``{"handles": {rid: RequestHandle},
+    ``engine.step()``.  ``on_error="continue"`` records an
+    :class:`~.faults.InjectedFault` escaping a step and keeps driving
+    (the fault-under-load mode); anything else re-raises.  Returns
+    ``{"handles": {rid: RequestHandle}, "errors": [InjectedFault...],
     "stats": engine.stats()}``."""
     pending = sorted(workload, key=lambda w: (w["arrival_tick"],
                                               w["rid"]))
-    handles = {}
+    handles, errors = {}, []
     while pending or engine.in_flight:
         if engine.tick >= max_steps:
             raise RuntimeError(
@@ -108,5 +111,11 @@ def run_load(engine, workload, max_steps=10000) -> dict:
             handles[w["rid"]] = engine.submit(
                 w["prompt_ids"], max_new_tokens=w["max_new_tokens"],
                 priority=w["priority"], rid=w["rid"])
-        engine.step()
-    return {"handles": handles, "stats": engine.stats()}
+        try:
+            engine.step()
+        except faults.InjectedFault as e:
+            if on_error != "continue":
+                raise
+            errors.append(e)
+    return {"handles": handles, "errors": errors,
+            "stats": engine.stats()}
