@@ -124,6 +124,22 @@ result):
              paged_decode_quant and quant_matmul).  Tokens after a resume
              point are reported, not gated (bf16 recompute re-prefills
              at other GEMM shapes).
+4h. elastic fleet — Llama-2-7B at full width and depth in bf16 on 4g's
+             weights (not built again), phase 4's engine shape and load:
+             (a) two mixed replicas of 2 slots take 6 requests at once,
+             r0 is drained after three ticks (its queue re-steered), a
+             replica joins and takes the last 2; every request
+             finishes, r0 ends drained and idle,
+             the pools' invariants hold after every step; the joined
+             replica's graphs captured and their seconds; (b) a
+             disaggregated fleet (one prefill and one decode replica):
+             handoffs happen, the decode replica admits nothing and
+             decodes, each handed-off sequence's K/V lands with the
+             source's crc32, the handoffs' tokens, pages, and the ms and
+             GB/s of each gather_dense + write_at, paged_decode launched;
+             (c) the same with quant="int8": paged_decode_quant and
+             quant_matmul launched.  Streams against 4g's are reported,
+             not gated (the decode batch's M differs; bf16).
 5. parity  — the same model cut to 2 layers, in fp32: 4 requests on the
              card (the kernels) and on the CPU (the plain versions) must
              give identical greedy streams and first-token logits within
@@ -138,6 +154,10 @@ result):
              a seeded depth are each recovered on the card, and every
              stream must equal the CPU's uninterrupted run token for
              token.
+5d. elastic parity — 5c's 2-layer fp32 setup: a drain + join fleet (one
+             slot a replica, so that r0 holds a queue) and a
+             disaggregated fleet on the card give the CPU's streams
+             token for token.
 5b. feature parity — the same 2-layer fp32 model, 5 requests behind one
              shared prefix with tiled prompts: the prefix cache, spec
              decode and async, each on alone, give the off leg's streams
@@ -170,14 +190,14 @@ result):
              rounding; 6.738 B parameters x 2 B for parameters, gradients
              and the two bf16 moments), full recompute, B=4, S=2048, lr
              1e-4.  One eager warm-up and 2 timed eager steps, then
-             multi_step(5) twice (the first call warms up with the update
-             gated off, captures the 5 steps into one CUDA graph and
+             multi_step(3) twice (the first call warms up with the update
+             gated off, captures the 3 steps into one CUDA graph and
              replays it; the second only replays).  Losses finite and
              falling; exactly 4L+1 / 2L+1 RMSNorm and 2L / L attention
              launches per step eagerly and under replay; step ms both
              ways, tokens/s, MFU, peak memory.  The training rows of the
              kernel line count this replay's launches.
-6f. graph vs eager — phase 6's 8-layer shape (fp32 master): 4 eager
+6f. graph vs eager — phase 6's width at 4 layers (fp32 master): 4 eager
              steps from one state and multi_step(4) from an equal one
              (two models from one seed), twice: losses and every
              parameter, master and moment tensor equal bit for bit; ms a
@@ -185,15 +205,28 @@ result):
              share.  Again with master_dtype="bfloat16_sr": whether the
              registered SR generator makes replays equal eager (else
              held at relative 2e-2, bf16).
-6g. remat policies — full, save_mlp, save_attn and dots at the 8-layer
-             shape: ms a step and peak memory; then loss and every
-             gradient in fp32 at a 2-layer cut (B=2, S=2048), each policy
-             against full within relative 1e-6.
+6g. remat policies — full, save_mlp, save_attn and dots at phase 6's
+             width, 4 layers: ms a step and peak memory; then loss and every
+             gradient in fp32 at the same shape, each policy against full
+             within relative 1e-6.
 6h. guarded step — a 2-layer cut of 7B (bf16, fp32 master): 3 clean
              guarded_step calls equal 3 step calls bit for bit; a step
              whose loss is poisoned with NaN and one above the
              threshold (loss + 1e6, threshold 1e3) leave every state
              tensor and the step count unchanged.
+6i. durable training — a 1-layer cut of Llama-2-7B at full width (B=2,
+             S=2048, bf16 compute, fp32 master and moments,
+             FLAGS_use_fused_rms_norm) through GuardedTrainStep over a
+             CheckpointManager(keep_last_k=2) in a temporary directory,
+             checkpoint_every=2: an armed guard.loss_spike is skipped,
+             then guard.nan_loss rolls back to the step-2 commit.  Gated:
+             the state after the rollback is the commit's snapshot bit
+             for bit, the next clean step is the uninterrupted run's bit
+             for bit, and a commit of the CUDA state loaded into a CPU
+             train step is bit-equal.  The disk's free space, each
+             commit's bytes, each save's seconds and GB/s (device to
+             host, write, fsync, crc32), the load's and the step time
+             while an async save writes.
 8. bert train — BERT-base SQuAD fine-tuning as bench.py's BASELINE
              config 2 sets it: BertForQuestionAnswering(BertConfig.base())
              at full width and depth, B=48, S=384, bf16 compute, fp32
@@ -210,7 +243,11 @@ result):
              both ways; then dropout 0.1 at lr 0 (the state does not
              move): three replays must give three different losses (the
              dropout generators are registered with the graph, so each
-             replay draws new masks).
+             replay draws new masks); then with remat=True (dropout
+             0.1): two replays draw different masks, and a replay equals
+             the eager remat step from the same generator state bit for
+             bit (the recompute draws from a twin of each dropout
+             generator registered with the graph).
 9. bert parity — 2 layers, hidden 256, 4 heads (D = 64), S = 256, B = 2,
              fp32, dropout 0: 3 steps on the card (the short kernel) and
              on the CPU (the einsum path) from the same weights give
@@ -256,7 +293,7 @@ result):
              batch norms' running statistics unchanged by every step.
              No kernel of the kernel line lies on this path (cuDNN and
              plain torch).
-12b. resnet profile — two eager steps of the faster layout traced with
+12b. resnet profile — one eager step of the faster layout traced with
              testing/vision_profile.py: device ms by family (cuDNN conv
              forward, dgrad, wgrad; batch norm; pools; cross entropy;
              AdamW; other) and the longest kernels.
@@ -293,7 +330,7 @@ result):
              finite; none of the eleven kernels launches (the step
              computes in fp32 as the reference's does: see
              paddle_tpu_torch/models/unet.py).
-15b. unet profile — two eager steps of 15 traced with
+15b. unet profile — one eager step of 15 traced with
              testing/vision_profile.py: device ms by family (group norm,
              conv forward / dgrad / wgrad, attention, Linear GEMMs,
              AdamW, other; the backward parts beside), and the port's
@@ -1665,8 +1702,8 @@ def phase_profile(engine, device, n_steps=5, prompt=512, label=None):
     step_kind = "verify" if engine.spec is not None else "decode"
     decode = ex.programs[step_kind]
     replays = decode.dispatches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device activity alone: nothing below reads the host's events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             engine.step()
@@ -2407,7 +2444,8 @@ def _recover_and_serve(tag, cl, work, base, counters, t_rebuild,
 def phase_durable(device, config="7b"):
     """Phase 4g (see the module docstring) on the durability worker's
     setup ``config`` (another than ``7b`` to rehearse on the CPU).
-    Returns {kernel: launches in the recovered fleets}."""
+    Returns ({kernel: launches in the recovered fleets}, (config, params,
+    engine kwargs, load, the uninterrupted streams)) for 4h."""
     from paddle_tpu_torch.inference.server import ServingCluster
     from paddle_tpu_torch.inference.server.wal import replay
     from paddle_tpu_torch.testing import durability_worker as worker
@@ -2580,7 +2618,7 @@ def phase_durable(device, config="7b"):
         out["quant_matmul"] = launches["quant_matmul"]
         del cl
         _empty(device)
-    return out
+    return out, (cfg, params, kw, work, base)
 
 
 def phase_parity_durable(device, config="parity"):
@@ -2662,6 +2700,163 @@ def phase_parity_durable(device, config="parity"):
                 f"uninterrupted run token for token")
             del cl
             _empty(device)
+
+
+def _elastic_fleet(setup, **kw):
+    from paddle_tpu_torch.inference.server import ServingCluster
+
+    cfg, params, ekw = setup[:3]
+    return ServingCluster(cfg, params, n_replicas=2, cluster=True,
+                          wal=False, **dict(ekw, **kw))
+
+
+def _drain_join(cl, work, tag, late=2):
+    """4h(a) / 5d: submit all of ``work`` but its last ``late`` requests
+    at once, step three ticks, drain r0 (its queue re-steered), join a
+    replica, submit the rest (the router sends them to the newcomer)
+    and run to the end, the pools audited after every step.  Returns
+    (handles, joined replica)."""
+    handles = {w["rid"]: cl.submit(w["prompt_ids"],
+                                   max_new_tokens=w["max_new_tokens"],
+                                   rid=w["rid"]) for w in work[:-late]}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        cl.step()
+        _fleet_audit(cl)
+    queued = len(cl.replica("r0").engine.scheduler.queue)
+    cl.drain("r0")
+    new = cl.join()
+    handles, serve_s, _ = _drive_fleet(cl, work, handles=handles)
+    serve_s += time.perf_counter() - t0
+    _check_complete(tag, handles, work)
+    r0 = cl.replica("r0")
+    if r0.state != "drained" or r0.engine.in_flight or not cl.resteered:
+        raise AssertionError(f"[{tag}] r0 ends {r0.state} with "
+                             f"{r0.engine.in_flight} in flight; "
+                             f"{cl.resteered} re-steered")
+    log(f"[{tag}] r0 drained after 3 ticks with {queued} queued: "
+        f"{cl.resteered} re-steered, joined {new.name}; per replica "
+        f"{[r.engine.metrics.submitted for r in cl.replicas]} admitted, "
+        f"states {[r.state for r in cl.replicas]}; {len(work)} requests "
+        f"in {cl.tick} ticks, {serve_s:.3f} s")
+    return handles, new
+
+
+def _disaggregated(cl, work, tag, counters):
+    """4h(b, c) / 5d: serve ``work`` on a disaggregated fleet with the
+    handoff audit on; gates the roles and each copy's crc32 where the
+    pool holds the values it was given (not int8: write_at quantizes
+    again).  Returns (handles, launches)."""
+    cl.handoff_audit = []
+    _zero_counts(counters)
+    handles, serve_s, _ = _drive_fleet(cl, work)
+    launches = _counts(counters)
+    _check_complete(tag, handles, work)
+    pre, dec = (r.engine.metrics for r in cl.replicas)
+    if not cl.handoffs or dec.submitted or not dec.decode_tokens:
+        raise AssertionError(
+            f"[{tag}] handoffs {cl.handoffs}, decode replica admitted "
+            f"{dec.submitted}, decoded {dec.decode_tokens} tokens")
+    audit = cl.handoff_audit
+    bad = [a["rid"] for a in audit if a["crc_src"] != a["crc_dst"]]
+    if bad and cl.replicas[0].engine.executor.quant == "none":
+        raise AssertionError(f"[{tag}] handed-off K/V differs by crc32: "
+                             f"{bad}")
+    per = ", ".join(
+        f"{a['rid']} {a['tokens']} tok / {a['pages']} pages "
+        f"{(a['gather_s'] + a['write_s']) * 1e3:.3f} ms "
+        f"({a['bytes'] / (a['gather_s'] + a['write_s']) / 1e9:.1f} GB/s)"
+        for a in audit)
+    log(f"[{tag}] roles {[r.role for r in cl.replicas]}: {cl.handoffs} "
+        f"handoffs ({cl.handoff_tokens} tokens, {cl.handoffs_skipped} "
+        f"skipped), crc32 source = target for {len(audit) - len(bad)} of "
+        f"{len(audit)}; the prefill replica admitted {pre.submitted} and "
+        f"decoded {pre.decode_tokens} tokens, the decode replica "
+        f"admitted {dec.submitted} and decoded {dec.decode_tokens}; "
+        f"{len(work)} requests in {cl.tick} ticks, {serve_s:.3f} s; "
+        f"launches {launches}; each handoff's gather_dense + write_at: "
+        f"{per}")
+    return handles, launches
+
+
+def phase_elastic(device, setup):
+    """Phase 4h (see the module docstring) on ``setup`` = 4g's (config,
+    params, engine kwargs, load).  Returns {kernel: launches}: (b)'s
+    paged_decode, (c)'s paged_decode_quant and quant_matmul."""
+    counters = _serve_counters()
+    work = setup[3]
+    base = setup[4] if len(setup) > 4 else None
+
+    def drift(tag, handles):
+        if base is None:
+            return
+        got = {r: list(h.tokens) for r, h in handles.items()}
+        same, lead, total = _agreement(got, base)
+        log(f"[{tag}] against 4g's uninterrupted streams: {same} of "
+            f"{len(base)} equal, {lead} of {total} tokens before each "
+            f"first difference (reported, not gated)")
+
+    # two slots a replica, so that r0 holds a queue when it is drained
+    cl = _elastic_fleet(setup, max_seqs=2)
+    handles, new = _drain_join(cl, work, "4h-drain-join")
+    g = cl.graphs(new)
+    log(f"[4h-drain-join] joined replica {new.name}: at the join "
+        f"{cl.last_join['graphs_captured']} graphs, build "
+        f"{cl.last_join['build_s']:.3f} s; after the load "
+        f"{g['graphs_captured']} decode graphs captured in "
+        f"{g['capture_s']:.3f} s (no compile cache: each replica captures "
+        f"its own)")
+    drift("4h-drain-join", handles)
+    del cl, handles, new
+    _empty(device)
+    out = {}
+    for quant in ("none", "int8"):
+        tag = "4h-disagg" + ("-int8" if quant == "int8" else "")
+        cl = _elastic_fleet(setup, disaggregated=True, quant=quant)
+        handles, launches = _disaggregated(cl, work, tag, counters)
+        if device.type == "cuda":
+            need = (("paged_decode",) if quant == "none"
+                    else ("paged_decode_quant", "quant_matmul"))
+            if not all(launches[k] for k in need):
+                raise AssertionError(f"[{tag}] launches {launches}")
+            for k in need:
+                out[k] = launches[k]
+        if quant == "none":
+            drift(tag, handles)
+        del cl, handles
+        _empty(device)
+    return out
+
+
+def phase_parity_elastic(device, config="parity"):
+    """Phase 5d (see the module docstring) on the durability worker's
+    setup ``config`` (``tiny`` to rehearse on the CPU)."""
+    from paddle_tpu_torch.models import params_to
+    from paddle_tpu_torch.testing import durability_worker as worker
+
+    counters = _serve_counters()
+    cfg, params, kw, work = worker.build(config, device)
+    cpu = torch.device("cpu")
+    got = {}
+    for dev, p in ((cpu, params_to(params, device="cpu")),
+                   (device, params)):
+        setup = (cfg, p, dict(kw, device=dev), work)
+        cl = _elastic_fleet(setup, max_seqs=1)
+        h, _ = _drain_join(cl, work, f"5d-drain-join-{dev.type}", late=1)
+        got[dev.type, "drain"] = {r: list(x.tokens) for r, x in h.items()}
+        cl = _elastic_fleet(setup, disaggregated=True)
+        h, _ = _disaggregated(cl, work, f"5d-disagg-{dev.type}", counters)
+        got[dev.type, "disagg"] = {r: list(x.tokens) for r, x in h.items()}
+        del cl, h, p, setup
+    for leg in ("drain", "disagg"):
+        want, have = got["cpu", leg], got[device.type, leg]
+        if have != want:
+            raise AssertionError(f"[5d-{leg}] card streams differ from the "
+                                 f"CPU's at {_first_diff(have, want)}")
+    log(f"[5d] drain + join and disaggregated: the card's streams equal "
+        f"the CPU's token for token "
+        f"({sum(map(len, got['cpu', 'drain'].values()))} tokens each)")
+    _empty(device)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -2846,7 +3041,7 @@ def phase_train_parity(device, steps=3):
 # -- phases 6e-6h: the train step's graph, SR, remat policies, the gate --------
 
 #: phase 6e: Llama-2-7B at all 32 layers, one card (bfloat16_sr)
-FULL_RUN = dict(batch=4, seq=2048, k=5, eager=2, lr=1e-4)
+FULL_RUN = dict(batch=4, seq=2048, k=3, eager=2, lr=1e-4)
 
 
 def _per_step(L, long=True):
@@ -2883,14 +3078,15 @@ def _traced(fn):
     (NaN without a card).  Not their sum: kernels that cuBLAS and cuDNN
     launch as programmatic dependents start before the one ahead ends,
     and at the UNet's 64 x 64 step the sum exceeded the step's wall by
-    29% (PR 15)."""
+    29%.  Only the device activity is recorded: the host's
+    operator events cost seconds to collect at an eager UNet step and
+    nothing here reads them."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         return _timed(torch.device("cpu"), fn)[1], float("nan")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3039,7 +3235,7 @@ def phase_graph_ab(device, limit, cfg=None, run=None, master="float32"):
     from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.models import LlamaConfig
 
-    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=8, recompute=True,
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=4, recompute=True,
                                        recompute_policy="full",
                                        attention_impl="auto")
     run = dict(TRAIN_RUN, **(run or {}))
@@ -3100,7 +3296,7 @@ POLICIES = ("full", "save_mlp", "save_attn", "dots")
 
 def phase_remat_policies(device, limit, cfg=None, run=None, grad_cfg=None,
                          grad_run=None):
-    """6g: each recompute policy at the 8-layer shape (bf16 compute, fp32
+    """6g: each recompute policy at 4 layers of 7B (bf16 compute, fp32
     master): one warm-up and two timed eager steps, step ms and peak
     memory; then loss and gradients in fp32 at the same shape, each
     policy against "full" (relative 1e-6)."""
@@ -3112,7 +3308,7 @@ def phase_remat_policies(device, limit, cfg=None, run=None, grad_cfg=None,
     B, S = run["batch"], run["seq"]
     on_card = device.type == "cuda"
     for pol in POLICIES:
-        c = cfg or LlamaConfig.llama2_7b(num_hidden_layers=8, recompute=True)
+        c = cfg or LlamaConfig.llama2_7b(num_hidden_layers=4, recompute=True)
         c = LlamaConfig(**{**c.__dict__, "recompute_policy": pol})
         step = _llama_step(c, device, lr=run["lr"])
         batch = _ids(c.vocab_size, B, S, device)
@@ -3131,7 +3327,7 @@ def phase_remat_policies(device, limit, cfg=None, run=None, grad_cfg=None,
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-    gcfg = grad_cfg or LlamaConfig.llama2_7b(num_hidden_layers=8,
+    gcfg = grad_cfg or LlamaConfig.llama2_7b(num_hidden_layers=4,
                                              recompute=True)
     grun = dict(dict(batch=B, seq=S), **(grad_run or {}))
     ref = None
@@ -3230,6 +3426,182 @@ def phase_guarded(device, limit, cfg=None, run=None):
     torch.cuda.empty_cache()
 
 
+def _state_bytes(step):
+    """Bytes of a train step's checkpoint: every state tensor and t."""
+    return 8 + sum(t.numel() * t.element_size()
+                   for tree in (step.params, step._master, step._m,
+                                step._v)
+                   for t in tree.values())
+
+
+def _live_flat(step):
+    """The train step's live state under the checkpoint's flat names (no
+    copies): a load fills it in place."""
+    from paddle_tpu_torch.training.guardian import _flatten_train_state
+
+    return _flatten_train_state({"params": step.params,
+                                 "master": step._master, "m": step._m,
+                                 "v": step._v, "t": step._t})
+
+
+def _flat_differs(flat, snap):
+    """Names of the flat entries that differ bit for bit from ``snap``'s
+    (any devices)."""
+    return [k for k, v in snap.items()
+            if not torch.equal(flat[k].cpu(), v.cpu())]
+
+
+def _save_line(st, nbytes):
+    def rate(sec):
+        return f"{sec:.3f} s ({nbytes / max(sec, 1e-9) / 1e9:.2f} GB/s)"
+
+    return (f"{st.files} files, {st.bytes} array bytes: device to host "
+            f"{rate(st.snapshot_s)}, write {rate(st.write_s)}, fsync "
+            f"{rate(st.fsync_s)}, crc32 {rate(st.crc_s)} summed over the "
+            f"threads that run it beside the writes (the writer waited "
+            f"{st.crc_wait_s:.3f} s for it)")
+
+
+def phase_durable_train(device, limit, cfg=None, run=None):
+    """6i (see the module docstring).  Returns {kernel: launches}."""
+    import shutil
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.ckpt_commit import CheckpointManager
+    from paddle_tpu_torch.models import (
+        CompiledTrainStep, LlamaConfig, LlamaForCausalLM,
+    )
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.training import GuardedTrainStep, GuardianPolicy
+    from paddle_tpu_torch.training.guardian import _flatten_train_state
+
+    set_flags({"FLAGS_use_fused_rms_norm": True})
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=1, recompute=True)
+    run = dict(dict(batch=2, seq=2048), **(run or {}))
+    counters = _train_counters()
+
+    def make(dev):
+        model = LlamaForCausalLM(cfg, device=dev, seed=6)
+        return CompiledTrainStep(model, lr=1e-4, compute_dtype="bfloat16",
+                                 device=dev)
+
+    step, clean = make(device), make(device)
+    batches = [_ids(cfg.vocab_size, run["batch"], run["seq"], device,
+                    seed=20 + i) for i in range(8)]
+    nbytes = _state_bytes(step)
+    n_params = sum(p.numel() for p in step.params.values())
+    _zero_counts(counters)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-6i-") as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"[6i] {cfg.num_hidden_layers} layer at 7B width: {n_params} "
+            f"parameters, {nbytes} bytes a commit ({nbytes / 1e9:.3f} GB: "
+            f"bf16 params, fp32 master, m, v); {free / 1e9:.1f} GB free "
+            f"under {tmp}")
+        if free < 2.5 * nbytes:
+            raise AssertionError(f"[6i] {free} bytes free for two commits "
+                                 f"of {nbytes}")
+        mgr = CheckpointManager(tmp, keep_last_k=2)
+        g = GuardedTrainStep(step, manager=mgr, commit_initial=False,
+                             policy=GuardianPolicy(
+                                 window=8, min_history=2, skip_budget=1,
+                                 rollback_budget=2, checkpoint_every=2))
+        decisions = []
+
+        def gstep():
+            _, d = g.step(*batches[g.global_step])
+            decisions.append(d.value)
+
+        gstep()
+        t0 = time.perf_counter()
+        gstep()                 # accepted: the guardian commits step 2
+        commit_s = time.perf_counter() - t0
+        if mgr.committed_steps() != [2]:
+            raise AssertionError(f"[6i] commits {mgr.committed_steps()}")
+        log(f"[6i] commit of step 2 (synchronous, inside the step: "
+            f"{commit_s:.3f} s with the step): "
+            f"{_save_line(ckpt.last_save_stats(), nbytes)}")
+        snap = {k: v.clone() for k, v in _live_flat(step).items()}
+        # the uninterrupted run: three clean steps
+        ref = [float(clean.step(*batches[i])) for i in range(3)]
+        faults.reset("guard.loss_spike:before:1=inject:1e6")
+        gstep()                 # a spike: skipped
+        faults.reset("guard.nan_loss:before:1=inject")
+        t0 = time.perf_counter()
+        gstep()                 # NaN: past the skip budget, rollback
+        rollback_s = time.perf_counter() - t0
+        faults.reset("")
+        st = ckpt.last_load_stats()
+        diff = _flat_differs(_live_flat(step), snap)
+        log(f"[6i] decisions {decisions}; rollback to step "
+            f"{g.global_step} in {rollback_s:.3f} s with the step; the "
+            f"load: {st.seconds:.3f} s ({st.total_read_bytes / st.seconds / 1e9:.2f} "
+            f"GB/s, crc32 checked first), peak buffer "
+            f"{st.peak_buffer_bytes} bytes over {st.regions} tensors; state "
+            f"entries that differ from the commit's snapshot: {len(diff)}")
+        if decisions != ["ok", "ok", "skip", "rollback"] or diff \
+                or g.global_step != 2:
+            raise AssertionError(f"[6i] the rollback: {decisions}, "
+                                 f"{diff[:4]}")
+        del snap
+        loss, d = g.step(*batches[2])
+        bad = _state_equal(step, clean)
+        log(f"[6i] the next clean step: loss {loss} (uninterrupted run "
+            f"{ref[2]}), state tensors that differ {len(bad)}")
+        if d.value != "ok" or loss != ref[2] or bad or step._t != clean._t:
+            raise AssertionError(f"[6i] the resumed step is not the "
+                                 f"uninterrupted one: {bad[:4]}")
+        del clean
+        gc.collect()
+        _empty(device)
+        # an async commit, steps running while it writes
+        g.guardian.policy.checkpoint_every = None
+        _, alone = _timed(device, lambda: [g.step(*batches[i])
+                                           for i in (3, 4)])
+        flat = _flatten_train_state(step.state_dict())
+        t0 = time.perf_counter()
+        handle = mgr.save(flat, g.global_step, async_save=True)
+        call_s = time.perf_counter() - t0
+        stats = ckpt.last_save_stats()
+        _, during = _timed(device, lambda: [g.step(*batches[i])
+                                            for i in (5, 6)])
+        handle.result()
+        total_s = time.perf_counter() - t0
+        saved = mgr.latest_step()
+        log(f"[6i] async commit of step {saved}: the call {call_s:.3f} s "
+            f"(the copy to the host), committed after {total_s:.3f} s; "
+            f"{_save_line(stats, nbytes)}; a step "
+            f"{alone / 2:.1f} ms alone, {during / 2:.1f} ms while the "
+            f"save writes | {limit}")
+        launches = _counts(counters)
+        # the commit of CUDA tensors, loaded into a CPU train step
+        t0 = time.perf_counter()
+        cpu_step = make("cpu")
+        build_s = time.perf_counter() - t0
+        into = _live_flat(cpu_step)
+        mgr.load(into, step=saved)
+        cpu_step._t = int(into["t"])
+        st = ckpt.last_load_stats()
+        diff = _flat_differs(into, flat)
+        log(f"[6i] step {saved}'s commit loaded into a CPU train step "
+            f"(built in {build_s:.1f} s): {st.seconds:.3f} s "
+            f"({st.total_read_bytes / st.seconds / 1e9:.2f} GB/s), entries "
+            f"that differ from the card's state {len(diff)}; commits on "
+            f"disk {mgr.committed_steps()}")
+        if diff or mgr.committed_steps() != [2, saved]:
+            raise AssertionError(f"[6i] the CPU load differs: {diff[:4]}")
+        del cpu_step, into, flat
+    log(f"[6i] launches {launches}")
+    for k in ("rms_norm_fwd", "rms_norm_bwd", "attention_fwd",
+              "attention_bwd"):
+        if device.type == "cuda" and not launches[k]:
+            raise AssertionError(f"[6i] {k} never launched")
+    del step, g
+    gc.collect()
+    _empty(device)
+    return launches
+
+
 def phase_bert_graph(device, limit, cfg=None, run=None):
     """8c: BERT-base QA (phase 8's config) through multi_step(4) against
     4 eager steps: bit for bit with dropout 0, the ms per step and the
@@ -3306,7 +3678,41 @@ def phase_bert_graph(device, limit, cfg=None, run=None):
                              f"masks: {draws}")
     del step, model
     gc.collect()
-    torch.cuda.empty_cache()
+    _empty(device)
+    # remat=True under capture: the recompute draws each mask again from
+    # its generator's twin; at lr 0 the parameters stay, the moments take
+    # each step's gradients, so equal states mean equal gradients
+    steps = []
+    for _ in range(2):
+        model = QATrain(base, device)
+        model.train()
+        steps.append(CompiledTrainStep(model, lr=0.0, remat=True,
+                                       compute_dtype="bfloat16",
+                                       device=device))
+    eager, graph = steps
+    counters = {k: f for k, f in _train_counters().items()
+                if k.startswith("short")}
+    el, gl, replayed = [], [], []
+    for _ in range(3):
+        el.append(float(eager.step(*batch)))
+        _zero_counts(counters)
+        gl.append(float(graph.multi_step(1, *batch)))
+        replayed.append(_counts(counters))
+    bad = _state_equal(eager, graph)
+    log(f"[bert-graph] remat=True, dropout {base.hidden_dropout_prob}, lr "
+        f"0: eager losses {el} | replayed losses {gl} (the first call "
+        f"captures) | state tensors that differ {len(bad)} | short "
+        f"attention launches a replay {replayed[1:]}")
+    if el != gl or bad or len(set(gl)) != len(gl) \
+            or not all(np.isfinite(gl)):
+        raise AssertionError(f"[bert-graph] remat under capture: {bad[:4]}")
+    if device.type == "cuda" and not all(
+            r["short_attention_fwd"] and r["short_attention_bwd"]
+            for r in replayed[1:]):
+        raise AssertionError(f"[bert-graph] replays launched {replayed}")
+    del eager, graph, steps, model
+    gc.collect()
+    _empty(device)
 
 
 # -- phase 3e: the short-attention kernels -------------------------------------
@@ -4340,7 +4746,7 @@ def phase_resnet_train(device, limit, run=None, layouts=tuple(LAYOUTS),
 
 
 def phase_resnet_profile(device, limit, run=None, layout="channels_last"):
-    """12b: two eager ResNet-50 steps at phase 12's shape traced with
+    """12b: one eager ResNet-50 step at phase 12's shape traced with
     testing/vision_profile.py: device ms a step by family."""
     from paddle_tpu_torch.testing import vision_profile as vp
 
@@ -4349,7 +4755,7 @@ def phase_resnet_profile(device, limit, run=None, layout="channels_last"):
                                    image=run["image"], lr=run["lr"])
     for _ in range(2):
         float(step.step(*batch))
-    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=2)
+    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=1)
     vp.report(f"resnet-profile {layout}", fam, wall, busy, kernels, spans,
               log=log)
     log(f"[resnet-profile {layout}] {limit}")
@@ -4665,14 +5071,14 @@ def phase_unet_train(device, limit, run=None, tag="unet-train",
 
 
 def phase_unet_profile(step, batch, device, limit, iters=20):
-    """15b: two eager steps traced by family; then the port's group_norm
+    """15b: one eager step traced by family; then the port's group_norm
     against the library's at the top level's shape [B, 320, 32, 32] fp32,
     32 groups: equal bits or the largest difference, and both timed
     (``time_ms``: CUDA events, L2 flushed; forward; forward + backward)."""
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.testing import vision_profile as vp
 
-    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=2,
+    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=1,
                                                   plan=vp.UNET)
     vp.report("unet-profile", fam, wall, busy, kernels, spans, log=log)
     B = batch[0].shape[0]
@@ -4816,7 +5222,7 @@ def main():
         row["launches"] = launches[row["name"]]
     elapsed("phase 4c")
     # the serving kernels' launches under serve.verify replays (4f)
-    verify = phase_features(device, streams)
+    verify = phase_features(device, streams, profile=False)
     for row in [rows[0]] + quant_rows:
         row["verify_launches"] = verify[row["name"]]
     elapsed("phase 4f")
@@ -4825,11 +5231,19 @@ def main():
     elapsed("phase 5")
     phase_parity_features(device)
     elapsed("serving")
-    durable = phase_durable(device)
+    durable, setup = phase_durable(device)
     for row in [rows[0]] + quant_rows:
         row["durable_launches"] = durable[row["name"]]
     elapsed("phase 4g")
+    elastic = phase_elastic(device, setup)
+    for row in [rows[0]] + quant_rows:
+        row["elastic_launches"] = elastic[row["name"]]
+    del setup
+    _empty(device)
+    elapsed("phase 4h")
     phase_parity_durable(device)
+    elapsed("phase 5c")
+    phase_parity_elastic(device)
     elapsed("durable serving")
     launches, step, batch = phase_train(device, limit)
     for row in train_rows:
@@ -4839,6 +5253,7 @@ def main():
     phase_train_profile(step, batch, device)
     del step, batch
     torch.cuda.empty_cache()
+    elapsed("phase 6")
     phase_train(device, limit, tag="train-s4096",
                 cfg=LlamaConfig.llama2_7b(num_hidden_layers=4,
                                           recompute=True,
@@ -4846,6 +5261,7 @@ def main():
                                           attention_impl="auto"),
                 run=dict(batch=2, seq=4096, steps=3))
     torch.cuda.empty_cache()
+    elapsed("phase 6d")
     phase_train(device, limit, tag="train-s512",
                 cfg=LlamaConfig.llama2_7b(num_hidden_layers=2,
                                           recompute=True),
@@ -4853,6 +5269,7 @@ def main():
     torch.cuda.empty_cache()
     phase_train_parity(device)
     torch.cuda.empty_cache()
+    elapsed("phases 6c, 7")
     # the full-depth train step is this slice's main training path: the
     # training rows count its eager steps where each kernel launches,
     # and show beside that the tally its replayed graph added
@@ -4862,10 +5279,17 @@ def main():
         row["replay_launches"] = replayed[row["name"]]
     gc.collect()
     torch.cuda.empty_cache()
+    elapsed("phase 6e")
     phase_graph_ab(device, limit)
     phase_graph_ab(device, limit, master="bfloat16_sr")
+    elapsed("phase 6f")
     phase_remat_policies(device, limit)
+    elapsed("phase 6g")
     phase_guarded(device, limit)
+    elapsed("phase 6h")
+    durable_train = phase_durable_train(device, limit)
+    for row in train_rows:
+        row["durable_launches"] = durable_train[row["name"]]
     elapsed("llama training")
     launches, step, batch = phase_bert_train(device, limit)
     for row in short_rows:
@@ -4874,7 +5298,9 @@ def main():
     phase_bert_profile(step, batch)
     del step, batch
     torch.cuda.empty_cache()
+    elapsed("phases 8, 8b")
     phase_bert_graph(device, limit)
+    elapsed("phase 8c")
     phase_bert_parity(device)
     elapsed("bert")
     launches, step, batch = phase_moe_train(device, limit)
@@ -4888,19 +5314,25 @@ def main():
     rows += grouped_rows
     elapsed("moe")
     resnet = phase_resnet_train(device, limit)
+    elapsed("phase 12")
     phase_resnet_profile(device, limit, layout=min(
         resnet, key=lambda n: resnet[n]["eager_ms"]))
     phase_resnet_graph(device, limit)
+    elapsed("phases 12b, 12c")
     phase_detection_train(device, limit)
+    elapsed("phase 13")
     phase_vision_parity(device)
     elapsed("vision")
     _, step, batch = phase_unet_train(device, limit)
+    elapsed("phase 15")
     phase_unet_profile(step, batch, device, limit)
     del step, batch
     _empty(device)
+    elapsed("phase 15b")
     phase_unet_train(device, limit, run=UNET_64_RUN, tag="unet-train-64",
                      unet_kw=dict(sample_size=64))
     _empty(device)
+    elapsed("phase 15c")
     phase_unet_parity(device)
     elapsed("unet")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
@@ -4909,7 +5341,7 @@ def main():
             "library_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("replay_launches", "verify_launches",
-                                  "durable_launches")
+                                  "durable_launches", "elastic_launches")
          if k in r}
         for r in rows]}))
     print(limit)

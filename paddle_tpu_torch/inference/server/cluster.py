@@ -1,10 +1,10 @@
 """Multi-replica serving fleet over the shared logical clock.
 
-Counterpart of ``paddle_tpu/inference/server/cluster.py``, all but its
-elastic part.  One :class:`ServingEngine` is a single box; the fleet
-wraps N of them (each with its own page pool and executor; replicas of
-one ``(config, params)`` share the weight tensors, so two bf16 replicas
-hold the weights once) behind a :class:`Router` that places every
+Counterpart of ``paddle_tpu/inference/server/cluster.py``.  One
+:class:`ServingEngine` is a single box; the fleet wraps N of them (each
+with its own page pool and executor; replicas of one ``(config,
+params)`` share the weight tensors, so two bf16 replicas hold the
+weights once) behind a :class:`Router` that places every
 request by **prefix affinity** — probe each replica's radix tree with
 the read-only :meth:`PrefixCache.match_len` — falling back to queue
 depth and page-pool headroom, so shared-prefix traffic lands where its
@@ -40,12 +40,18 @@ Durability: one write-ahead journal (``wal``, see ``wal.py``) shared by
 the fleet; :meth:`ServingCluster.recover` rebuilds a fleet from it after
 a whole-process crash.
 
-Not ported (ROADMAP.md Queue 1, item 5b): ``drain``, ``join`` and
-disaggregated prefill/decode (``disaggregated=True``) raise
-``NotImplementedError``; their points ``replica.drain``,
-``replica.join`` and ``kv.handoff`` have no site yet.  The telemetry
-plane (events, counters, ``/statusz``; item 9): the fleet asks the
-``PT_OBS`` gate once, and only its off path runs.
+Elasticity: :meth:`ServingCluster.drain` closes one replica's admission
+and re-steers its queue, :meth:`ServingCluster.join` adds a fresh
+replica, and ``disaggregated=True`` splits the fleet into prefill and
+decode roles, each finished prefill's KV pages handed to a decode
+replica by one ``gather_dense`` → ``write_at`` copy (salvage's).  Points
+``replica.drain``, ``replica.join`` and ``kv.handoff``.  The port keeps
+no compile cache on disk: a joined replica captures its own decode
+graphs (its report gives the graphs captured and their seconds where
+the reference gives disk hits and compiles).  The telemetry plane
+(events, gauges, ``/statusz`` serving; ROADMAP.md Queue 1, item 9): the
+fleet asks the ``PT_OBS`` gate once, and only its off path runs;
+:meth:`ServingCluster._statusz` still forms the reference's page.
 """
 from __future__ import annotations
 
@@ -63,10 +69,6 @@ from .request import (Request, RequestHandle, RequestRejected,
                       RequestState)
 from .wal import resolve_wal, stream_crc
 
-_ELASTIC = ("not ported yet (ROADMAP.md Queue 1, item 5b: drain, join "
-            "and disaggregated prefill/decode)")
-
-
 #: states in which a replica no longer steps or holds live requests.
 DEAD_STATES = ("drained", "failed", "restarting", "retired")
 
@@ -81,7 +83,7 @@ class Replica:
     def __init__(self, name, engine, role="mixed"):
         self.name = name
         self.engine = engine
-        self.role = role            # mixed (the only role ported)
+        self.role = role            # mixed | prefill | decode
         self.state = "active"
         # survivability bookkeeping (the ReplicaSupervisor's state):
         self.last_beat = 0          # cluster tick of the last full step
@@ -169,6 +171,38 @@ def _crc(k, v) -> int:
             torch.uint8).numpy().tobytes()
 
     return zlib.crc32(raw(v), zlib.crc32(raw(k)))
+
+
+def _with_room(candidates, length):
+    """The least loaded candidate (depth, then most free pages) with a
+    free slot and the pages for ``length`` + 1 tokens, else None."""
+    for rep in sorted(candidates,
+                      key=lambda r: (r.depth, -r.engine.executor.free_pages)):
+        ex = rep.engine.executor
+        if ex.free_slots >= 1 and ex.free_pages >= ex.pages_for(length + 1):
+            return rep
+    return None
+
+
+def _gather_kv(ex, sid, length):
+    """One sequence's committed K/V, [L, KV, length, D] each:
+    ``gather_dense`` pads to the page cover, and positions >= length are
+    garbage that must never travel or enter a checksum."""
+    k, v = ex.cache.gather_dense(sid, length)
+    return k[:, :, :length], v[:, :, :length]
+
+
+def _land_kv(ex, k, v) -> int:
+    """Write gathered K/V into a fresh slot of ``ex``'s pool (pages
+    allocated refcounted by ``write_at``); returns the slot.  The one
+    copy path of a salvage and a handoff."""
+    sid = ex.alloc_slot()
+    try:
+        ex.cache.write_at(sid, k, v, 0)
+    except Exception:
+        ex.free_slot(sid)
+        raise
+    return sid
 
 
 class ReplicaSupervisor:
@@ -356,27 +390,16 @@ class ReplicaSupervisor:
             return False
         if length <= 0:
             return False
-        dst = None
-        for cand in sorted(
-                (r for r in cl._admitting() if r is not src),
-                key=lambda r: (r.depth, -r.engine.executor.free_pages)):
-            ex = cand.engine.executor
-            if ex.free_slots >= 1 \
-                    and ex.free_pages >= ex.pages_for(length + 1):
-                dst = cand
-                break
+        dst = _with_room((r for r in cl._admitting() if r is not src),
+                         length)
         if dst is None:
             return False
         try:
             faults.fire("kv.salvage", "before")
-            k, v = src_ex.cache.gather_dense(req.sid, length)
+            k, v = _gather_kv(src_ex, req.sid, length)
         except Exception:
             cl.salvages_failed += 1
             return False
-        # gather_dense pads to the page cover: positions >= length are
-        # garbage and must never enter the checksum
-        k = k[:, :, :length]
-        v = v[:, :, :length]
         crc = _crc(k, v)
         if faults.poll("kv.salvage") is not None:
             # injected in-flight corruption: the verify must catch it
@@ -384,12 +407,14 @@ class ReplicaSupervisor:
             flat = k.view(-1)
             flat[flat.numel() // 2] += 1
         dst_ex = dst.engine.executor
-        dst_sid = dst_ex.alloc_slot()
+        try:
+            dst_sid = _land_kv(dst_ex, k, v)
+        except Exception:
+            cl.salvages_failed += 1
+            return False
         crc_got = None
         try:
-            dst_ex.cache.write_at(dst_sid, k, v, 0)
-            k2, v2 = dst_ex.cache.gather_dense(dst_sid, length)
-            crc_got = _crc(k2[:, :, :length], v2[:, :, :length])
+            crc_got = _crc(*_gather_kv(dst_ex, dst_sid, length))
         except Exception:
             pass
         if crc_got != crc:
@@ -520,16 +545,19 @@ class ServingCluster:
                  restart_budget=3, backoff_base=2, max_queue=None,
                  shed_deadlines=None, wal=None, salvage=True,
                  **engine_kwargs):
-        if disaggregated:
-            raise NotImplementedError(f"disaggregated=True: {_ELASTIC}")
         if cluster is None:
             cluster = _gate("PT_CLUSTER")
         self.enabled = bool(cluster)
         if not self.enabled:
-            n_replicas = 1
+            n_replicas, disaggregated = 1, False
         n_replicas = int(n_replicas)
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        if disaggregated and n_replicas < 2:
+            raise ValueError(
+                "disaggregated mode needs >= 2 replicas "
+                "(at least one prefill and one decode role)")
+        self.disaggregated = bool(disaggregated)
         self.config = config
         self.params = params
         self._engine_kwargs = dict(engine_kwargs)
@@ -551,6 +579,19 @@ class ServingCluster:
         self._tick = 0
         self._next_rid = 0
         self._owner: dict = {}      # rid -> Replica (current home)
+        self.handoffs = 0
+        self.handoff_tokens = 0
+        self.handoffs_skipped = 0
+        self.drains = 0
+        self.drains_aborted = 0
+        self.joins = 0
+        self.joins_aborted = 0
+        self.resteered = 0
+        self.last_join = None       # the last join's capture report
+        #: a list makes every handoff append its audit record (crc32 of
+        #: the K/V at the source and as landed, the copy's seconds and
+        #: bytes); None (the default) costs nothing
+        self.handoff_audit = None
         self.supervisor = ReplicaSupervisor(
             self, beat_timeout=beat_timeout, watchdog_s=watchdog_s,
             auto_restart=auto_restart, restart_budget=restart_budget,
@@ -576,9 +617,20 @@ class ServingCluster:
         #                             from the journal (served from log)
         self.recovery = None        # report dict set by recover()
         self.recovered_handles = {}  # rid -> handle, set by recover()
-        obs.handle()    # the PT_OBS gate: on raises (not ported)
-        for _ in range(n_replicas):
-            self._build_replica()
+        self._obs = obs.handle()    # the PT_OBS gate: on raises
+        n_pre = 0
+        if self.disaggregated:
+            n_pre = (max(1, n_replicas // 2) if n_prefill is None
+                     else int(n_prefill))
+            if not 1 <= n_pre < n_replicas:
+                raise ValueError(
+                    f"n_prefill must be in [1, {n_replicas - 1}], "
+                    f"got {n_pre}")
+        for i in range(n_replicas):
+            role = "mixed"
+            if self.disaggregated:
+                role = "prefill" if i < n_pre else "decode"
+            self._build_replica(role)
 
     def _build_engine(self) -> ServingEngine:
         """One replica engine — the build and restart path."""
@@ -786,8 +838,9 @@ class ServingCluster:
 
     def step(self) -> dict:
         """One cluster iteration: every live replica steps once under
-        the supervisor's watch, then the supervisor polls (missed-beat
-        detection, restarts, orphan re-homing).  Returns the merged
+        the supervisor's watch, then disaggregated handoffs run, the
+        supervisor polls (missed-beat detection, restarts, orphan
+        re-homing) and finished drains retire.  Returns the merged
         {rid: [tokens]} map."""
         self._tick += 1
         emitted: dict = {}
@@ -796,7 +849,12 @@ class ServingCluster:
                 continue
             for rid, toks in self.supervisor.step_replica(rep).items():
                 emitted.setdefault(rid, []).extend(toks)
+        if self.disaggregated:
+            self._migrate()
         self.supervisor.poll()
+        for rep in self.replicas:
+            if rep.state == "draining" and rep.engine.in_flight == 0:
+                rep.state = "drained"
         return emitted
 
     def run(self, max_steps=100000) -> dict:
@@ -828,13 +886,242 @@ class ServingCluster:
         self.supervisor.fail(rep, reason)
         return rep
 
-    def drain(self, name):
-        raise NotImplementedError(f"ServingCluster.drain: {_ELASTIC}")
+    def drain(self, name) -> Replica:
+        """Close one replica's admission and re-steer its queued
+        requests; prefilling and running work finishes in place and the
+        replica retires (state ``drained``) once idle.  Refuses to drain
+        the last admitting replica: the fleet must keep accepting.
+
+        Draining a ``draining`` or ``drained`` replica is a no-op (the
+        same replica back, no counter, no re-steer, no fault point);
+        draining a ``failed``, ``restarting`` or ``retired`` one raises,
+        as there is nothing to hand off."""
+        rep = self.replica(name) if not isinstance(name, Replica) \
+            else name
+        if rep.state in ("draining", "drained"):
+            return rep
+        if rep.state != "active":
+            raise ValueError(
+                f"cannot drain {rep.name}: state={rep.state!r} "
+                f"(only active replicas drain)")
+        targets = [r for r in self.replicas
+                   if r is not rep and r.admitting]
+        if rep.admitting and not targets:
+            raise RuntimeError(
+                f"cannot drain {rep.name}: it is the last admitting "
+                f"replica")
+        try:
+            faults.fire("replica.drain", "before")
+        except faults.InjectedFault:
+            # aborted before anything moved: the replica stays active
+            self.drains_aborted += 1
+            return rep
+        rep.state = "draining"
+        sch = rep.engine.scheduler
+        moved = list(sch.queue)
+        for req in moved:
+            sch.queue.remove(req)
+            sch.requests.pop(req.rid, None)
+            self._owner.pop(req.rid, None)
+        for req in moved:
+            dst, _ = self.router.pick(targets, req.resume_ids)
+            dst.engine.scheduler.add(req)
+            self._owner[req.rid] = dst
+            self.resteered += 1
+        try:
+            faults.fire("replica.drain", "after")
+        except faults.InjectedFault:
+            pass                    # the drain is already committed
+        self.drains += 1
+        return rep
 
     def join(self, role=None):
-        raise NotImplementedError(f"ServingCluster.join: {_ELASTIC}")
+        """Add a fresh replica (``role`` default ``decode`` in a
+        disaggregated fleet, else ``mixed``); returns it, or None when an
+        injected ``replica.join`` fault aborts the build (the fleet as it
+        was).  A join never touches a draining replica; a draining
+        replica's re-steered queue may land on the newcomer at the next
+        routing decision only.  The port has no compile cache on disk:
+        the new engine captures its own decode graphs (at build under
+        ``aot="warm"``, else at first use), and ``last_join`` reports
+        the graphs captured and their seconds at the join."""
+        if role is None:
+            role = "decode" if self.disaggregated else "mixed"
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                f"join role must be mixed|prefill|decode, got {role!r}")
+        try:
+            faults.fire("replica.join", "before")
+        except faults.InjectedFault:
+            self.joins_aborted += 1
+            return None
+        t0 = time.perf_counter()
+        rep = self._build_replica(role=role)
+        try:
+            faults.fire("replica.join", "after")
+        except faults.InjectedFault:
+            pass            # engine built: the join is committed
+        self.joins += 1
+        self.last_join = dict(replica=rep.name, role=role,
+                              build_s=time.perf_counter() - t0,
+                              **self.graphs(rep))
+        return rep
+
+    @staticmethod
+    def graphs(rep) -> dict:
+        """A replica's captured programs: graphs captured and the host
+        seconds their captures took (warm-ups included)."""
+        progs = rep.engine.executor.programs.values()
+        return {"graphs_captured": sum(p.traces for p in progs),
+                "capture_s": sum(p.seconds for p in progs)}
+
+    # -- disaggregated prefill -> decode handoff --------------------------
+
+    def _migrate(self):
+        decode_reps = [r for r in self.replicas
+                       if r.role == "decode" and r.state == "active"]
+        if not decode_reps:
+            return
+        for rep in self.replicas:
+            if rep.role != "prefill" or rep.state == "drained":
+                continue
+            for req in list(rep.engine.scheduler.running):
+                self._handoff(rep, req, decode_reps)
+
+    def _handoff(self, src, req, decode_reps) -> bool:
+        """Move one RUNNING sequence from a prefill replica to the
+        decode replica with the most room: its K/V pages by salvage's
+        copy (``gather_dense`` → ``write_at``), its last token, then the
+        request.  Skips (the request keeps decoding on its source:
+        degradation, never loss) when no decode replica has room or an
+        injected ``kv.handoff`` before-fault fires."""
+        src_ex = src.engine.executor
+        length = int(src_ex.cache.lengths[req.sid])
+        dst = _with_room(decode_reps, length)
+        if dst is None:
+            self.handoffs_skipped += 1
+            return False
+        try:
+            faults.fire("kv.handoff", "before")
+        except faults.InjectedFault:
+            self.handoffs_skipped += 1
+            return False
+        dst_ex = dst.engine.executor
+        audit = self.handoff_audit
+        if audit is None:
+            dst_sid = _land_kv(dst_ex, *_gather_kv(src_ex, req.sid, length))
+        else:
+            dst_sid = self._audited_copy(src_ex, req, length, dst_ex)
+        dst_ex.last_token[dst_sid] = src_ex.last_token[req.sid]
+        try:
+            faults.fire("kv.handoff", "after")
+        except faults.InjectedFault:
+            pass    # pages landed refcounted: the handoff commits
+        src_sch = src.engine.scheduler
+        if src_sch.spec is not None:
+            src_sch.spec.on_release(req)
+        src_sch.running.remove(req)
+        src_sch.requests.pop(req.rid, None)
+        src_ex.free_slot(req.sid)
+        src_sch._pending = None   # any parked plan names the old slot
+        dst_sch = dst.engine.scheduler
+        req.sid = dst_sid
+        dst_sch.requests[req.rid] = req
+        dst_sch.running.append(req)
+        dst_sch._pending = None   # the predicted running set changed
+        if dst_sch.spec is not None:
+            dst_sch.spec.on_running(req)
+        self._owner[req.rid] = dst
+        self.handoffs += 1
+        self.handoff_tokens += length
+        return True
+
+    def _audited_copy(self, src_ex, req, length, dst_ex) -> int:
+        """The handoff's copy with its audit record: the gather and the
+        write each timed between device synchronisations, the crc32 of
+        the K/V at the source and as landed taken outside the timing."""
+        dev = dst_ex.device
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        sync()
+        t0 = time.perf_counter()
+        k, v = _gather_kv(src_ex, req.sid, length)
+        sync()
+        t1 = time.perf_counter()
+        crc = _crc(k, v)
+        sync()
+        t2 = time.perf_counter()
+        dst_sid = _land_kv(dst_ex, k, v)
+        sync()
+        t3 = time.perf_counter()
+        self.handoff_audit.append(dict(
+            rid=req.rid, tokens=length,
+            pages=int((dst_ex.cache.page_table[dst_sid] >= 0).sum()),
+            bytes=2 * (k.numel() * k.element_size()),
+            gather_s=t1 - t0, write_s=t3 - t2, crc_src=crc,
+            crc_dst=_crc(*_gather_kv(dst_ex, dst_sid, length))))
+        return dst_sid
 
     # -- introspection ---------------------------------------------------
+
+    def _statusz(self) -> dict:
+        """The reference's ``/statusz`` "cluster" page (routing,
+        handoffs, drains, joins, survivability, each replica's role,
+        state and pool); the port serves no page yet (item 9), so
+        callers read it directly."""
+        return {
+            "tick": self._tick,
+            "enabled": self.enabled,
+            "disaggregated": self.disaggregated,
+            "router": {
+                "policy": self.router.policy,
+                "decisions": self.router.decisions,
+                "affinity_hits": self.router.affinity_hits,
+                "degraded": self.router.degraded,
+                "resteered": self.resteered,
+            },
+            "handoffs": {
+                "done": self.handoffs,
+                "tokens": self.handoff_tokens,
+                "skipped": self.handoffs_skipped,
+            },
+            "drains": {"done": self.drains,
+                       "aborted": self.drains_aborted},
+            "joins": {"done": self.joins,
+                      "aborted": self.joins_aborted,
+                      "last": self.last_join},
+            "survivability": {
+                "failovers": self.failovers,
+                "shed": self.sheds,
+                "orphans": len(self._orphans),
+                "restarts": {"done": self.restarts,
+                             "failed": self.restarts_failed},
+                "retired": self.retired,
+            },
+            "replicas": [
+                {
+                    "name": rep.name,
+                    "role": rep.role,
+                    "state": rep.state,
+                    "tick": rep.engine.tick,
+                    "in_flight": rep.engine.in_flight,
+                    "queued": len(rep.engine.scheduler.queue),
+                    "running": len(rep.engine.scheduler.running),
+                    "pool": {
+                        "num_pages":
+                            rep.engine.executor.cache.num_pages,
+                        "free_pages": rep.engine.executor.free_pages,
+                    },
+                    "prefix": (None if rep.engine.prefix is None
+                               else rep.engine.prefix.stats()),
+                    **self.graphs(rep),
+                }
+                for rep in self.replicas
+            ],
+        }
 
     def stats(self) -> dict:
         """Aggregate fleet stats plus each replica's engine stats.
@@ -862,7 +1149,10 @@ class ServingCluster:
                 "decisions": self.router.decisions,
                 "affinity_hits": self.router.affinity_hits,
                 "degraded": self.router.degraded,
+                "resteered": self.resteered,
             },
+            "handoffs": self.handoffs,
+            "handoffs_skipped": self.handoffs_skipped,
             "failovers": self.failovers,
             "shed": self.sheds,
             "orphans": len(self._orphans),

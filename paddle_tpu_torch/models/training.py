@@ -43,6 +43,7 @@ from ..core import aot
 from ..device import resolve_device
 from ..nn.norm import running_stats_frozen
 from ..optimizer.lr import LRScheduler, ReduceOnPlateau
+from ..testing import faults
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -85,38 +86,85 @@ def stochastic_round_bf16(x32, generator):
     return sr_bits(x32, r)
 
 
+def _generator_slots(model):
+    """(module, attribute, generator) of every ``torch.Generator`` the
+    model's modules hold (dropout)."""
+    return [(mod, attr, v) for mod in model.modules()
+            for attr, v in vars(mod).items()
+            if isinstance(v, torch.Generator)]
+
+
 def _model_generators(model):
-    """The ``torch.Generator`` s the model's modules hold (dropout)."""
+    """The distinct ``torch.Generator`` s the model's modules hold."""
     seen = {}
-    for mod in model.modules():
-        for v in vars(mod).values():
-            if isinstance(v, torch.Generator):
-                seen[id(v)] = v
+    for _, _, g in _generator_slots(model):
+        seen.setdefault(id(g), g)
     return list(seen.values())
+
+
+def _capturing():
+    return torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
 
 
 class _Replay:
     """``checkpoint`` contexts that give the recompute the forward's
-    random draws: the forward snapshots every generator, the recompute
-    runs from the snapshot and puts the generators back after."""
+    random draws.
 
-    def __init__(self, generators):
-        self.generators = generators
+    Eagerly the forward snapshots every generator, the recompute runs
+    from the snapshot and puts the generators back after.  A snapshot
+    cannot be read under a CUDA-graph capture (its offset is the graph's
+    until a replay), so there each module generator has a *twin*
+    (``clone_state``) registered with the graph beside it: the module
+    draws its forward masks from its own generator and its recompute
+    masks from the twin, swapped into the module's attribute for the
+    recompute.  The twin starts every replay where its generator stands
+    (:meth:`sync`), and both advance by the same draws within a replay,
+    so the recompute draws what the forward drew on every replay, while
+    each replay draws anew."""
+
+    def __init__(self, model):
+        self.slots = _generator_slots(model)
+        self.generators = _model_generators(model)
+        self.twins = {}
         self.saved = None
+        self.captured = False
+
+    def make_twins(self):
+        """One twin per generator, on its device (the capture's graph
+        registers them); returns them."""
+        for g in self.generators:
+            if id(g) not in self.twins:
+                self.twins[id(g)] = g.clone_state()
+        return list(self.twins.values())
+
+    def sync(self):
+        """Each twin to its generator's state: before every replay."""
+        for g in self.generators:
+            twin = self.twins.get(id(g))
+            if twin is not None:
+                twin.set_state(g.get_state())
 
     @contextlib.contextmanager
     def forward(self):
-        if self.generators and torch.cuda.is_available() \
-                and torch.cuda.is_current_stream_capturing():
-            raise NotImplementedError(
-                "remat=True over a model that draws random numbers cannot "
-                "be captured into a CUDA graph yet (ROADMAP.md Queue 1, "
-                "item 2): use step()")
-        self.saved = [g.get_state() for g in self.generators]
+        self.captured = _capturing()
+        if not self.captured:
+            self.saved = [g.get_state() for g in self.generators]
         yield
 
     @contextlib.contextmanager
     def recompute(self):
+        if self.captured:
+            swapped = [(m, a, g) for m, a, g in self.slots
+                       if id(g) in self.twins]
+            for m, a, g in swapped:
+                setattr(m, a, self.twins[id(g)])
+            try:
+                yield
+            finally:
+                for m, a, g in swapped:
+                    setattr(m, a, g)
+            return
         now = [g.get_state() for g in self.generators]
         for g, s in zip(self.generators, self.saved):
             g.set_state(s)
@@ -165,7 +213,8 @@ class CompiledTrainStep:
     loss_fn(*model(*inputs), *labels)``; ``moments`` ("mv", "m" or
     "none") allocates only the moment trees the update reads;
     ``remat=True`` runs the whole forward under ``torch.utils.checkpoint``
-    (dropout masks drawn again from the forward's generator states);
+    (dropout masks drawn again from the forward's generator states,
+    eagerly and in a captured ``multi_step``: see ``_Replay``);
     ``master_dtype="bfloat16_sr"`` keeps no fp32 master: the bf16
     parameters are the master, the update math runs in fp32 and each
     bf16 tensor is written back by stochastic rounding, its bits drawn
@@ -236,9 +285,11 @@ class CompiledTrainStep:
                    if moments == "mv" else {})
         self._sr_gen = torch.Generator(device=self.device)
         self._sr_gen.manual_seed(SR_SEED)
-        self._generators = [self._sr_gen] + _model_generators(model)
-        self._remat = (_Replay(_model_generators(model)) if remat
-                       else None)
+        self._remat = _Replay(model) if remat else None
+        # the graph's generators: the step's own, the model's and, under
+        # remat, the recompute's twins of the model's
+        self._generators = ([self._sr_gen] + _model_generators(model)
+                            + (self._remat.make_twins() if remat else []))
         self._zeros = {}
         # the update gate of step() and multi_step: True, and False
         # during a graph's warm-up, which so writes the state back
@@ -369,24 +420,32 @@ class CompiledTrainStep:
         return {k: grads[k] if grads.get(k) is not None else self._zero(k)
                 for k in self._sorted}
 
-    def _run(self, batch, t, lr, threshold=None):
+    def _run(self, batch, t, lr, gate=None, inject_grads=False):
         """Forward, backward, clipping and the update at device scalars
         ``t`` and ``lr``: one train step, gated by ``_live`` or, with
-        ``threshold``, by the gate formed here; returns (loss, gnorm or
-        None, ok).  Batch norms normalise with the batch statistics and
-        leave their running statistics as they were, as in
-        ``paddle_tpu``'s compiled step (ROADMAP.md Queue 3)."""
+        ``gate`` (``guarded_step``'s fp32 device vector [ceiling, loss
+        inject, grad inject]), by the verdict formed here; returns (loss,
+        gnorm or None, ok).  ``inject_grads`` adds the grad inject to
+        every gradient (the reference always adds it; unarmed it is 0, so
+        the pass is skipped).  Batch norms normalise with the batch
+        statistics and leave their running statistics as they were, as
+        in ``paddle_tpu``'s compiled step (ROADMAP.md Queue 3)."""
         with running_stats_frozen(self.model):
             loss = self._forward(batch)
             grads = self._grads(loss)
         loss = loss.detach()
+        if gate is not None:
+            loss = loss + gate[1].to(loss.dtype)
+            if inject_grads:
+                grads = {k: g + gate[2].to(g.dtype)
+                         for k, g in grads.items()}
         gnorm = (self._global_norm(grads)
-                 if self._clip is not None or threshold is not None
+                 if self._clip is not None or gate is not None
                  else None)
         ok = self._live
-        if threshold is not None:
+        if gate is not None:
             ok = (torch.isfinite(loss) & torch.isfinite(gnorm)
-                  & (loss.float() <= threshold))
+                  & (loss.float() <= gate[0]))
         scale = None if self._clip is None else self._clip_scale(gnorm)
         with torch.no_grad():
             self._update(grads, scale, t, lr, ok)
@@ -408,12 +467,15 @@ class CompiledTrainStep:
 
     def step(self, *batch):
         """One AdamW step on ``batch``, eagerly; returns the loss before
-        the update."""
+        the update.  The ``train.step`` fault point fires at the host
+        boundary, before and after."""
+        faults.fire("train.step", "before")
         batch = [self._batch(b) for b in batch]
         self._t += 1
         lr = self._next_lr()
         loss, _, _ = self._run(batch, self._scalar(self._t),
                                self._scalar(lr))
+        faults.fire("train.step", "after")
         return loss
 
     def guarded_step(self, threshold, *batch):
@@ -426,13 +488,32 @@ class CompiledTrainStep:
         parameters, the master, both moments and the step count as they
         were (found_inf semantics); the scheduler advances either way,
         as in ``paddle_tpu``.  Returns ``(loss, grad_norm, ok)`` as host
-        float, float, bool (the one synchronisation)."""
+        float, float, bool (the one synchronisation).
+
+        The ``guard.nan_loss``, ``guard.loss_spike`` and ``guard.nan_grad``
+        points (``inject``) are polled here into the gate vector
+        [ceiling, loss inject, grad inject], as in ``paddle_tpu``: armed,
+        they poison the loss or the gradients inside the gated step, so
+        the skip path the guardian sees is the production one;
+        ``train.step`` fires before and after."""
+        faults.fire("train.step", "before")
+        l_inj = 0.0
+        if faults.poll("guard.nan_loss") is not None:
+            l_inj = float("nan")
+        else:
+            spike = faults.poll("guard.loss_spike")
+            if spike is not None:
+                l_inj = 1e6 if spike is True else float(spike)
+        g_inj = float("nan") \
+            if faults.poll("guard.nan_grad") is not None else 0.0
         batch = [self._batch(b) for b in batch]
         self._t += 1
         lr = self._next_lr()
-        loss, gnorm, ok = self._run(batch, self._scalar(self._t),
-                                    self._scalar(lr),
-                                    threshold=float(threshold))
+        gate = torch.tensor([threshold, l_inj, g_inj], dtype=torch.float32)
+        loss, gnorm, ok = self._run(
+            batch, self._scalar(self._t), self._scalar(lr),
+            gate=gate.to(self.device), inject_grads=g_inj != 0.0)
+        faults.fire("train.step", "after")
         loss_f, gnorm_f, ok_b = float(loss), float(gnorm), bool(ok)
         if not ok_b:
             self._t -= 1
@@ -495,6 +576,8 @@ class CompiledTrainStep:
         if bufs is None:
             bufs = self._multi_bufs[rung] = self._make_bufs(k, batch)
         self._stage(bufs, batch, t0, lrs)
+        if self._remat is not None:
+            self._remat.sync()
         self.last_losses = self._graph(rung).clone()
         return self.last_losses[-1].clone()
 

@@ -44,13 +44,12 @@ DataLoader worker counts its own hits (deterministic per worker).
 Counterpart of ``paddle_tpu/testing/faults.py``: a copy of the whole
 module (the port imports nothing of the JAX package), with the same
 registry, so one spec string arms the same point in either package.
-The port's serving sites follow the reference's control flow, hit for
-hit.  Points whose site the port does not have yet stay registered:
-the training ones (``ckpt.*``, ``guard.*``, ``train.step``,
-``io.worker``, ``hapi.save``; ROADMAP.md Queue 1, item 2), the
+The port's serving, fleet, checkpoint and train-step sites follow the
+reference's control flow, hit for hit.  Points whose site the port does
+not have yet stay registered: ``io.worker`` (the ``DataLoader``;
+ROADMAP.md Queue 1, item 4) and ``hapi.save`` (``hapi``; item 9), the
 telemetry ones (``obs.*``; item 9), ``aot.cache`` (the port keeps no
-compile cache on disk), the elastic fleet's ``replica.drain``,
-``replica.join`` and ``kv.handoff`` (item 5b) and ``sp.*`` (item 8).
+compile cache on disk) and ``sp.*`` (item 8).
 """
 from __future__ import annotations
 

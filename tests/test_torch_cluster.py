@@ -12,7 +12,7 @@ the router's placements and a replica crash and hang against
 ``paddle_tpu``'s fleet (the same failovers, salvages and restarts), and
 the chaos schedules drawn are the reference's.
 Overload shedding returns terminal REJECTED with a retry-after.
-``drain``, ``join`` and ``disaggregated=True`` are not ported yet.
+``drain``, ``join`` and ``disaggregated=True``: ``test_torch_elastic.py``.
 
 Weights: the port's seeded tiny Llama (vocab 256, hidden 64, 2 layers,
 fp32), loaded into the reference's model.  Streams must be identical.
@@ -204,13 +204,14 @@ def test_router_policy_validated():
 
 
 def test_elastic_part_is_not_ported(pair):
+    """The elastic part is ported now (its tests are
+    ``tests/test_torch_elastic.py``): drain, join and a disaggregated
+    fleet no longer raise."""
     cl = _cluster(pair, n_replicas=2, cluster=True)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        cl.drain("r0")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        cl.join()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        _cluster(pair, n_replicas=2, cluster=True, disaggregated=True)
+    assert cl.drain("r0").state == "draining"
+    assert cl.join().name == "r2"
+    dis = _cluster(pair, n_replicas=2, cluster=True, disaggregated=True)
+    assert [r.role for r in dis.replicas] == ["prefill", "decode"]
     for point in ("replica.drain", "replica.join", "kv.handoff"):
         assert point in faults.REGISTERED
 

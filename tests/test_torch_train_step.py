@@ -36,6 +36,7 @@ from paddle_tpu_torch.models import (
     LlamaForCausalLM, load_numpy_state,
 )
 from paddle_tpu_torch.models import llama as port_llama
+from paddle_tpu_torch.models import training as training_mod
 from paddle_tpu_torch.models.training import sr_bits, stochastic_round_bf16
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn.common import embedding_grad
@@ -574,6 +575,52 @@ def test_remat_replays_the_dropout_masks():
     _assert_state_equal(*steps)
 
 
+@pytest.mark.parametrize("synced", [True, False])
+def test_remat_capture_path_recomputes_the_forward_masks(monkeypatch,
+                                                         synced):
+    """Under a CUDA-graph capture a generator's state cannot be read, so
+    ``remat=True`` recomputes each dropout mask from the generator's
+    twin, swapped into the module for the recompute and set to the
+    generator's state before each replay (``_Replay.sync``).  The
+    capture path runs here on the CPU with the capture test forced
+    true: after one sync the twins stay in lockstep over two steps, the
+    recompute's masks are the forward's, and the steps equal the plain
+    ones bit for bit; a twin left behind its generator draws other
+    masks, and the steps differ."""
+    monkeypatch.setattr(training_mod, "_capturing", lambda: True)
+    cfg = BertConfig.tiny(hidden_dropout_prob=0.2,
+                          attention_probs_dropout_prob=0.2)
+    steps = []
+    for remat in (True, False):
+        model = _QA(cfg, seed=1)
+        model.train()
+        steps.append(CompiledTrainStep(model, remat=remat, device="cpu"))
+    replay = steps[0]._remat
+    assert len(replay.twins) == len(replay.generators) >= 1
+    assert all(t in steps[0]._generators for t in replay.twins.values())
+    for step in steps:          # move every model generator on
+        for g in training_mod._model_generators(step.model):
+            torch.rand(3, generator=g)
+    if synced:
+        replay.sync()
+    rng = np.random.RandomState(0)
+    batch = (rng.randint(0, cfg.vocab_size, (2, 32)),
+             rng.randint(0, 32, (2,)), rng.randint(0, 32, (2,)))
+    same = [torch.equal(steps[0].step(*batch), steps[1].step(*batch))
+            for _ in range(2)]
+    # the first forward draws the same masks either way
+    assert same[0] and all(same) is synced
+    eq = all(torch.equal(steps[0]._master[k], steps[1]._master[k])
+             for k in steps[0]._master)
+    assert eq is synced
+    if synced:
+        _assert_state_equal(*steps)
+        # both advanced by the same draws: still in lockstep
+        for g in replay.generators:
+            assert torch.equal(g.get_state(),
+                               replay.twins[id(g)].get_state())
+
+
 def test_set_state_dict_from_jax_resumes():
     """paddle_tpu trains 2 steps with a warm-up schedule; its state dict
     (numpy arrays and the scheduler's state) loads into a fresh port
@@ -698,3 +745,36 @@ def test_cuda_multi_step_replays_equal_eager(master):
         assert torch.equal(b.last_losses, eager)
         _assert_state_equal(a, b)
     assert b._graph.traces == 1 and b._graph.dispatches == 2
+
+
+@pytest.mark.cuda
+def test_cuda_remat_with_dropout_replays_equal_eager():
+    """remat=True over BERT with dropout under multi_step capture: each
+    replay equals the eager remat step from the same generator states
+    bit for bit (the recompute draws from the registered twins), and at
+    lr 0 three replays give three different losses (new masks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = BertConfig.tiny(hidden_dropout_prob=0.1,
+                          attention_probs_dropout_prob=0.1)
+    steps = []
+    for _ in range(2):
+        model = torch.nn.Module()
+        model.qa = BertForQuestionAnswering(cfg, device="cuda", seed=1)
+        model.forward = lambda ids, s, e, m=model.qa: m(
+            ids, start_positions=s, end_positions=e)
+        model.train()
+        steps.append(CompiledTrainStep(model, lr=0.0, remat=True,
+                                       compute_dtype="bfloat16",
+                                       device="cuda"))
+    rng = np.random.RandomState(0)
+    batch = tuple(torch.as_tensor(a, device="cuda") for a in (
+        rng.randint(0, cfg.vocab_size, (2, 128)), rng.randint(0, 128, (2,)),
+        rng.randint(0, 128, (2,))))
+    eager, graph = steps
+    el = [eager.step(*batch) for _ in range(3)]
+    gl = [graph.multi_step(1, *batch) for _ in range(3)]
+    assert all(torch.equal(a, b) for a, b in zip(el, gl))
+    assert len({float(x) for x in gl}) == 3
+    _assert_state_equal(eager, graph)
+    assert graph._graph.traces == 1 and graph._graph.dispatches == 3
