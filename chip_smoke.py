@@ -30,23 +30,27 @@ result):
              D = 256), with 128-token pages (streamed in tiles), at
              lengths on, one past and inside the 256-token split
              boundary and 0, and timed at phase 4b's decode step (B = 8,
-             every length 522) too.  3b holds attention at [4, 32, 2048,
+             every length 522) too; Llama-2-13B's 40 kv heads at ragged
+             lengths in a 1024-token window, and timed at 4i's decode
+             step (every length 543) beside its bound, plain version and
+             library call.  3b holds attention at [4, 32, 2048,
              128] bf16 causal, at S=1024, in fp32, with fused RoPE, with
              GQA 32/8 at S=4096, not causal, and at S=4096, and times it
              at the training shape and in the flash region (S=4096
              causal, with and without GQA 32/8; SDPA with enable_gqa
              beside it).
-3c. quant kernels — the int8-weight matmul at every Llama-2-7B
-             projection shape for M = 8 (decode) and M = 512 (prefill),
+3c. quant kernels — the int8-weight matmul at every Llama-2-7B and
+             Llama-2-13B projection shape for M = 8 (decode) and M = 512
+             (prefill),
              bf16 and f32 x, at gate/up also M = 1, 3, 9, 16, 32, 33, 64
              and 188 (bf16), with NaN in x's rows past M and garbage past K
              and N in the same allocations, and off the TMA shape rule
              (the SIMT kernels); each call must take its route, match
              the plain version and give the same bits twice.  Then
              paged decode over int8 pages at the decode shapes of 3 and
-             its new shapes, each against its plain version; timed as
-             in 3 (the matmul at all six shape and M pairs, with its
-             route).
+             its new shapes (13B's included), each against its plain
+             version; timed as in 3 (the matmul at all twelve shape and
+             M pairs, with its route; paged decode also at 4i's step).
 3e. short kernels — short-sequence attention forward (out, its fp32
              copy, lse) and backward against the plain version at the
              BERT-base shape [48, 12, 384, 64] bf16 with p = 0.1 and 0,
@@ -87,7 +91,9 @@ result):
              device ms apart from cuBLAS's.
 4e. aot    — engines with aot="warm" and aot="strict" at phase 4's shape
              (every decode batch and decode_n at n = 8 captured at
-             build): no failed warmup entry, phase 4's streams from both,
+             build): no failed warmup entry, phase 4's streams from both
+             equal to an engine with the same prefill ladder and decode
+             eager (whose warmup arms the ladder and captures nothing),
              AotMissError at a rung with no graph after seal(), and
              decode_n(8) at batch 8 equal to 8 decode steps, each timed.
 4f. features — Llama-2-7B at full width and depth, phase 4's engine,
@@ -158,6 +164,44 @@ result):
              slot a replica, so that r0 holds a queue) and a
              disaggregated fleet on the card give the CPU's streams
              token for token.
+4i. decoding at 13B — Llama-2-13B at full width and all 40 layers,
+             random weights from seed 0 (LlamaForCausalLM in fp32, 52 GB,
+             then .to(bfloat16), 26 GB): (a) generate on 8 seeded
+             512-token prompts, 32 new tokens: prefill ms, ms a decode
+             step beside the weight-read bound, tokens/s, peak memory;
+             no kernel of the eleven launches (its attention is an
+             einsum, as the reference's); (b) PagedLlamaEngine over the
+             same model (8 slots, 16-token pages, 1024-token window: a
+             stacked bf16 copy and a 6.7 GB pool), the same prompts and
+             31 steps: exactly 40 paged_decode launches a step, ms a
+             step, agreement with (a) reported (bf16: not gated); (c)
+             Predictor(model) and Predictor(model, config=Config()) on
+             [1, 128] ids: logits equal model(ids) bit for bit; (d) the
+             model's serving_params in bf16 on the
+             card (the model then dropped) served with quant="int8"
+             through phase 4's load with graphs (every request finishes
+             with its length; paged_decode_quant once a layer a decode
+             step, quant_matmul 7 times a layer a forward), TTFT / TPOT,
+             and 8 decode steps at batch 8 beside the int8 weight-read
+             bound (both bounds count the weights a step reads: all but
+             8 rows of the embedding table).
+5e. decoding parity — card against CPU in fp32: (i) 13B's width at 2
+             layers: generate, PagedLlamaEngine and ServingEngine on two
+             seeded 24-token prompts, 8 new tokens, equal to each other
+             and the card's equal to the CPU's; the predictor as in 4i(c)
+             and under enable_low_precision("bfloat16"), equal to the
+             model cast to bf16 bit for bit and within 2^-4 of the
+             largest fp32 logit; (ii) hidden 2560, 32
+             heads (head dim 80, outside the kernel's 64 / 128 / 256),
+             2 layers, phase 5's load through ServingEngine: the dense
+             route (no paged_decode launch, dense calls counted), the
+             CPU's streams, and PT_PAGED_IMPL=pallas raises; (iii)
+             nn.Transformer at its defaults (seeded weights, dropout 0):
+             the forward under generate_square_subsequent_mask within
+             1e-5 of the largest value of the CPU's, and 8 one-token
+             steps through the decoder with gen_cache equal to the full
+             causal forward on both (the encoder's self-attention at S =
+             128 takes the short-attention kernel on the card).
 5b. feature parity — the same 2-layer fp32 model, 5 requests behind one
              shared prefix with tiled prompts: the prefix cache, spec
              decode and async, each on alone, give the off leg's streams
@@ -286,7 +330,7 @@ result):
              loss_fn=cross_entropy) with its defaults (AdamW, fp32
              master, wd 0.01, clip 1.0); with the conv weights NCHW and
              channels-last in turn: 2 warm-up steps (the first timed:
-             cuDNN's first calls), 10 timed eager steps, multi_step(5)
+             cuDNN's first calls), 5 timed eager steps, multi_step(5)
              captured and then replayed; step ms, imgs/s, MFU (imgs/s x
              3 x 4.1e9 / 989e12, bench.py's estimate), peak memory and
              the idle share, eager and replayed.  Losses finite; the
@@ -303,7 +347,8 @@ result):
              2e-2.
 13. detection train — bench.py's config 4 (bench.py:469-519): ResNet-18
              features with 1x1 box and class heads, L1 + BCE-with-logits,
-             B = 64 at 320 px bf16, lr 1e-3, timed as in 12.
+             B = 64 at 320 px bf16, lr 1e-3, timed as in 12 (10 eager
+             steps).
 14. vision parity — fp32, the card against the CPU, with TF32 at the
              library defaults (the script's switch of phase 1 undone for
              the phase): resnet18 and ResNet(BottleneckBlock, 50) eval
@@ -320,7 +365,7 @@ result):
              int32 timesteps, a [4, 77, 768] fp32 context and fp32 noise
              from RandomState(0), CompiledTrainStep(lr=1e-4,
              compute_dtype="bfloat16", moments_dtype="bfloat16"): 2
-             warm-up steps (the first timed: cuDNN's first calls), 10
+             warm-up steps (the first timed: cuDNN's first calls), 5
              eager steps, multi_step(3) captured and replayed; step ms,
              samples/s, TFLOP/s over the analytic count (3 x the forward
              flops of the convs, Linears and the two attention products,
@@ -338,7 +383,7 @@ result):
              top level's shape (bits, time).
 15c. unet at the published latent — the same model at SD v1.5's own
              sample_size, 64 x 64 latents (512 px images), B = 4: 2
-             warm-up and 3 eager steps, multi_step(2) captured and
+             warm-up and 2 eager steps, multi_step(2) captured and
              replayed; step ms, samples/s, peak memory.
 16. unet parity — fp32, the card against the CPU, TF32 at the library
              defaults: a narrow UNet at full depth (block_out_channels
@@ -655,6 +700,37 @@ PAGED_NEW_CASES = [
 #: phase 4b's decode step: batch 8, every sequence 522 tokens long
 PAGED_SERVING = dict(B=8, KV=32, G=1, D=128, ps=16, pps=128,
                      lengths=[522] * 8)
+#: Llama-2-13B (40 kv heads) at phase 4i's PagedLlamaEngine: ragged
+#: lengths in its 1024-token window, and its decode step (8 sequences
+#: of a 512-token prompt and 32 new tokens at the last step)
+L13B = [1, 8, 1024, 17, 500, 544, 999, 333]
+PAGED_13B = dict(B=8, KV=40, G=1, D=128, ps=16, pps=64, lengths=[543] * 8)
+
+
+def _paged_dense(q, table, pages, scales=None):
+    """Each sequence's page window gathered dense [B, KV, T, D] (fp32,
+    dequantized with ``scales``): the library yardstick's input."""
+    B, _, D = q.shape
+    T = table.shape[1] * pages.shape[2]
+    idx = table.long()
+    w = pages[:, idx].float()
+    if scales is not None:
+        w = w * scales[:, idx][..., None, None]
+    return w.transpose(0, 1).reshape(B, -1, T, D)
+
+
+def _time_paged_13b(label, kernel, plain, bound_fn, args, flush, dense_kv):
+    """One extra shape line of a paged-decode row at 4i's decode step:
+    kernel, bound, plain and library times."""
+    ms = time_ms(lambda: kernel(*args), flush)
+    plain_ms = time_ms(lambda: plain(*args), flush)
+    lib_ms = _paged_library_ms(args[0], *dense_kv, args[3], flush)
+    bound, by = bound_fn(args[0], args[1], args[3], args[4])
+    log(f"[kernels] {label} time at 4i's decode step (Llama-2-13B: B=8, "
+        f"KV=40, D=128, ps=16, pps=64, every length 543): kernel "
+        f"{ms:.4f} ms | bound {bound:.4f} ms ({by}) | plain {plain_ms:.4f} "
+        f"ms | library_ms {lib_ms:.4f} ms | {100 * bound / ms:.1f}% of "
+        f"bound | {lib_ms / ms:.2f}x faster than the library")
 
 
 def _paged_library_ms(q, kd, vd, lens, flush, iters=50):
@@ -692,6 +768,10 @@ def phase_kernels(device):
         ("llama2-7b bf16", dict(B=8, KV=32, G=1, D=128, ps=16, pps=128,
                                 lengths=l7b),
          (bf16, bf16), 1e-4, 2 ** -7, BF16_WHY),
+        ("llama2-13b serving (q f32, pool bf16)",
+         dict(B=8, KV=40, G=1, D=128, ps=16, pps=64, lengths=L13B),
+         (f32, bf16), 2e-5, 0.0, "fp32 math on bf16-exact values, other "
+         "summation order"),
         ("gqa G=4 D=128", dict(B=4, KV=8, G=4, D=128, ps=16, pps=128,
                                lengths=[2048, 1, 40, 777]),
          (f32, bf16), 2e-5, 0.0, "fp32 math, other summation order"),
@@ -752,6 +832,12 @@ def phase_kernels(device):
     log(f"[kernels] paged_decode time at phase 4b's decode step (B=8, every "
         f"length 522, q f32 / pool bf16): kernel {s_ms:.4f} ms | bound "
         f"{s_bound:.4f} ms | {100 * s_bound / s_ms:.1f}% of bound")
+    sargs = make_paged_case(gen, q_dtype=f32, kv_dtype=bf16, device=device,
+                            **PAGED_13B)
+    _time_paged_13b("paged_decode", pdmod.paged_decode,
+                    pdmod.paged_decode_reference, paged_decode_bound, sargs,
+                    flush, (_paged_dense(sargs[0], sargs[4], sargs[1]),
+                            _paged_dense(sargs[0], sargs[4], sargs[2])))
     pdmod.paged_decode.launches = before   # timing launches do not count
     del flush, sargs
     return {"name": "paged_decode", "route": "cuda",
@@ -1027,6 +1113,11 @@ def flash_region_times(la, gen, flush, iters, S=4096, D=128):
 #: down
 QMM_SHAPES = {"q/k/v/o_proj": (4096, 4096), "gate/up_proj": (4096, 11008),
               "down_proj": (11008, 4096)}
+#: Llama-2-13B's projections (phase 4i's int8 engine): N = 13824 is 108
+#: tiles of 128, and K = 13824 the longest reduction
+QMM_13B_SHAPES = {"13b q/k/v/o_proj": (5120, 5120),
+                  "13b gate/up_proj": (5120, 13824),
+                  "13b down_proj": (13824, 5120)}
 
 
 def quant_matmul_bound(M, K, N, x_bytes):
@@ -1115,7 +1206,7 @@ def phase_quant_kernels(device, iters=50):
         torch.cuda.synchronize()
         want = qm.quant_matmul_reference(xs, qw, sc)
         if xs.dtype == f32:
-            tol = (2e-4, 0.0, "fp32 sums of up to 11008 products "
+            tol = (2e-4, 0.0, "fp32 sums of up to 13824 products "
                    "in other orders, |out| ~ 2")
         else:
             tol = (2e-4, 2 ** -7, BF16_WHY)
@@ -1127,7 +1218,7 @@ def phase_quant_kernels(device, iters=50):
                                  "call gave other bits")
         return err
 
-    for label, (K, N) in QMM_SHAPES.items():
+    for label, (K, N) in {**QMM_SHAPES, **QMM_13B_SHAPES}.items():
         w = torch.randn(K, N, generator=gen, device=device) * 0.02
         qw, sc = tq.quantize_per_channel(w)
         sc = sc.reshape(N)
@@ -1210,6 +1301,10 @@ def phase_quant_kernels(device, iters=50):
          for label, shape in PAGED_NEW_CASES] + [
         ("MQA G=32 q bf16", dict(PAGED_NEW_CASES[1][1]), bf16, 1e-4,
          2 ** -7, BF16_WHY),
+        ("llama2-13b serving (q f32, pool int8)",
+         dict(B=8, KV=40, G=1, D=128, ps=16, pps=64, lengths=L13B), f32,
+         2e-5, 0.0, "fp32 math on the same dequantized values, other "
+         "summation order"),
     ]
     main_case = None
     for label, shape, qd, atol, rtol, why in cases:
@@ -1253,6 +1348,13 @@ def phase_quant_kernels(device, iters=50):
     log(f"[kernels] paged_decode_quant time at phase 4d's decode step (B=8, "
         f"every length 522, q f32 / pool int8): kernel {s_ms:.4f} ms | "
         f"bound {s_bound:.4f} ms | {100 * s_bound / s_ms:.1f}% of bound")
+    sargs = make_quant_paged_case(gen, q_dtype=f32, device=device,
+                                  **PAGED_13B)
+    _time_paged_13b("paged_decode_quant", pdmod.paged_decode_quant,
+                    pdmod.paged_decode_quant_reference,
+                    paged_decode_quant_bound, sargs, flush,
+                    (_paged_dense(sargs[0], sargs[4], sargs[1], sargs[5]),
+                     _paged_dense(sargs[0], sargs[4], sargs[2], sargs[6])))
     del flush, args, q, kq, vq, sargs
     torch.cuda.empty_cache()
     qm.quant_matmul.launches, pdmod.paged_decode_quant.launches = before
@@ -1489,15 +1591,18 @@ def _run_audited(engine, work):
 
 def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
                 engine_kw=None, quant="none", eager=False, tag=None,
-                audit=False, precapture=False):
-    """Serve ``load`` through a ServingEngine built on seeded weights.
+                audit=False, precapture=False, params_fn=None):
+    """Serve ``load`` through a ServingEngine built on seeded weights (or
+    on those ``params_fn()`` returns: the caller keeps no reference, so
+    an int8 engine's dense projections are freed once quantized).
     ``eager`` runs decode's forward op by op (the executor's private A/B
     switch); else decode replays CUDA graphs, captured at each new batch
-    or, with ``aot`` in ``engine_kw``, at build.  ``audit`` checks the
-    page pool's invariants after every step; ``precapture`` captures the
-    decode step (the verify step with spec on) at every batch before the
-    load, so no capture falls inside a TTFT or TPOT.  Returns ({kernel:
-    launches in the run}, engine, {rid: tokens})."""
+    or, with ``aot`` in ``engine_kw``, at build (with ``eager``, aot only
+    arms the prefill ladder: no graph would be replayed).  ``audit``
+    checks the page pool's invariants after every step; ``precapture``
+    captures the decode step (the verify step with spec on) at every
+    batch before the load, so no capture falls inside a TTFT or TPOT.
+    Returns ({kernel: launches in the run}, engine, {rid: tokens})."""
     from paddle_tpu_torch.inference.server import RequestState, ServingEngine
     from paddle_tpu_torch.models import LlamaConfig, init_llama_params
     from paddle_tpu_torch.testing.load import (
@@ -1511,16 +1616,25 @@ def phase_serve(device, cfg=None, load=None, dtype=torch.bfloat16,
         tag = ("serve" if quant == "none" else f"serve-{quant}") \
             + (" eager" if eager else " graph")
     t0 = time.perf_counter()
-    params = init_llama_params(cfg, seed=0, device=device, dtype=dtype)
+    params = (init_llama_params(cfg, seed=0, device=device, dtype=dtype)
+              if params_fn is None else params_fn())
     nparams = (sum(t.numel() for t in params["layers"].values())
                + params["embed"].numel()
                + (0 if params["lm_head"] is None
                   else params["lm_head"].numel()))
+    ladder_only = eager and engine_kw.get("aot", "off") != "off"
     engine = ServingEngine(cfg, params, dtype=dtype, device=device,
-                           quant=quant, **engine_kw)
+                           quant=quant, **dict(
+                               engine_kw, **({"aot": "off"} if ladder_only
+                                             else {})))
     del params          # an int8 engine keeps no dense projection
     ex = engine.executor
     ex._eager_decode = eager
+    if ladder_only:     # the warm engines' ladder and page buckets
+        ex.arm_ladder(engine_kw["prefill_chunk"])
+        log(f"[{tag}] decode eager: prefill ladder {ex.aot_ladder.rungs} "
+            f"and page buckets {ex._aot_page_buckets} armed, no graph "
+            f"captured")
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2857,6 +2971,448 @@ def phase_parity_elastic(device, config="parity"):
         f"the CPU's token for token "
         f"({sum(map(len, got['cpu', 'drain'].values()))} tokens each)")
     _empty(device)
+
+
+# -- phases 4i and 5e: the decoding and inference surface --------------------
+
+#: 4i's generate: 8 prompts of 512 seeded tokens, 32 new tokens each
+GEN_RUN = dict(batch=8, prompt=512, new=32)
+#: 4i's PagedLlamaEngine over the same model
+PAGED_ENGINE_KW = dict(max_seqs=8, page_size=16, max_len=1024)
+
+
+def _weights_gb(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def _step_weight_bytes(weights, embed, tied, B):
+    """Bytes of weights one decode step at batch B reads: every tensor in
+    ``weights`` (the projections, scales, norms and an untied head) and B
+    rows of the ``embed`` table, or the whole table when the head is tied
+    to it."""
+    rows = embed.shape[0] if tied else B
+    return (sum(t.numel() * t.element_size() for t in weights)
+            + rows * embed[0].numel() * embed.element_size())
+
+
+def _gen_ids(cfg, B, S, seed=0):
+    return np.random.RandomState(seed).randint(1, cfg.vocab_size, (B, S))
+
+
+def _kernels_moved(before):
+    counters = _unet_train_counters()     # all eleven kernel wrappers
+    return {k: f.launches - before[k] for k, f in counters.items()
+            if f.launches != before[k]}
+
+
+def _launch_state():
+    return {k: f.launches for k, f in _unet_train_counters().items()}
+
+
+def phase_decode_13b(device, cfg=None, run=None, engine_kw=None,
+                     dtype=torch.bfloat16, load=None, serve_kw=None):
+    """Phase 4i: Llama-2-13B at full width and all 40 layers on one card,
+    random weights from seed 0: (a) ``LlamaForCausalLM(...).to(bf16)``
+    and ``generate`` on ``run``'s seeded prompts (prefill ms, ms a decode
+    step, tokens/s, peak memory; no kernel of the eleven launches); (b)
+    ``PagedLlamaEngine`` over the same model: the same prompts and
+    ``new - 1`` steps, exactly L paged_decode launches a step, its
+    streams' agreement with (a) reported; (c) ``_predictor_legs``: the
+    predictor's logits equal ``model(ids)`` bit for bit; (d) the model's
+    ``serving_params`` in bf16 (then the model is dropped) served with
+    ``quant="int8"`` through phase 4's load with graphs (phase_serve's
+    gates: every request finishes with its length, exact launches), and
+    8 decode steps at batch 8 timed.  Returns the launches of (b) and
+    (d) by kernel."""
+    from paddle_tpu_torch.inference import PagedLlamaEngine
+    from paddle_tpu_torch.models import (
+        LlamaConfig, LlamaForCausalLM, serving_params,
+    )
+
+    cfg = LlamaConfig.llama2_13b() if cfg is None else cfg
+    run = GEN_RUN if run is None else run
+    engine_kw = PAGED_ENGINE_KW if engine_kw is None else engine_kw
+    tag = "decode-13b"
+    L = cfg.num_hidden_layers
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    _sync(device)
+    fp32_gb, fp32_s = _weights_gb(model), time.perf_counter() - t0
+    model.to(dtype)
+    _sync(device)
+    log(f"[{tag}] {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads ({cfg.num_key_value_heads} kv), "
+        f"D {cfg.head_dim}, intermediate {cfg.intermediate_size}: "
+        f"{model.num_params():,} parameters, {fp32_gb:.2f} GB in fp32 "
+        f"(built in {fp32_s:.1f} s), {_weights_gb(model):.2f} GB in "
+        f"{dtype}; peak {_peak_gib(device):.2f} GiB")
+    # (a) generate
+    B, S, new = run["batch"], run["prompt"], run["new"]
+    ids = torch.as_tensor(_gen_ids(cfg, B, S), device=device)
+    before = _launch_state()
+    _reset_peak(device)
+    model.generate(ids, max_new_tokens=1)     # first calls, untimed
+    _, t_pre = _timed(device, lambda: model.generate(ids, max_new_tokens=1))
+    toks, t_all = _timed(device, lambda: model.generate(
+        ids, max_new_tokens=new))
+    peak = _peak_gib(device)
+    step_ms = (t_all - t_pre) / (new - 1)
+    embed = model.llama.embed_tokens.weight
+    wb = _step_weight_bytes(
+        [p for p in model.parameters() if p is not embed], embed,
+        cfg.tie_word_embeddings, B)
+    bound_ms = wb / HBM_BYTES_PER_S * 1e3
+    moved = _kernels_moved(before)
+    log(f"[{tag}] generate [{B}, {S}] + {new} tokens: prefill (and the "
+        f"first token) {t_pre:.1f} ms, {step_ms:.2f} ms a decode step "
+        f"(weight-read bound {bound_ms:.2f} ms: {wb / 1e9:.2f} GB, the "
+        f"weights less all but {B} embedding rows, over "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s), {B * new / t_all * 1e3:.1f} "
+        f"tokens/s over the whole call ({t_all:.1f} ms), peak "
+        f"{peak:.2f} GiB (weights, the [{L}, {B}, {S + new}, "
+        f"{cfg.num_key_value_heads}, {cfg.head_dim}] K and V caches, "
+        f"activations); kernel launches {moved or 'none'}")
+    if tuple(toks.shape) != (B, new) or toks.dtype != ids.dtype or not \
+            bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"[{tag}] generate gave {toks.dtype} "
+                             f"{tuple(toks.shape)}")
+    if moved:
+        raise AssertionError(f"[{tag}] generate launched kernels: {moved}")
+    want = toks.cpu().tolist()
+    # (b) PagedLlamaEngine over the same model
+    counters = _serve_counters()
+    t0 = time.perf_counter()
+    eng = PagedLlamaEngine(model, dtype=dtype, **engine_kw)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    resident = (torch.cuda.memory_allocated() / 2**30
+                if device.type == "cuda" else float("nan"))
+    log(f"[{tag}] PagedLlamaEngine {engine_kw} built in {build_s:.1f} s: "
+        f"{resident:.2f} GiB resident (the "
+        f"model, its stacked copy and the "
+        f"{eng.cache._k_all.numel() * 2 * eng.cache._k_all.element_size() / 1e9:.2f}"
+        f" GB page pool)")
+    for f in counters.values():
+        f.launches = 0
+    sids = [eng.add_request(ids[b].cpu().numpy()) for b in range(B)]
+    got = {s: [eng._last_token[s]] for s in sids}
+    steps_ms = []
+    for _ in range(new - 1):
+        out, ms = _timed(device, eng.step)
+        steps_ms.append(ms)
+        for s in sids:
+            got[s].append(out[s])
+    launched = {k: f.launches for k, f in counters.items()}
+    if device.type == "cuda" and launched != {
+            "paged_decode": L * (new - 1), "paged_decode_quant": 0,
+            "quant_matmul": 0}:
+        raise AssertionError(f"[{tag}] PagedLlamaEngine launches "
+                             f"{launched}, expected paged_decode {L} "
+                             f"layers x {new - 1} steps")
+    streams = [got[s] for s in sids]
+    same, lead, total = _agreement(dict(enumerate(streams)),
+                                   dict(enumerate(want)))
+    log(f"[{tag}] PagedLlamaEngine: {B} prompts, {new - 1} steps: first "
+        f"step (captures the decode graph) {steps_ms[0]:.1f} ms, then "
+        f"{np.median(steps_ms[1:]):.2f} ms a step (median, host wall "
+        f"synchronised); launches {launched} ({L} a step); streams vs "
+        f"generate: {same} of {B} equal, {lead} of {total} tokens before "
+        f"each stream's first difference (not gated: the prefill GEMMs' M "
+        f"differs, bf16)")
+    for s in sids:
+        eng.finish(s)
+    row1 = launched["paged_decode"]
+    del eng
+    _empty(device)
+    # (c) the predictor, on the module as it lies and placed by a Config
+    _predictor_legs(tag, model, ids[:1, :128])
+    # (d) int8 serving on the model's weights; the model is dropped
+    holder = {"model": model}
+    del model
+
+    def take():
+        m = holder.pop("model")
+        params = serving_params(m, device=device, dtype=dtype)
+        del m
+        gc.collect()
+        return params
+
+    got, engine, _ = phase_serve(
+        device, cfg=cfg, load=load, dtype=dtype, quant="int8",
+        tag="decode-13b int8 graph", params_fn=take, engine_kw=serve_kw)
+    ex = engine.executor
+    prompts = [ids[b].cpu().numpy() for b in range(B)]
+    hs = _fill_slots(engine, prompts, 16)
+    sids = sorted(h._req.sid for h in hs)
+    ex.decode(sids)                       # the graph at batch B
+    _, t = _timed(device, lambda: [ex.decode(sids) for _ in range(8)])
+    _drain(engine, hs)
+    w8 = _step_weight_bytes(
+        [t for w in ex.layers.values()
+         for t in (w.values() if isinstance(w, dict) else (w,))]
+        + [ex.tops["norm_w"]]
+        + ([] if ex._tied else [ex.tops["head_w"]]),
+        ex.tops["embed"], ex._tied, B)
+    log(f"[{tag}] int8 decode step at batch {B} (replayed graph, lengths "
+        f"{S + 1}-{S + 8}): {t / 8:.2f} ms a step (host wall, synchronised) "
+        f"| int8 weight-read bound {w8 / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({w8 / 1e9:.2f} GB: int8 projections, scales, norms, bf16 head "
+        f"and {B} embedding rows)")
+    if device.type == "cuda" and not (got["paged_decode_quant"]
+                                      and got["quant_matmul"]):
+        raise AssertionError(f"[{tag}] int8 serving missed a kernel: {got}")
+    del engine, ex, hs
+    _empty(device)
+    return {"paged_decode": row1, **{k: got[k] for k in (
+        "paged_decode_quant", "quant_matmul")}}
+
+
+def _predictor_legs(tag, model, ids, low_precision=None):
+    """``Predictor(model)`` (the module's own parameters where they lie)
+    and ``Predictor(model, config=Config())`` (placed on the card by the
+    config, run through ``torch.func.functional_call``): logits equal
+    ``model(ids)`` bit for bit.  With ``low_precision`` (a dtype name),
+    also a predictor under ``Config.enable_low_precision``: its logits
+    equal ``model(ids)`` after ``model.to(low_precision)`` bit for bit
+    (the model is left cast), and lie within 2^-4 (16 bf16 ulps) of the
+    largest |logit| of the uncast model's."""
+    from paddle_tpu_torch.inference import Config, Predictor
+
+    def logits(m):
+        with torch.no_grad():
+            return m(ids).float().cpu().numpy()
+
+    def equal(what, got, want):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"[{tag}] {what} logits differ: max "
+                                 f"{np.abs(got - want).max()}")
+
+    def config():         # the card by default; the CPU for a dry run
+        cfg = Config()
+        if ids.device.type == "cpu":
+            cfg.disable_gpu()
+        return cfg
+
+    want = logits(model)
+    equal("Predictor(model)", Predictor(model).run([ids])[0], want)
+    equal("Predictor(model, config=Config())",
+          Predictor(model, config=config()).run([ids])[0], want)
+    done = (f"Predictor(model) and Predictor(model, config=Config()) on "
+            f"ids {list(ids.shape)}: logits {list(want.shape)} equal "
+            f"model(ids) bit for bit")
+    if low_precision is not None:
+        cfg = config()
+        cfg.enable_low_precision(low_precision)
+        got = Predictor(model, config=cfg).run([ids])[0]
+        model.to(getattr(torch, low_precision))
+        equal(f"enable_low_precision({low_precision!r})", got,
+              logits(model))
+        _float_close(f"{tag} {low_precision} predictor vs fp32",
+                     torch.from_numpy(got), torch.from_numpy(want),
+                     rel=2 ** -4)
+        done += (f"; under enable_low_precision({low_precision!r}) equal "
+                 f"model.to({low_precision})(ids) bit for bit")
+    log(f"[{tag}] {done}")
+
+
+#: 5e(ii): a head dim the kernels do not take (80), at 2 layers
+D80_CONFIG = dict(vocab_size=32000, hidden_size=2560, intermediate_size=6912,
+                  num_hidden_layers=2, num_attention_heads=32,
+                  num_key_value_heads=32)
+
+
+def _float_close(tag, got, want, rel=1e-5):
+    scale = float(want.abs().max())
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    log(f"[{tag}] max_abs_err {err:.3e} against the largest |value| "
+        f"{scale:.3e} (limit {rel:g} of it)")
+    if not err <= rel * scale:
+        raise AssertionError(f"[{tag}] differs: {err} > {rel} * {scale}")
+
+
+def _decode_legs(model, prompts, new, device):
+    """{leg: [B, new] token lists} of generate, PagedLlamaEngine and
+    ServingEngine over ``model`` on ``device`` (fp32)."""
+    from paddle_tpu_torch.inference import PagedLlamaEngine, ServingEngine
+    from paddle_tpu_torch.models import serving_params
+
+    ids = torch.as_tensor(prompts, device=device)
+    out = {"generate": model.generate(ids, max_new_tokens=new).tolist()}
+    eng = PagedLlamaEngine(model, max_seqs=len(prompts), page_size=16,
+                           max_len=256)
+    sids = [eng.add_request(p) for p in prompts]
+    got = {s: [eng._last_token[s]] for s in sids}
+    for _ in range(new - 1):
+        for s, t in eng.step().items():
+            got[s].append(t)
+    out["PagedLlamaEngine"] = [got[s] for s in sids]
+    del eng
+    srv = ServingEngine(model.config, serving_params(model, device),
+                        dtype=torch.float32, device=device,
+                        **dict(PARITY_KW, max_seqs=len(prompts)))
+    hs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    while srv.in_flight:
+        srv.step()
+    out["ServingEngine"] = [list(h.tokens) for h in hs]
+    del srv
+    return out
+
+
+def phase_parity_decoding(device, cfg=None, d80=None, new=8):
+    """Phase 5e, card against CPU in fp32: (i) Llama-2-13B's width at 2
+    layers: generate, PagedLlamaEngine and ServingEngine on the same two
+    prompts give the same tokens on each device, and the card's equal
+    the CPU's, then ``_predictor_legs`` with a bf16 low-precision leg;
+    (ii) head dim 80 served by ServingEngine: the dense route
+    (no paged_decode launch), the CPU's streams, and PT_PAGED_IMPL=pallas
+    raises; (iii) nn.Transformer at its defaults: the forward under
+    generate_square_subsequent_mask within 1e-5 of the largest value of
+    the CPU's, and 8 one-token steps through the decoder with gen_cache
+    equal to the full causal forward."""
+    from paddle_tpu_torch.inference import ServingEngine, paged
+    from paddle_tpu_torch.models import (
+        LlamaConfig, LlamaForCausalLM, init_llama_params, params_to,
+    )
+    from paddle_tpu_torch.testing.load import (
+        LoadSpec, generate_load, run_load,
+    )
+
+    cpu = torch.device("cpu")
+    tag = "parity-5e"
+    # (i) 13B width, 2 layers
+    cfg = LlamaConfig.llama2_13b(num_hidden_layers=2) if cfg is None else cfg
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    prompts = _gen_ids(cfg, 2, 24, seed=3)
+    counters = _serve_counters()
+    before = counters["paged_decode"].launches
+    legs = {}
+    for dev in (device, cpu):
+        model.to(dev)
+        legs[dev.type] = _decode_legs(model, prompts, new, dev)
+        if dev.type == "cuda" and \
+                counters["paged_decode"].launches == before:
+            raise AssertionError(f"[{tag}] the card's engines launched no "
+                                 "paged_decode")
+    for dev, got in legs.items():
+        first = got["generate"]
+        for leg, toks in got.items():
+            if toks != first:
+                raise AssertionError(f"[{tag}] {dev} {leg} differs from "
+                                     f"generate: {toks} vs {first}")
+    if legs[device.type] != legs["cpu"]:
+        raise AssertionError(f"[{tag}] card vs CPU: {legs}")
+    log(f"[{tag}] 13B width x {cfg.num_hidden_layers} layers, fp32: "
+        f"generate = PagedLlamaEngine = ServingEngine on the card and on "
+        f"the CPU, and card = CPU ({2 * new} tokens a leg)")
+    model.to(device)
+    _predictor_legs(tag, model, torch.as_tensor(
+        _gen_ids(cfg, 1, 128, seed=4), device=device),
+        low_precision="bfloat16")
+    del model
+    _empty(device)
+    # (ii) head dim 80
+    cfg80 = LlamaConfig(**(D80_CONFIG if d80 is None else d80))
+    params = init_llama_params(cfg80, seed=0, device=device,
+                               dtype=torch.float32)
+    work = generate_load(LoadSpec(**dict(PARITY_LOAD,
+                                           vocab=cfg80.vocab_size)))
+    streams = {}
+    for dev, p in ((device, params), (cpu, params_to(params, device=cpu))):
+        pd0 = counters["paged_decode"].launches
+        dn0 = paged.dense_paged_attention.launches
+        eng = ServingEngine(cfg80, p, dtype=torch.float32, device=dev,
+                            **PARITY_KW)
+        out = run_load(eng, work)
+        streams[dev.type] = {r: h.tokens for r, h in out["handles"].items()}
+        pd, dn = (counters["paged_decode"].launches - pd0,
+                  paged.dense_paged_attention.launches - dn0)
+        log(f"[{tag}] head dim {cfg80.head_dim} on {dev.type}: "
+            f"{out['stats']['decode_steps']} decode steps, paged_decode "
+            f"launches {pd}, dense route calls {dn} (graph replays "
+            f"included)")
+        if pd or not dn:
+            raise AssertionError(f"[{tag}] head dim 80 took the kernel "
+                                 f"({pd}) or not the dense route ({dn})")
+        del eng
+    if streams[device.type] != streams["cpu"]:
+        raise AssertionError(f"[{tag}] head dim 80: card vs CPU "
+                             f"{_first_diff(streams[device.type], streams['cpu'])}")
+    old = os.environ.get("PT_PAGED_IMPL")
+    os.environ["PT_PAGED_IMPL"] = "pallas"
+    try:
+        eng = ServingEngine(cfg80, params, dtype=torch.float32,
+                            device=device, **PARITY_KW)
+        eng.submit(work[0]["prompt_ids"], max_new_tokens=4)
+        for _ in range(64):
+            eng.step()
+    except ValueError as e:
+        log(f"[{tag}] head dim 80 with PT_PAGED_IMPL=pallas raises: "
+            f"{str(e)[:100]}...")
+    else:
+        raise AssertionError(f"[{tag}] PT_PAGED_IMPL=pallas served head "
+                             "dim 80")
+    finally:
+        if old is None:
+            del os.environ["PT_PAGED_IMPL"]
+        else:
+            os.environ["PT_PAGED_IMPL"] = old
+    log(f"[{tag}] head dim 80: card = CPU for {len(work)} requests "
+        f"({sum(map(len, streams['cpu'].values()))} tokens)")
+    del eng, params
+    _empty(device)
+    # (iii) nn.Transformer at its defaults
+    _transformer_parity(device, tag)
+
+
+def _transformer_parity(device, tag, S_src=128, S_tgt=8, seed=0):
+    """5e(iii): ``nn.Transformer()`` (eval, dropout 0, seeded weights) on
+    the card and the CPU: the full forward under the causal mask, and
+    ``S_tgt`` one-token steps through the decoder's layers with
+    ``gen_cache`` against it.  The encoder's maskless self-attention at
+    S = 128 takes the short-attention kernel on the card."""
+    import copy
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.ops.kernels import short_attention as sa
+
+    model = pnn.Transformer(dropout=0.0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02, generator=gen)
+            elif "norm" not in n:
+                p.normal_(0.0, 0.02, generator=gen)
+    model.eval()
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy(rng.randn(2, S_src, 512).astype(np.float32))
+    tgt = torch.from_numpy(rng.randn(2, S_tgt, 512).astype(np.float32))
+    outs = {}
+    for dev, m in ((device, model), (torch.device("cpu"),
+                                     copy.deepcopy(model).cpu())):
+        mask = pnn.Transformer.generate_square_subsequent_mask(S_tgt, dev)
+        s, t = src.to(dev), tgt.to(dev)
+        k0 = sa.short_attention_fwd.launches
+        with torch.no_grad():
+            full = m(s, t, tgt_mask=mask)
+            memory = m.encoder(s)
+            cache = m.decoder.gen_cache(memory)
+            steps = []
+            for i in range(S_tgt):
+                o, cache = m.decoder(t[:, i:i + 1], memory, cache=cache)
+                steps.append(o)
+        inc = torch.cat(steps, dim=1)
+        _float_close(f"{tag} transformer {dev.type}: incremental vs full",
+                     inc, full)
+        outs[dev.type] = full
+        if dev.type == "cuda":
+            log(f"[{tag}] transformer on the card: short-attention "
+                f"launches {sa.short_attention_fwd.launches - k0} (the "
+                f"encoder's 6 self-attentions at S = {S_src}, twice)")
+    _float_close(f"{tag} transformer card vs CPU", outs[device.type],
+                 outs["cpu"])
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -4594,7 +5150,7 @@ def phase_moe_parity(device, steps=3):
 
 # -- phases 12-14: the vision path -----------------------------------------------
 
-RESNET_RUN = dict(batch=256, image=224, steps=10, k=5, lr=0.1)
+RESNET_RUN = dict(batch=256, image=224, steps=5, k=5, lr=0.1)
 #: bench.py's estimate: ~4.1 GFLOP a 224 x 224 image forward, train ~ 3x
 RESNET_FWD_FLOPS = 4.1e9
 DET_RUN = dict(batch=64, image=320, steps=10, k=5, lr=1e-3)
@@ -4655,7 +5211,7 @@ def _vision_steps(tag, step, batch, device, run, per_image_flops=None,
                   unit="imgs"):
     """Two warm-up steps (the first timed: cuDNN's first calls), ``steps``
     timed eager steps, then ``multi_step(k)`` twice (capture, then replay
-    only); traced eager steps and a traced replay for the idle shares.
+    only); one traced eager step and a traced replay for the idle shares.
     The model's running statistics must be where they were after all of
     it, and every loss finite.  Returns a dict of the numbers."""
     model = step.model
@@ -4675,7 +5231,7 @@ def _vision_steps(tag, step, batch, device, run, per_image_flops=None,
     _, graph_ms = _timed(device, lambda: step.multi_step(k, *batch))
     losses += step.last_losses.tolist()
     graph_peak = _peak_gib(device)
-    ew, eb = _traced(lambda: [step.step(*batch) for _ in range(2)])
+    ew, eb = _traced(lambda: step.step(*batch))
     gw, gb = _traced(lambda: step.multi_step(k, *batch))
     moved = _stats_unchanged(model, before)
     eager = float(np.median(eager_ms))
@@ -4697,7 +5253,7 @@ def _vision_steps(tag, step, batch, device, run, per_image_flops=None,
         f"{eager:.1f}); multi_step({k}) first call (warm-up, capture, "
         f"replay) {cap_ms:.1f} ms | peak memory eager {eager_peak:.2f} GiB, "
         f"with the graph {graph_peak:.2f} GiB | traced: eager wall "
-        f"{ew / 2:.1f} ms a step, busy {eb / 2:.1f}, idle share "
+        f"{ew:.1f} ms a step, busy {eb:.1f}, idle share "
         f"{1 - eb / ew:.3f}; replay wall {gw / k:.1f} ms a step, busy "
         f"{gb / k:.1f}, idle share {1 - gb / gw:.3f} | losses "
         f"{[round(x, 4) for x in losses]}")
@@ -4970,8 +5526,8 @@ def phase_vision_parity(device, steps=3, lr=1e-5):
 
 # -- phases 15-16: the diffusion UNet ----------------------------------------------
 
-UNET_RUN = dict(batch=4, latent=32, steps=10, k=3)
-UNET_64_RUN = dict(batch=4, latent=64, steps=3, k=2)
+UNET_RUN = dict(batch=4, latent=32, steps=5, k=3)
+UNET_64_RUN = dict(batch=4, latent=64, steps=2, k=2)
 
 
 def unet_flops(unet_kw, batch, latent, context=77):
@@ -5241,10 +5797,16 @@ def main():
     del setup
     _empty(device)
     elapsed("phase 4h")
+    decode13 = phase_decode_13b(device)
+    for row in [rows[0]] + quant_rows:
+        row["decode_13b_launches"] = decode13[row["name"]]
+    elapsed("phase 4i")
     phase_parity_durable(device)
     elapsed("phase 5c")
     phase_parity_elastic(device)
     elapsed("durable serving")
+    phase_parity_decoding(device)
+    elapsed("phase 5e")
     launches, step, batch = phase_train(device, limit)
     for row in train_rows:
         if not launches[row["name"]]:
@@ -5341,7 +5903,8 @@ def main():
             "library_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("replay_launches", "verify_launches",
-                                  "durable_launches", "elastic_launches")
+                                  "durable_launches", "elastic_launches",
+                                  "decode_13b_launches")
          if k in r}
         for r in rows]}))
     print(limit)

@@ -11,9 +11,15 @@ position -> (page, offset) arithmetic.  Page allocation is control plane and sta
 host: a free list, a ``[max_seqs, max_pages_per_seq]`` int32 page table
 (-1 = unset) and the per-slot lengths, all numpy.
 
-Decode attention goes through ``ops.kernels.paged_decode`` — the CUDA
-kernel for tensors on the card, its plain version for tensors on the
-CPU.
+Decode attention goes through :func:`paged_decode_attention`, the
+reference's router: the head dims the hand-written kernels take go to
+``ops.kernels.paged_decode`` (the CUDA kernels for tensors on the card,
+their plain versions for tensors on the CPU), the rest to the dense
+route (:func:`dense_paged_attention` and its int8 twin), as
+``paddle_tpu`` sends shapes off its kernel's gate to
+``_dense_paged_attention``.  ``PT_PAGED_IMPL`` forces a route.
+:func:`masked_multihead_attention` is the single-token decode attention
+over a dense cache.
 
 Decode reads its per-step inputs from fixed-address device buffers
 (``stage``: ids, positions, lengths and the page tables, filled by one
@@ -62,16 +68,164 @@ Not ported (ROADMAP.md Queue 1, item 8): the sequence-parallel writes
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops import quant as _quant
+from ..ops.kernels import paged_decode as _pd
 from ..ops.kernels.paged_decode import paged_decode, paged_decode_quant
 from ..testing import faults as _faults
 
 _POOL_EXHAUSTED = "KV page pool exhausted"
+
+
+# -- decode attention ops ----------------------------------------------------
+
+
+def masked_multihead_attention(q, k_cache, v_cache, lengths):
+    """Single-token decode attention against a dense cache (the
+    reference's ``masked_multihead_attention``).
+
+    q ``[B, H, D]``; k_cache / v_cache ``[B, KV, T, D]``; lengths ``[B]``
+    valid token counts.  Returns ``[B, H, D]`` in q's dtype.  GQA when
+    ``H % KV == 0``.  fp32 math, positions at or past the length masked
+    with -1e30 (:func:`_dense_window`).  ``paddle_tpu``'s is a plain XLA
+    function (its scores are float64 under x64, inside 2e-5 of these),
+    so this one is plain PyTorch."""
+    return _dense_window(q, k_cache.float(), v_cache.float(),
+                         lengths.to(q.device))
+
+
+def _dense_window(q, kc, vc, lengths):
+    """fp32 decode attention of q ``[B, H, D]`` over gathered fp32
+    windows kc / vc ``[B, KV, T, D]``, masked to each length: scores
+    masked with -1e30, and V rows past the length zeroed (what an unread
+    page holds never reaches the output).  No host sync and no tensor
+    made from host data, so a CUDA graph can capture it."""
+    B, H, D = q.shape
+    KV, T = kc.shape[1], kc.shape[2]
+    valid = (torch.arange(T, device=q.device)[None]
+             < lengths.long()[:, None])                      # [B, T]
+    qg = q.reshape(B, KV, H // KV, D).float()
+    logits = torch.einsum("bkgd,bktd->bkgt", qg, kc) * (1.0 / np.sqrt(D))
+    p = torch.softmax(logits.masked_fill(~valid[:, None, None], -1e30),
+                      dim=-1)
+    vc = vc.masked_fill(~valid[:, None, :, None], 0.0)
+    out = torch.einsum("bkgt,bktd->bkgd", p, vc)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def dense_paged_attention(q, k_pages, v_pages, lengths, page_indices):
+    """The dense route of :func:`paged_decode_attention` (the reference's
+    ``_dense_paged_attention``): gather each sequence's page window into
+    a dense fp32 ``[B, KV, pps * ps, D]`` copy, then fp32 attention
+    masked to the length, cast to q's dtype.  Any head dim.
+
+    q ``[B, H, D]``; k/v_pages ``[KV, P, ps, D]``; lengths ``[B]``;
+    page_indices ``[B, pps]`` (every entry a valid page id).  A separate
+    function from the kernel's plain version
+    (``ops.kernels.paged_decode.paged_decode_reference``), which only
+    CPU tensors reach.  ``dense_paged_attention.launches`` counts its
+    calls (no kernel: named as ``core.aot.CountedGraph`` reads a
+    counter, so a replayed graph adds its captured calls)."""
+    B, _, D = q.shape
+    KV, _, ps, _ = k_pages.shape
+    T = page_indices.shape[1] * ps
+    idx = page_indices.long()
+    kc = k_pages[:, idx].transpose(0, 1).reshape(B, KV, T, D).float()
+    vc = v_pages[:, idx].transpose(0, 1).reshape(B, KV, T, D).float()
+    dense_paged_attention.launches += 1
+    return _dense_window(q, kc, vc, lengths)
+
+
+dense_paged_attention.launches = 0
+
+
+def dense_paged_attention_q(q, k_pages, v_pages, lengths, page_indices,
+                            k_scales, v_scales):
+    """The int8 twin of :func:`dense_paged_attention` (the reference's
+    ``_dense_paged_attention_q``): the gathered window (never the whole
+    pool) dequantized with its per-page scales ``[KV, P]``, then the same
+    fp32 attention.  ``dense_paged_attention_q.launches`` counts its
+    calls."""
+    B, _, D = q.shape
+    KV, _, ps, _ = k_pages.shape
+    T = page_indices.shape[1] * ps
+    idx = page_indices.long()
+
+    def window(pages, scales):
+        w = pages[:, idx].float() * scales[:, idx][..., None, None]
+        return w.transpose(0, 1).reshape(B, KV, T, D)
+
+    dense_paged_attention_q.launches += 1
+    return _dense_window(q, window(k_pages, k_scales),
+                         window(v_pages, v_scales), lengths)
+
+
+dense_paged_attention_q.launches = 0
+
+#: the values of ``PT_PAGED_IMPL``.  The reference's fourth, ``stock``,
+#: names jax's own TPU kernel, which the port has no counterpart of: it
+#: is refused like any other unknown value.
+PAGED_IMPLS = ("auto", "pallas", "dense")
+
+
+def _select_impl(head_dim):
+    """The decode-attention route: ``PT_PAGED_IMPL`` (default ``auto``)
+    forces ``pallas`` (the hand-written kernels) or ``dense``; ``auto``
+    takes ``pallas`` for a head dim in the kernels' ``_HEAD_DIMS`` and
+    ``dense`` elsewhere, as the reference gates on the head dim.  The
+    dtypes and the page size are not part of the gate: what the kernels
+    cannot take raises in them.  A Python decision on shapes, so a
+    captured graph keeps its route."""
+    impl = os.environ.get("PT_PAGED_IMPL", "auto").lower()
+    if impl not in PAGED_IMPLS:
+        raise ValueError(
+            f"PT_PAGED_IMPL={impl!r}: expected {'|'.join(PAGED_IMPLS)}")
+    if impl != "auto":
+        return impl
+    return "pallas" if head_dim in _pd._HEAD_DIMS else "dense"
+
+
+def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
+                           pages_per_compute_block=4, k_scales=None,
+                           v_scales=None):
+    """Decode attention over one layer of the page pool, routed by
+    :func:`_select_impl` before any call:
+
+    - ``pallas``: ``ops.kernels.paged_decode`` (``paged_decode_quant``
+      with scales), which launches the hand-written kernels for CUDA
+      tensors (and raises on what they do not take, a dtype pair
+      included) and runs their plain versions for CPU tensors; raises
+      ``ValueError`` here for a head dim outside the kernels' gate;
+    - ``dense``: :func:`dense_paged_attention` /
+      :func:`dense_paged_attention_q`.
+
+    No route catches a kernel's error.  q ``[B, H, D]``; k/v_pages
+    ``[KV, P, ps, D]``; lengths ``[B]`` and page_indices ``[B, pps]``
+    int32; ``k_scales`` / ``v_scales`` ``[KV, P]`` select the int8
+    pages.  ``pages_per_compute_block`` is the tiling of jax's own TPU
+    kernel, accepted for the reference's signature and unused.  Returns
+    ``[B, H, D]`` in q's dtype."""
+    D = q.shape[-1]
+    quant = k_scales is not None
+    if _select_impl(D) == "pallas":
+        if D not in _pd._HEAD_DIMS:
+            raise ValueError(
+                f"PT_PAGED_IMPL=pallas: the paged-decode kernels take "
+                f"head_dim in {_pd._HEAD_DIMS}; got head_dim {D}")
+        if quant:
+            return paged_decode_quant(q, k_pages, v_pages, lengths,
+                                      page_indices, k_scales, v_scales)
+        return paged_decode(q, k_pages, v_pages, lengths, page_indices)
+    if quant:
+        return dense_paged_attention_q(q, k_pages, v_pages, lengths,
+                                       page_indices, k_scales, v_scales)
+    return dense_paged_attention(q, k_pages, v_pages, lengths,
+                                 page_indices)
 
 
 class PagedKVCache:
@@ -508,9 +662,9 @@ class PagedKVCache:
         """Decode attention for one layer over explicit ``tables``-style
         page_indices [B, pps] and lengths [B] (int32, on the cache's
         device)."""
-        if self.k_scales is not None:
-            return paged_decode_quant(
-                q, self._k_all[layer], self._v_all[layer], lengths,
-                page_indices, self._ks_all[layer], self._vs_all[layer])
-        return paged_decode(q, self._k_all[layer], self._v_all[layer],
-                            lengths, page_indices)
+        quant = self.k_scales is not None
+        return paged_decode_attention(
+            q, self._k_all[layer], self._v_all[layer], lengths,
+            page_indices,
+            k_scales=self._ks_all[layer] if quant else None,
+            v_scales=self._vs_all[layer] if quant else None)

@@ -26,8 +26,10 @@ stream to fp32 for q and k, prefill softmax in fp32 cast back to the
 activation dtype, masked with ``finfo(dtype).min``.  Weight products and
 prefill attention are ``torch.matmul`` (the JAX package leaves them to
 XLA); decode writes and attention go through ``PagedKVCache``
-(``write_token``, ``attend_tables``) and so through the paged-decode
-kernel (its plain version for CPU tensors).
+(``write_token``, ``attend_tables``) and so through
+``paged_decode_attention``'s route: the paged-decode kernel (its plain
+version for CPU tensors) where its gate passes, the dense route
+elsewhere (a head dim outside 64, 128 and 256).
 
 The program plane (``core/aot.py``).  Where every serving program of the
 reference is one jitted XLA program, ``serve.decode``,
@@ -80,7 +82,9 @@ from ...ops import quant as _quant
 from ...ops.kernels import paged_decode as _pd
 from ...ops.kernels import quant_matmul as _qm
 from ...ops.nn_ops import rms_norm, rope
-from ..paged import PagedKVCache
+from ..paged import (
+    PagedKVCache, dense_paged_attention, dense_paged_attention_q,
+)
 
 #: the stacked decoder weights quantized under ``quant="int8"``
 _QUANT_LAYER_WEIGHTS = (
@@ -220,7 +224,8 @@ class PagedExecutor:
             aot.CountedGraph, device=self.device,
             scratch=self.cache.scratch_step,
             counters=(_pd.paged_decode, _pd.paged_decode_quant,
-                      _qm.quant_matmul),
+                      _qm.quant_matmul, dense_paged_attention,
+                      dense_paged_attention_q),
             pool=(torch.cuda.graph_pool_handle()
                   if self.device.type == "cuda" else None))
         self._graph_decode = graph(self._decode_tok_step,
@@ -275,10 +280,10 @@ class PagedExecutor:
         ``serve.decode`` at every batch 1..max_seqs, ``serve.decode_n``
         at every (batch, n) for n in ``decode_n_steps`` and, when
         ``spec_window`` gives the verify window W = k + 1,
-        ``serve.verify`` at every (batch, W).  Arms the
-        prefill chunk ladder (``ladder``, default the powers of two up to
-        ``prefill_chunk`` or ``max_len``) and the past-cover page
-        buckets; prefill chunks stay eager, so they have no entries.
+        ``serve.verify`` at every (batch, W).  Then
+        :meth:`arm_ladder` arms the prefill chunk ladder and the
+        past-cover page buckets; prefill chunks stay eager, so they have
+        no entries.
 
         Each entry resolves ``warm`` (already captured) or ``capture``; an
         entry that fails is recorded in ``failed`` and skipped, so warmup
@@ -288,11 +293,6 @@ class PagedExecutor:
         if spec_window and int(spec_window) > kvc.max_window:
             raise ValueError(f"spec_window {spec_window} > the step "
                              f"buffers' max_window {kvc.max_window}")
-        cap = (min(int(prefill_chunk), self.max_len)
-               if prefill_chunk else self.max_len)
-        if ladder is None:
-            ladder = aot.BucketLadder.pow2(cap)
-        buckets = aot.page_buckets(kvc.max_pages_per_seq)
         plan = []
         for B in range(1, kvc.max_seqs + 1):
             plan.append((self._graph_decode, (B,)))
@@ -301,8 +301,7 @@ class PagedExecutor:
             if spec_window:
                 plan.append((self._graph_verify, (B, int(spec_window))))
         t0 = time.perf_counter()
-        report = {"capture": 0, "warm": 0, "failed": [], "programs": {},
-                  "ladder": ladder.rungs, "page_buckets": buckets}
+        report = {"capture": 0, "warm": 0, "failed": [], "programs": {}}
         for prog, rung in plan:
             try:
                 how = prog.aot_capture(rung)
@@ -315,13 +314,28 @@ class PagedExecutor:
                 report["programs"].get(prog.name, 0) + 1
         report["entries"] = len(plan)
         report["seconds"] = round(time.perf_counter() - t0, 3)
-        self.aot_ladder = ladder
-        self._aot_page_buckets = buckets
+        ladder = self.arm_ladder(prefill_chunk, ladder)
+        report["ladder"] = ladder.rungs
+        report["page_buckets"] = self._aot_page_buckets
         self._aot_config = dict(prefill_chunk=prefill_chunk,
                                 spec_window=spec_window,
                                 decode_n_steps=tuple(decode_n_steps),
                                 ladder=ladder)
         return report
+
+    def arm_ladder(self, prefill_chunk=None, ladder=None):
+        """Arm the prefill chunk ladder (``ladder``, default the powers
+        of two up to ``prefill_chunk`` or ``max_len``) and the past-cover
+        page buckets, as :meth:`aot_warmup` does, without capturing a
+        program.  Returns the ladder."""
+        if ladder is None:
+            cap = (min(int(prefill_chunk), self.max_len)
+                   if prefill_chunk else self.max_len)
+            ladder = aot.BucketLadder.pow2(cap)
+        self.aot_ladder = ladder
+        self._aot_page_buckets = aot.page_buckets(
+            self.cache.max_pages_per_seq)
+        return ladder
 
     def _aot_rewarm(self):
         """Re-run the last warmup configuration (every entry then

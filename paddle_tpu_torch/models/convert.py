@@ -16,7 +16,7 @@ import torch
 
 from ..device import resolve_device
 from .generation import stack_layer_params
-from .llama import LlamaConfig
+from .llama import LAYER_WEIGHTS, LlamaConfig
 
 
 def from_numpy_state(state: dict, cfg: LlamaConfig, device=None,
@@ -89,7 +89,33 @@ def serving_params(module: torch.nn.Module, device=None,
                    dtype=torch.float32) -> dict:
     """The serving parameter dict (``from_numpy_state``'s form, which
     ``ServingEngine`` takes) of a training ``LlamaForCausalLM``, on
-    ``device`` (default CUDA) in ``dtype``."""
-    state = {name: p.detach().float().cpu().numpy()
-             for name, p in module.named_parameters()}
-    return from_numpy_state(state, module.config, device, dtype)
+    ``device`` (default CUDA) in ``dtype``.  Each stacked weight is
+    filled layer by layer where the parameters live (one cast copy per
+    layer, no host round trip: Llama-2-13B in fp32 would be 52 GB of
+    host memory); the result owns its storage, sharing none with the
+    module."""
+    device = resolve_device(device)
+    cfg = module.config
+    named = dict(module.named_parameters())
+    L = cfg.num_hidden_layers
+
+    def stacked(name):
+        first = named[f"llama.layers.0.{name}"]
+        out = torch.empty((L,) + tuple(first.shape), dtype=dtype,
+                          device=device)
+        with torch.no_grad():
+            for i in range(L):
+                out[i].copy_(named[f"llama.layers.{i}.{name}"])
+        return out
+
+    def own(name):
+        return named[name].detach().to(device=device, dtype=dtype,
+                                       copy=True)
+
+    return {
+        "layers": {n: stacked(n) for n in LAYER_WEIGHTS},
+        "embed": own("llama.embed_tokens.weight"),
+        "norm": own("llama.norm.weight"),
+        "lm_head": (None if cfg.tie_word_embeddings
+                    else own("lm_head.weight")),
+    }

@@ -83,6 +83,12 @@ class LlamaConfig:
             num_attention_heads=32, num_key_value_heads=32), **kw})
 
     @staticmethod
+    def llama2_13b(**kw):
+        return LlamaConfig(**{**dict(
+            hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
+            num_attention_heads=40, num_key_value_heads=40), **kw})
+
+    @staticmethod
     def tiny(**kw):
         return LlamaConfig(**{**dict(
             vocab_size=256, hidden_size=64, intermediate_size=128,
@@ -338,6 +344,9 @@ class LlamaForCausalLM(nn.Module):
     ``torch.Generator(device)`` seeded with ``seed``: every matrix
     N(0, ``std``), norm weights 1, in ``named_parameters`` order.
 
+    On the ``meta`` device the parameters have shapes and no values (to
+    count them, as for Llama-2-13B's 13,015,864,320).
+
     ``forward(input_ids, labels=None)`` returns logits ``[B, S, V]``, or
     the mean loss when labels are given (labels are compared position by
     position, as in ``paddle_tpu``; ``-100`` marks ignored positions).
@@ -355,6 +364,8 @@ class LlamaForCausalLM(nn.Module):
         if not config.tie_word_embeddings:
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   device)
+        if device.type == "meta":   # shapes only: nothing to fill
+            return
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         with torch.no_grad():
@@ -379,6 +390,22 @@ class LlamaForCausalLM(nn.Module):
             return logits
         return nn_ops.cross_entropy(logits.reshape(-1, cfg.vocab_size),
                                     labels.reshape(-1))
+
+    def generate(self, input_ids, max_new_tokens=16):
+        """Greedy KV-cache decode (``models.generation.LlamaDecoder``):
+        ``[B, max_new_tokens]`` ids, a tensor for a tensor and a numpy
+        array for anything else.
+
+        ``paddle_tpu`` keeps a stacked copy of the weights and rebuilds
+        it when a parameter buffer's identity changes, which holds in
+        JAX, where an update makes new buffers.  Here an optimizer
+        updates a parameter in place, under the same object, so the
+        decoder makes no copy: it reads the module's own parameters at
+        every call, and so always decodes with the current weights."""
+        from .generation import LlamaDecoder
+
+        return LlamaDecoder(self).generate(input_ids,
+                                           max_new_tokens=max_new_tokens)
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

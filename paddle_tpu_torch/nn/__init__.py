@@ -2,9 +2,11 @@
 Llama, BERT, vision and diffusion training paths use: ``Linear`` (weight
 ``[in, out]``, the paddle layout, optional bias), ``Embedding``,
 ``Dropout`` (explicit generator), ``RMSNorm``, ``LayerNorm``,
-``GroupNorm``, ``InstanceNorm2D``, the transformer encoder
-(``MultiHeadAttention``, ``TransformerEncoderLayer``,
-``TransformerEncoder``), ``Conv2D``, the pools, the batch norms,
+``GroupNorm``, ``InstanceNorm2D``, the transformer layers
+(``MultiHeadAttention`` with its decode caches,
+``TransformerEncoderLayer``, ``TransformerEncoder``,
+``TransformerDecoderLayer``, ``TransformerDecoder``, ``Transformer``),
+``Conv2D``, the pools, the batch norms,
 ``Silu``, ``GELU``, ``Softmax``, ``Upsample``, and ``ReLU``,
 ``Sequential``, ``LayerList`` and ``Identity`` (torch's own ``ReLU``,
 ``Sequential``, ``ModuleList`` and ``Identity``: ``Sequential`` and
@@ -24,5 +26,6 @@ from .norm import (  # noqa: F401
 )
 from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D  # noqa: F401
 from .transformer import (  # noqa: F401
-    MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer,
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )

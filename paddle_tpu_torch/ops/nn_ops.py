@@ -314,10 +314,11 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
     or causal S >= 1024 with GQA or S > 2048; S % 512 == 0, D % 128 ==
     0, no mask, no dropout) to ``long_attention`` too, with GQA by
     indexing and causal or not (JAX's ``_flash_attention_tpu``); the
-    rest is the einsum path, grouped for GQA: scores in q's dtype, then
-    fp32 times the scale, masked, fp32 softmax, probabilities cast to
-    q's dtype, then dropped with a Bernoulli mask from the generator and
-    divided by ``1 - p``."""
+    rest is the einsum path, grouped for GQA (q and k/v of two float
+    dtypes meet in jnp's promotion, as an fp32 decode cache meets a bf16
+    step): scores in q's dtype, then fp32 times the scale, masked, fp32
+    softmax, probabilities cast to q's dtype, then dropped with a
+    Bernoulli mask from the generator and divided by ``1 - p``."""
     B, Sq, H, D = q.shape
     Hkv, Sk = k.shape[2], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -344,9 +345,9 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
     grouped = Hkv != H
     if grouped:
         qt = qt.reshape(B, Hkv, H // Hkv, Sq, D)
-        logits = torch.einsum("bngqd,bnkd->bngqk", qt, kt)
+        logits = einsum("bngqd,bnkd->bngqk", qt, kt)
     else:
-        logits = torch.einsum("bhqd,bhkd->bhqk", qt, kt)
+        logits = einsum("bhqd,bhkd->bhqk", qt, kt)
     logits = logits.float() * scale
     if causal:
         keep = torch.ones(Sq, Sk, dtype=torch.bool,
@@ -360,10 +361,10 @@ def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
     probs = dropout(torch.softmax(logits, dim=-1).to(q.dtype), dropout_p,
                     True, "upscale_in_train", generator)
     if grouped:
-        out = torch.einsum("bngqk,bnkd->bngqd", probs, vt)
+        out = einsum("bngqk,bnkd->bngqd", probs, vt)
         out = out.reshape(B, H, Sq, D)
     else:
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+        out = einsum("bhqk,bhkd->bhqd", probs, vt)
     return out.transpose(1, 2)
 
 

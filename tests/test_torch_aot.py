@@ -247,6 +247,22 @@ def test_warmup_report_one_entry_per_rung(pair):
     assert sum(p.traces for p in progs.values()) == rep["capture"]
 
 
+def test_arm_ladder_arms_what_warmup_arms_without_capture(pair):
+    """``arm_ladder`` is the arming step of ``aot_warmup`` alone: the same
+    ladder and page buckets as a warm engine, no program captured, and
+    the prompt served through the ladder gives the unarmed stream."""
+    warm = _engine(pair, aot="warm").executor
+    eng = _engine(pair, aot="off")
+    ex = eng.executor
+    ladder = ex.arm_ladder(KW["prefill_chunk"])
+    assert ladder is ex.aot_ladder
+    assert ladder.rungs == warm.aot_ladder.rungs == (1, 2, 4, 8)
+    assert ex._aot_page_buckets == warm._aot_page_buckets
+    assert all(not p._exe for p in ex.programs.values())
+    want = _engine(pair, aot="off").submit(PROMPT, max_new_tokens=8).result()
+    assert eng.submit(PROMPT, max_new_tokens=8).result() == want
+
+
 # -- warm equals off equals the reference -------------------------------------
 
 
