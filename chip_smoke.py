@@ -337,10 +337,9 @@ result):
              batch norms' running statistics unchanged by every step.
              No kernel of the kernel line lies on this path (cuDNN and
              plain torch).
-12b. resnet profile — one eager step of the faster layout traced with
-             testing/vision_profile.py: device ms by family (cuDNN conv
-             forward, dgrad, wgrad; batch norm; pools; cross entropy;
-             AdamW; other) and the longest kernels.
+             (12b, this step traced by family, was cut in PR 19 for
+             time: phase 17 traces the eager O1 loop's ResNet-50 step by
+             the same families.)
 12c. resnet graph — three ResNet-50 steps from one seed (lr 1e-5): two
              models eagerly, one as a replayed multi_step(3); bit for bit
              where cuDNN repeats its bits, else held at bf16's relative
@@ -365,8 +364,9 @@ result):
              int32 timesteps, a [4, 77, 768] fp32 context and fp32 noise
              from RandomState(0), CompiledTrainStep(lr=1e-4,
              compute_dtype="bfloat16", moments_dtype="bfloat16"): 2
-             warm-up steps (the first timed: cuDNN's first calls), 5
-             eager steps, multi_step(3) captured and replayed; step ms,
+             warm-up steps (the first timed: cuDNN's first calls), 3
+             eager steps, multi_step(2) captured and replayed (5 and 3
+             until PR 19); step ms,
              samples/s, TFLOP/s over the analytic count (3 x the forward
              flops of the convs, Linears and the two attention products,
              counted from the model's shapes on the meta device), its
@@ -384,13 +384,52 @@ result):
 15c. unet at the published latent — the same model at SD v1.5's own
              sample_size, 64 x 64 latents (512 px images), B = 4: 2
              warm-up and 2 eager steps, multi_step(2) captured and
-             replayed; step ms, samples/s, peak memory.
+             replayed; step ms, samples/s, peak memory.  It runs first,
+             on the card while nvcc builds the kernels on the host (from
+             PR 19; before, after 15b).
 16. unet parity — fp32, the card against the CPU, TF32 at the library
              defaults: a narrow UNet at full depth (block_out_channels
              (64, 128, 128, 128), 2 layers a block, cross dim 64, 16 x 16
              latents, B = 2): eval output within 1e-5 of the largest, 3
              train-step losses (lr 1e-4) within 1e-4 relative, and
              interpolate nearest at 5 -> 3 and 8 -> 4 bit for bit.
+
+17. eager resnet — BASELINE config 1 as its row says (BASELINE.md:23):
+             resnet50 (1000 classes, fp32 parameters, random from seed
+             0), B = 256 at 224 px from io.DataLoader(num_workers=4,
+             shuffle=True, drop_last=True) over 768 seeded fp32 images
+             with int64 labels (462 MB on the host), Momentum(lr 0.1,
+             0.9, L2Decay(1e-4)) (He et al. 2016), GradScaler(), each
+             step under auto_cast(O1, bf16): loss.backward via the
+             scaler, scaler.step, scaler.update, clear_grad.  One
+             warm-up and 5 timed steps: step ms (synchronised wall),
+             ms waited on the loader, imgs/s, MFU, peak memory, the
+             scale; one traced step by family (device busy, idle share)
+             beside phase 12's replayed CompiledTrainStep.
+17b. eager detection O2 — BASELINE config 4 as its row says
+             (BASELINE.md:26): phase 13's detector (bench.py:484-499),
+             B = 64 at 320 px, decorate(O2), AdamW(1e-3),
+             GradScaler(2**10), auto_cast(O2), 5 steps: norms fp32, the
+             rest bf16, master weights fp32; step ms, imgs/s, peak.
+17c. eager parity — the card against the CPU: ResNet-18 (64 px, B = 4)
+             and the tiny detector, 3 eager steps each without AMP, at
+             O1 and at O2 from the same weights (losses within rtol 1e-4
+             fp32, 2e-2 bf16; each parameter's change over the steps,
+             its master weight's under O2, and each accumulator slot,
+             all parameters together, within 0.1 fp32 (cuDNN's TF32),
+             0.25 bf16 of the CPU's in norm, where a skipped update is
+             1 off and one off by a factor k is |k - 1|; the
+             scalers' states equal); a
+             mark_found_inf step leaves parameters and accumulators bit
+             for bit; a 2-worker loader gives a 0-worker one's batches;
+             an armed io.worker fault raises DataLoaderWorkerError
+             naming the batch.
+17d. zoo — every family's constructor at its published width (1000
+             classes; LeNet 10 at 28 x 28), eval forward at B = 2 and
+             224 px (Inception v3 299), fp32, card against CPU within
+             1e-5 of the largest logit; one O1 train step of each on the
+             card with a finite loss.  Phases 17-17d launch none of the
+             eleven kernels.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -406,6 +445,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -503,13 +543,17 @@ def check_sass(build):
               ("quant_matmul", r"\d(qmm_wg_kernel)()E", 1, "HGMMA", "I2F"),
               ("quant_matmul", r"\d(qmm_dec_kernel)I(Li\d+)E", 4, "HMMA",
                "I2F")]
+    # one cuobjdump per library, all started together
+    procs = {lib: subprocess.Popen([tool, "-sass", str(build._target(lib))],
+                                   stdout=subprocess.PIPE, text=True)
+             for lib in dict.fromkeys(e[0] for e in expect)}
     sass_of = {}
+    for lib, proc in procs.items():
+        sass_of[lib] = proc.communicate(timeout=120)[0]
+        if proc.returncode:
+            raise AssertionError(f"[build] cuobjdump -sass {lib} exited "
+                                 f"{proc.returncode}")
     for lib, pattern, count, instr, forbid in expect:
-        if lib not in sass_of:
-            sass_of[lib] = subprocess.run(
-                [tool, "-sass", str(build._target(lib))],
-                capture_output=True, text=True, timeout=120,
-                check=True).stdout
         found, banned = {}, {}
         for chunk in sass_of[lib].split("Function : ")[1:]:
             m = re.search(pattern, chunk.split()[0])
@@ -5301,25 +5345,6 @@ def phase_resnet_train(device, limit, run=None, layouts=tuple(LAYOUTS),
     return res
 
 
-def phase_resnet_profile(device, limit, run=None, layout="channels_last"):
-    """12b: one eager ResNet-50 step at phase 12's shape traced with
-    testing/vision_profile.py: device ms a step by family."""
-    from paddle_tpu_torch.testing import vision_profile as vp
-
-    run = dict(RESNET_RUN, **(run or {}))
-    step, batch = vp.resnet50_step(device, run["batch"], LAYOUTS[layout],
-                                   image=run["image"], lr=run["lr"])
-    for _ in range(2):
-        float(step.step(*batch))
-    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=1)
-    vp.report(f"resnet-profile {layout}", fam, wall, busy, kernels, spans,
-              log=log)
-    log(f"[resnet-profile {layout}] {limit}")
-    del step, batch
-    _empty(device)
-    return fam
-
-
 def phase_resnet_graph(device, limit, run=None, k=3, lr=1e-5):
     """12c: three ResNet-50 steps from one seed at phase 12's shape: a
     and b eager (is an eager step repeatable?), c as one replayed
@@ -5526,7 +5551,7 @@ def phase_vision_parity(device, steps=3, lr=1e-5):
 
 # -- phases 15-16: the diffusion UNet ----------------------------------------------
 
-UNET_RUN = dict(batch=4, latent=32, steps=5, k=3)
+UNET_RUN = dict(batch=4, latent=32, steps=3, k=2)
 UNET_64_RUN = dict(batch=4, latent=64, steps=2, k=2)
 
 
@@ -5744,6 +5769,470 @@ def phase_unet_parity(device, steps=3, lr=1e-4):
     return errs
 
 
+# -- phases 17-17d: the eager training loop --------------------------------------
+
+EAGER_RUN = dict(batch=256, image=224, images=768, workers=4, steps=5,
+                 classes=1000)
+EAGER_DET_RUN = dict(batch=64, image=320, steps=5)
+
+
+class EagerLoop:
+    """One step of the eager loop a Paddle user writes: the loss under
+    ``auto_cast``, ``scaler.scale(loss).backward()``, then ``_update``
+    (``scaler.step``, ``scaler.update``, ``clear_grad``).  ``step`` has
+    ``testing.vision_profile.families``' shape, so one traced step splits
+    by family (the update lands in its ``adamw`` family)."""
+
+    def __init__(self, model, opt, scaler, loss_fn, level="O1",
+                 dtype="bfloat16"):
+        self.model, self.opt, self.scaler = model, opt, scaler
+        self.loss_fn, self.level, self.dtype = loss_fn, level, dtype
+
+    def step(self, *batch):
+        from paddle_tpu_torch import amp
+
+        with amp.auto_cast(enable=self.level != "O0", level=self.level,
+                           dtype=self.dtype):
+            loss = self.loss_fn(self.model, *batch)
+        self.scaler.scale(loss).backward()
+        self._update()
+        return loss.detach()
+
+    def _update(self):
+        self.scaler.step(self.opt)
+        self.scaler.update()
+        self.opt.clear_grad()
+
+    def _global_norm(self):
+        return None
+
+
+def _ce_loss(model, x, y):
+    from paddle_tpu_torch.nn import functional as F
+
+    out = model(x)
+    if isinstance(out, tuple):       # GoogLeNet's auxiliary heads
+        return F.cross_entropy(out[0], y) + 0.3 * (
+            F.cross_entropy(out[1], y) + F.cross_entropy(out[2], y))
+    return F.cross_entropy(out, y)
+
+
+def _det_loss(model, x, box_t, cls_t):
+    return model(x, box_t, cls_t)
+
+
+def _rss_gib():
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS:"))
+    return kb / 2**20
+
+
+def _launched(counters):
+    return {k: n for k, n in _counts(counters).items() if n}
+
+
+def _no_kernels(tag, counters):
+    launched = _launched(counters)
+    if launched:
+        raise AssertionError(f"[{tag}] launched kernels of the line: "
+                             f"{launched}")
+
+
+def phase_eager_resnet(device, limit, run=None, graph_ms=None):
+    """17: BASELINE config 1 as its row says (BASELINE.md:23): the eager
+    loop over io.DataLoader, auto_cast O1, GradScaler and Momentum with
+    L2 decay (He et al. 2016's recipe) on resnet50.  ``graph_ms``: phase
+    12's replayed CompiledTrainStep a step, printed beside."""
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.testing import vision_profile as vp
+    from paddle_tpu_torch.vision.models import resnet50
+
+    run = dict(EAGER_RUN, **(run or {}))
+    B, hw, n = run["batch"], run["image"], run["images"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    imgs = rng.standard_normal((n, 3, hw, hw), dtype=np.float32)
+    labels = rng.integers(0, run["classes"], n, dtype=np.int64)
+    loader = io.DataLoader(io.TensorDataset([imgs, labels]), batch_size=B,
+                           shuffle=True, drop_last=True,
+                           num_workers=run["workers"], places=device)
+    model = resnet50(num_classes=run["classes"], device=device, seed=0)
+    model.train()
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.parameters(),
+                             weight_decay=optimizer.L2Decay(1e-4))
+    scaler = amp.GradScaler()
+    loop = EagerLoop(model, opt, scaler, _ce_loss, level="O1")
+    log(f"[eager-resnet] resnet50 ({sum(p.numel() for p in model.parameters()) / 1e6:.3f}"
+        f" M fp32 parameters), {n} images [3, {hw}, {hw}] fp32 "
+        f"({imgs.nbytes / 1e6:.0f} MB on the host) and int64 labels, "
+        f"DataLoader(batch_size={B}, num_workers={run['workers']}, "
+        f"shuffle=True, drop_last=True), Momentum(0.1, 0.9, L2Decay(1e-4)),"
+        f" GradScaler(2**16), auto_cast(O1, bf16); data and model in "
+        f"{time.perf_counter() - t0:.1f} s | {limit}")
+
+    def batches():
+        while True:
+            yield from loader
+
+    np.random.seed(0)
+    it = batches()
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    waits, steps, losses = [], [], []
+    for i in range(1 + run["steps"]):
+        _sync(device)
+        t1 = time.perf_counter()
+        x, y = next(it)
+        t2 = time.perf_counter()
+        loss = loop.step(x, y)
+        losses.append(float(loss))
+        t3 = time.perf_counter()
+        if i == 0:
+            first = ((t3 - t1) * 1e3, (t2 - t1) * 1e3)
+            _reset_peak(device)
+            continue
+        waits.append((t2 - t1) * 1e3)
+        steps.append((t3 - t1) * 1e3)
+    peak = _peak_gib(device)
+    if device.type == "cuda":
+        fam, wall, busy, kernels, spans = vp.families(loop, (x, y), steps=1)
+        fam["momentum + scaler"] = fam.pop("adamw")
+    else:
+        wall, busy = float("nan"), float("nan")
+    _no_kernels("eager-resnet", counters)
+    del it
+    ms = float(np.median(steps))
+    ips = B / (ms / 1e3)
+    mfu = ips * 3 * RESNET_FWD_FLOPS / BF16_FLOPS
+    log(f"[eager-resnet] host memory of this process {_rss_gib():.1f} GiB "
+        f"(each epoch forks its workers from it) | first step (workers' "
+        f"fork and first batch, "
+        f"cuDNN's first calls) {first[0]:.1f} ms, {first[1]:.1f} waited on "
+        f"the loader; steps {', '.join(f'{v:.1f}' for v in steps)} ms "
+        f"(median {ms:.1f}), waited on the loader "
+        f"{', '.join(f'{v:.1f}' for v in waits)} ms (median "
+        f"{float(np.median(waits)):.1f}) | {ips:.1f} imgs/s | MFU "
+        f"{mfu:.4f} (imgs/s x 3 x {RESNET_FWD_FLOPS:.2e} / "
+        f"{BF16_FLOPS / 1e12:g} TFLOP/s bf16) | peak memory {peak:.2f} GiB "
+        f"| scale after the steps {scaler._scale:g} | losses "
+        f"{[round(v, 4) for v in losses]}")
+    if device.type == "cuda":
+        vp.report("eager-resnet", fam, wall, busy, kernels, spans, log=log)
+    if graph_ms is not None:
+        log(f"[eager-resnet] the eager O1 step {ms:.1f} ms against phase "
+            f"12's replayed CompiledTrainStep {graph_ms:.1f} ms (bf16 "
+            f"images, bf16 compute, AdamW): {ms / graph_ms:.2f}x")
+    log("[eager-resnet] none of the eleven kernels launched")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[eager-resnet] losses not finite: {losses}")
+    del loader, model, opt, loop, x, y
+    gc.collect()
+    _empty(device)
+    return {"step_ms": ms, "wait_ms": float(np.median(waits)),
+            "idle": 1 - busy / wall, "peak": peak}
+
+
+def phase_eager_detection(device, limit, run=None):
+    """17b: BASELINE config 4 as its row says (BASELINE.md:26): phase 13's
+    detector under decorate(O2), AdamW(1e-3), GradScaler(2**10) and
+    auto_cast(O2), as tests/test_detection_amp.py:37-60 trains."""
+    from paddle_tpu_torch import amp, optimizer
+
+    run = dict(EAGER_DET_RUN, **(run or {}))
+    B, hw = run["batch"], run["image"]
+    model = Detector(device)
+    model.train()
+    opt = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    bad = [k for m_name, m in model.named_modules()
+           for k, p in m.named_parameters(recurse=False)
+           if p.dtype != (torch.float32 if "bn" in m_name
+                          or "downsample.1" in m_name else torch.bfloat16)]
+    if bad or not opt._use_master_weights:
+        raise AssertionError(f"[eager-det] decorate's dtypes: {bad[:4]}")
+    rng = np.random.RandomState(0)
+    side = hw // 32
+    x = torch.as_tensor(rng.randn(B, 3, hw, hw).astype(np.float32),
+                        device=device)
+    box_t = torch.as_tensor(rng.randn(B, 4, side, side).astype(np.float32),
+                            device=device)
+    cls_t = torch.as_tensor((rng.rand(B, 80, side, side) > 0.95).astype(
+        np.float32), device=device)
+    loop = EagerLoop(model, opt, scaler, _det_loss, level="O2")
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    loss, first_ms = _timed(device, lambda: float(loop.step(x, box_t, cls_t)))
+    _reset_peak(device)
+    steps, losses = [], [loss]
+    for _ in range(run["steps"]):
+        loss, ms = _timed(device, lambda: float(loop.step(x, box_t, cls_t)))
+        steps.append(ms)
+        losses.append(loss)
+    peak = _peak_gib(device)
+    _no_kernels("eager-det", counters)
+    masters = {m.dtype for m in opt._master_weights.values()}
+    if masters != {torch.float32} or len(opt._master_weights) != sum(
+            p.dtype == torch.bfloat16 for p in model.parameters()):
+        raise AssertionError(f"[eager-det] master weights {masters}")
+    ms = float(np.median(steps))
+    log(f"[eager-det] detector, B={B}, {hw} px fp32 images, decorate(O2): "
+        f"norms fp32, the rest bf16, {len(opt._master_weights)} fp32 master "
+        f"weights; AdamW(1e-3), GradScaler(2**10), auto_cast(O2) | first "
+        f"step {first_ms:.1f} ms; steps {', '.join(f'{v:.1f}' for v in steps)}"
+        f" ms (median {ms:.1f}) | {B / (ms / 1e3):.1f} imgs/s | peak memory "
+        f"{peak:.2f} GiB | scale {scaler._scale:g} | losses "
+        f"{[round(v, 4) for v in losses]} | none of the eleven kernels "
+        f"launched | {limit}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[eager-det] losses not finite: {losses}")
+    del model, opt, loop
+    gc.collect()
+    _empty(device)
+    return {"step_ms": ms, "peak": peak}
+
+
+class TinyDetector(torch.nn.Module):
+    """tests/test_detection_amp.py's detector on the port: two strided
+    3x3 convs with ReLUs, 1x1 box (4) and class (3) heads; the loss
+    ``mean|box - box_t| + BCE-with-logits(cls, cls_t)``."""
+
+    def __init__(self, device, num_classes=3):
+        super().__init__()
+        from paddle_tpu_torch import nn
+
+        self.backbone = nn.Sequential(
+            nn.Conv2D(3, 16, 3, stride=2, padding=1, device=device),
+            nn.ReLU(),
+            nn.Conv2D(16, 32, 3, stride=2, padding=1, device=device),
+            nn.ReLU())
+        self.box_head = nn.Conv2D(32, 4, 1, device=device)
+        self.cls_head = nn.Conv2D(32, num_classes, 1, device=device)
+
+    def forward(self, x, box_t, cls_t):
+        from paddle_tpu_torch.nn import functional as F
+
+        f = self.backbone(x)
+        return torch.abs(self.box_head(f) - box_t).mean() + \
+            F.binary_cross_entropy_with_logits(self.cls_head(f), cls_t)
+
+
+def _eager_leg(dev, make, state, batch, level, lr):
+    """3 eager steps of ``make(dev)`` from ``state``; (losses, scaler
+    state, the update: for each parameter its fp32 weight's change (the
+    master weight's under O2), the spacing of fp32 numbers at its weight
+    before the steps, and its accumulators, all on the CPU)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models import load_numpy_state
+
+    model = make(dev)
+    load_numpy_state(model, state)
+    model.train()
+    opt = optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                             parameters=model.parameters(),
+                             weight_decay=optimizer.L2Decay(1e-4))
+    if level == "O2":
+        model, opt = amp.decorate(models=model, optimizers=opt, level="O2")
+    loop = EagerLoop(model, opt, amp.GradScaler(init_loss_scaling=2.0 ** 10),
+                     batch[0], level=level)
+    args = [t.to(dev) for t in batch[1:]]
+    params = list(model.parameters())
+    before = [p.detach().to("cpu", torch.float32, copy=True)
+              for p in params]
+    losses = [float(loop.step(*args)) for _ in range(3)]
+    update = [((opt._master_weights.get(id(p), p).detach().float().cpu()
+                - b), torch.nextafter(b.abs(), torch.tensor(np.inf))
+               - b.abs(),
+               {k: v.detach().float().cpu()
+                for k, v in opt._accumulators.get(id(p), {}).items()
+                if torch.is_tensor(v)})
+              for p, b in zip(params, before)]
+    return losses, loop.scaler.state_dict(), update
+
+
+def _update_err(got, want):
+    """How far one leg's update is from another's, over all the
+    parameters together: ||change - change'|| over ||change'|| (no less
+    than 4 fp32 spacings at the weights, an update below fp32's
+    resolution being its rounding) and, per accumulator slot, ||acc -
+    acc'|| over ||acc'||.  A skipped update gives 1, one off by a factor
+    k gives |k - 1|.  (Tensor by tensor, a batch norm's weight and bias
+    changes are sums that cancel and part far more between two summation
+    orders.)"""
+    d = n = s = 0.0
+    acc = {}
+    for (dg, _, ag), (dw, sp, aw) in zip(got, want):
+        if set(ag) != set(aw):
+            raise AssertionError(f"[eager-parity] accumulators {sorted(ag)}"
+                                 f" vs {sorted(aw)}")
+        d += float(((dg - dw) ** 2).sum())
+        n += float((dw ** 2).sum())
+        s += float((sp ** 2).sum())
+        for k in aw:
+            a = acc.setdefault(k, [0.0, 0.0])
+            a[0] += float(((ag[k] - aw[k]) ** 2).sum())
+            a[1] += float((aw[k] ** 2).sum())
+    return {"update": d ** 0.5 / max(n ** 0.5, 4 * s ** 0.5),
+            "accumulators": max((a / b) ** 0.5 for a, b in acc.values())}
+
+
+def phase_eager_parity(device, lr=1e-5):
+    """17c: the eager loop, the card against the CPU (module docstring)."""
+    from paddle_tpu_torch import amp, io, optimizer
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.vision.models import resnet18
+
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(0)
+    res_batch = (_ce_loss, torch.as_tensor(rng.randn(4, 3, 64, 64).astype(
+        np.float32)), torch.as_tensor(rng.randint(0, 10, (4,))))
+    det_batch = (_det_loss,
+                 torch.as_tensor(rng.randn(2, 3, 32, 32).astype(np.float32)),
+                 torch.as_tensor(rng.randn(2, 4, 8, 8).astype(np.float32)),
+                 torch.as_tensor((rng.rand(2, 3, 8, 8) > 0.5).astype(
+                     np.float32)))
+    models = {"resnet18": (lambda d: resnet18(num_classes=10, device=d),
+                           res_batch),
+              "tiny detector": (lambda d: TinyDetector(d), det_batch)}
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    worst, lines = {}, []
+    for name, (make, batch) in models.items():
+        state = {k: v.detach().numpy().copy()
+                 for k, v in make(cpu).state_dict().items()}
+        for level, rtol, utol in (("O0", 1e-4, 0.1), ("O1", 2e-2, 0.25),
+                                  ("O2", 2e-2, 0.25)):
+            got, gs, gu = _eager_leg(device, make, state, batch, level, lr)
+            want, ws, wu = _eager_leg(cpu, make, state, batch, level, lr)
+            err = float(np.max(np.abs(np.array(got) / np.array(want) - 1)))
+            upd = _update_err(gu, wu)
+            worst[f"{name} {level}"] = err
+            lines.append(f"{name} {level}: card {[round(v, 5) for v in got]}"
+                         f" cpu {[round(v, 5) for v in want]} rel "
+                         f"{err:.2e} (limit {rtol:g}); the weights' change "
+                         f"{upd['update']:.2e}, the accumulators "
+                         f"{upd['accumulators']:.2e} (limit {utol:g})")
+            if not (err <= rtol and max(upd.values()) <= utol) or gs != ws:
+                raise AssertionError(f"[eager-parity] {name} {level}: "
+                                     f"{lines[-1]}; scaler {gs} vs {ws}")
+    # a found-inf step changes nothing, bit for bit
+    model = resnet18(num_classes=10, device=device)
+    model.train()
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.parameters())
+    scaler = amp.GradScaler()
+    loop = EagerLoop(model, opt, scaler, _ce_loss, level="O1")
+    x, y = res_batch[1].to(device), res_batch[2].to(device)
+    loop.step(x, y)
+    before = [p.detach().clone() for p in model.parameters()]
+    acc = {k: v.clone() for k, v in opt.state_dict()["accumulators"].items()
+           if torch.is_tensor(v)}
+    with amp.auto_cast(level="O1"):
+        loss = _ce_loss(model, x, y)
+    scaler.scale(loss).backward()
+    scaler.mark_found_inf()
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    same = all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    same_acc = all(torch.equal(v, opt.state_dict()["accumulators"][k])
+                   for k, v in acc.items())
+    if not (same and same_acc and scaler._scale == 2.0 ** 15):
+        raise AssertionError("[eager-parity] a mark_found_inf step moved "
+                             "the parameters or accumulators")
+    # the loader: workers give the in-process batches; a fault names its batch
+    rng = np.random.RandomState(1)
+    ds = io.TensorDataset([rng.randn(40, 3, 8, 8).astype(np.float32),
+                           np.arange(40)])
+    runs = []
+    for workers in (0, 2):
+        np.random.seed(3)
+        runs.append(list(io.DataLoader(ds, batch_size=6, shuffle=True,
+                                       num_workers=workers, places=device)))
+    equal = len(runs[0]) == len(runs[1]) == 7 and all(
+        torch.equal(a, b) for x0, x1 in zip(*runs) for a, b in zip(x0, x1))
+    faults.reset("io.worker:before:2=raise")
+    try:
+        list(io.DataLoader(ds, batch_size=6, num_workers=1, places=device))
+        err = None
+    except io.DataLoaderWorkerError as e:
+        err = e
+    finally:
+        faults.disarm_all()
+    _no_kernels("eager-parity", counters)
+    log(f"[eager-parity] card vs CPU, lr {lr}, 3 eager steps a leg: "
+        + "; ".join(lines) + f" | scaler states equal | mark_found_inf: "
+        f"parameters and {len(acc)} accumulators bit for bit, scale 2**16 "
+        f"-> {scaler._scale:g} | 2-worker loader = 0-worker: {equal} | "
+        f"armed io.worker: {err}")
+    if not equal or err is None or err.indices != list(range(6, 12)):
+        raise AssertionError(f"[eager-parity] loader: equal {equal}, "
+                             f"error {err}")
+    _empty(device)
+    return worst
+
+
+ZOO = (("vgg16", {}, 224), ("alexnet", {}, 224),
+       ("lenet", {}, 28), ("mobilenet_v1", {}, 224),
+       ("mobilenet_v2", {}, 224), ("mobilenet_v3_large", {}, 224),
+       ("mobilenet_v3_small", {}, 224), ("squeezenet1_1", {}, 224),
+       ("shufflenet_v2_x1_0", {}, 224), ("densenet121", {}, 224),
+       ("googlenet", {}, 224), ("inception_v3", {}, 299),
+       ("resnet50", {}, 224))
+
+
+def phase_zoo(device, limit, models=ZOO):
+    """17d: the zoo (module docstring); ``models`` as ``ZOO``."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models import load_numpy_state
+    from paddle_tpu_torch.vision import models as zoo
+
+    cpu = torch.device("cpu")
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    errs, lines = {}, []
+    for name, kw, hw in models:
+        ctor = zoo.LeNet if name == "lenet" else getattr(zoo, name)
+        kw = dict(kw) if name == "lenet" else dict(kw, num_classes=1000)
+        chans = 1 if name == "lenet" else 3
+        x = torch.as_tensor(np.random.RandomState(0).randn(
+            2, chans, hw, hw).astype(np.float32))
+        t0 = time.perf_counter()
+        card = ctor(device=device, seed=0, **kw)
+        ref = ctor(device=cpu, seed=1, **kw)
+        load_numpy_state(ref, {k: v.detach().cpu().numpy() for k, v in
+                               card.state_dict().items()})
+        card.eval()
+        ref.eval()
+        with torch.no_grad():
+            got = card(x.to(device))
+            want = ref(x)
+        errs[name] = _max_rel(got, want)
+        del ref
+        card.train()
+        opt = optimizer.SGD(learning_rate=0.01,
+                            parameters=card.parameters())
+        loop = EagerLoop(card, opt, amp.GradScaler(), _ce_loss, level="O1")
+        y = torch.arange(2, device=device) * 7
+        loss = float(loop.step(x.to(device), y))
+        n = sum(p.numel() for p in card.parameters())
+        lines.append(f"{name} ({n / 1e6:.2f} M, {hw} px): logits "
+                     f"{errs[name]:.2e} of the largest, O1 step loss "
+                     f"{loss:.4f} ({time.perf_counter() - t0:.1f} s)")
+        if not (errs[name] <= 1e-5 and np.isfinite(loss)):
+            raise AssertionError(f"[zoo] {lines[-1]} (limit 1e-5)")
+        del card, opt, loop
+    _no_kernels("zoo", counters)
+    log("[zoo] eval fp32 card vs CPU at B=2, then one O1 step on the card: "
+        + "; ".join(lines) + f" | none of the eleven kernels launched | "
+        f"{limit}")
+    gc.collect()
+    _empty(device)
+    return errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -5759,7 +6248,26 @@ def main():
         log(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
 
     name, limit = phase_device()
-    phase_build()
+    # 15c runs on the card while nvcc builds the kernels on the host (the
+    # UNet's step launches none of them, and 15c gates that)
+    built = {}
+
+    def build():
+        try:
+            phase_build()
+        except BaseException as e:   # re-raised below, after 15c
+            built["error"] = e
+
+    builder = threading.Thread(target=build, name="build")
+    builder.start()
+    log("[unet-train-64] runs while nvcc builds the kernels on the host")
+    phase_unet_train(device, limit, run=UNET_64_RUN, tag="unet-train-64",
+                     unet_kw=dict(sample_size=64))
+    _empty(device)
+    elapsed("phase 15c")
+    builder.join()
+    if "error" in built:
+        raise built["error"]
     elapsed("build")
     rows = [phase_kernels(device)]
     train_rows = phase_train_kernels(device)
@@ -5877,10 +6385,8 @@ def main():
     elapsed("moe")
     resnet = phase_resnet_train(device, limit)
     elapsed("phase 12")
-    phase_resnet_profile(device, limit, layout=min(
-        resnet, key=lambda n: resnet[n]["eager_ms"]))
     phase_resnet_graph(device, limit)
-    elapsed("phases 12b, 12c")
+    elapsed("phase 12c")
     phase_detection_train(device, limit)
     elapsed("phase 13")
     phase_vision_parity(device)
@@ -5891,12 +6397,17 @@ def main():
     del step, batch
     _empty(device)
     elapsed("phase 15b")
-    phase_unet_train(device, limit, run=UNET_64_RUN, tag="unet-train-64",
-                     unet_kw=dict(sample_size=64))
-    _empty(device)
-    elapsed("phase 15c")
     phase_unet_parity(device)
     elapsed("unet")
+    phase_eager_resnet(device, limit, graph_ms=min(
+        r["graph_ms"] for r in resnet.values()))
+    elapsed("phase 17")
+    phase_eager_detection(device, limit)
+    elapsed("phase 17b")
+    phase_eager_parity(device)
+    elapsed("phase 17c")
+    phase_zoo(device, limit)
+    elapsed("eager loop and zoo")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

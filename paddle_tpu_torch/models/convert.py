@@ -119,3 +119,97 @@ def serving_params(module: torch.nn.Module, device=None,
         "lm_head": (None if cfg.tie_word_embeddings
                     else own("lm_head.weight")),
     }
+
+
+# -- optimizer and loss-scaler state ---------------------------------------------
+
+def _host_to_torch(a):
+    """A numpy array (bf16 as ``ml_dtypes.bfloat16``, as the reference's
+    arrays come) as a CPU tensor of the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _torch_to_host(t):
+    """A tensor as the reference stores it: a numpy array, bf16 as
+    ``ml_dtypes.bfloat16`` (the reference's own numpy bf16 type)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _rename_slots(accum, src_names, dst_names):
+    if len(src_names) != len(dst_names):
+        raise ValueError(f"{len(src_names)} parameter names against "
+                         f"{len(dst_names)}")
+    # longest first, so "param_1" never claims "param_10.moment1"
+    order = sorted(range(len(src_names)), key=lambda i: -len(src_names[i]))
+    out = {}
+    for key, val in accum.items():
+        for i in order:
+            if key.startswith(src_names[i] + "."):
+                out[f"{dst_names[i]}.{key[len(src_names[i]) + 1:]}"] = val
+                break
+        else:
+            raise KeyError(f"accumulator {key!r} belongs to no parameter")
+    return out
+
+
+def optimizer_state_to_port(state, ref_names, port_names):
+    """A ``paddle_tpu`` ``Optimizer.state_dict()`` as the port's optimizer
+    takes it (``set_state_dict``).  The two packages name parameters by
+    different rules (``optimizer/optimizer.py``): ``ref_names[i]`` is the
+    reference's name of the optimizer's i-th parameter (``p.name``, or
+    ``param_{i}``) and ``port_names[i]`` the port's
+    (``Optimizer._param_names()``); the accumulators ``{name}.{slot}``
+    are renamed by position, arrays become CPU tensors of their dtype and
+    the step counts ``_t`` host ints."""
+    accum = _rename_slots(state.get("accumulators", {}), list(ref_names),
+                          list(port_names))
+    out = {k: v for k, v in state.items() if k != "accumulators"}
+    out["accumulators"] = {
+        k: int(np.asarray(v)) if k.endswith("._t") else _host_to_torch(v)
+        for k, v in accum.items()}
+    return out
+
+
+def optimizer_state_to_reference(state, port_names, ref_names):
+    """The inverse of :func:`optimizer_state_to_port`: the port's
+    ``Optimizer.state_dict()`` in the reference's names and numpy
+    arrays."""
+    accum = _rename_slots(state.get("accumulators", {}), list(port_names),
+                          list(ref_names))
+    out = {k: v for k, v in state.items() if k != "accumulators"}
+    out["accumulators"] = {
+        k: np.asarray(v) if k.endswith("._t") else _torch_to_host(v)
+        for k, v in accum.items()}
+    return out
+
+
+_SCALER_KEYS = ("scale", "incr_ratio", "decr_ratio", "incr_every_n_steps",
+                "decr_every_n_nan_or_inf", "good_steps", "bad_steps")
+
+
+def _scaler_state(state):
+    unknown = sorted(set(state) - set(_SCALER_KEYS))
+    if unknown:
+        raise KeyError(f"not a GradScaler state: {unknown}")
+    return {k: (float(v) if k in ("scale", "incr_ratio", "decr_ratio")
+                else int(v)) for k, v in state.items()}
+
+
+def grad_scaler_state_to_port(state):
+    """A ``paddle_tpu`` ``GradScaler.state_dict()`` for the port's
+    ``GradScaler.load_state_dict`` (the same keys; host numbers)."""
+    return _scaler_state(state)
+
+
+def grad_scaler_state_to_reference(state):
+    """The port's ``GradScaler.state_dict()`` for the reference's."""
+    return _scaler_state(state)

@@ -1,6 +1,7 @@
 """``Linear``, ``Embedding`` and ``Dropout`` with ``paddle_tpu``'s
 parameter layout and an explicit generator; the activation layers
-``Silu``, ``GELU`` and ``Softmax``, and ``Upsample``.
+``Silu``, ``GELU``, ``Softmax``, ``ReLU6``, ``Hardswish``,
+``Hardsigmoid`` and ``Swish``, and ``Upsample``.
 
 ``torch.nn.Linear`` keeps its weight ``[out, in]``; paddle's is
 ``[in, out]`` and a projection is ``x @ w (+ b)``.  Keeping paddle's
@@ -17,8 +18,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..amp.state import amp_op, cast
 from ..device import resolve_device
 from . import functional as F
+
+
+@amp_op("matmul")
+def _matmul(x, w):
+    """``x @ w`` with jnp's promotion of two float dtypes (the
+    reference's ``matmul`` op; under AMP both come cast by the policy)."""
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.matmul(x, w)
 
 
 class Linear(nn.Module):
@@ -44,13 +56,9 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        w = self.weight
-        if w.dtype != x.dtype:
-            dt = torch.promote_types(x.dtype, w.dtype)
-            x, w = x.to(dt), w.to(dt)
-        out = torch.matmul(x, w)
+        out = _matmul(x, self.weight)
         if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
+            out = out + cast(self.bias, out.dtype)
         return out
 
 
@@ -148,6 +156,34 @@ class GELU(nn.Module):
 
     def forward(self, x):
         return F.gelu(x, self.approximate)
+
+
+class ReLU6(nn.Module):
+    """``F.relu6``."""
+
+    def forward(self, x):
+        return F.relu6(x)
+
+
+class Hardswish(nn.Module):
+    """``F.hardswish``."""
+
+    def forward(self, x):
+        return F.hardswish(x)
+
+
+class Hardsigmoid(nn.Module):
+    """``F.hardsigmoid`` (slope 1/6, offset 0.5)."""
+
+    def forward(self, x):
+        return F.hardsigmoid(x)
+
+
+class Swish(nn.Module):
+    """``F.swish``."""
+
+    def forward(self, x):
+        return F.swish(x)
 
 
 class Softmax(nn.Module):

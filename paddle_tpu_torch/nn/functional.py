@@ -2,7 +2,9 @@
 ``paddle_tpu/nn/functional/__init__.py`` ``rms_norm``, ``layer_norm``,
 ``dropout`` and ``scaled_dot_product_attention``, and for the vision
 path ``conv2d``, the pools, ``batch_norm`` (with ``_bn_running_update``),
-``cross_entropy``, ``binary_cross_entropy_with_logits`` and ``relu``,
+``cross_entropy``, ``binary_cross_entropy_with_logits``, ``relu``, and
+for the vision zoo ``relu6``, ``hardswish``, ``hardsigmoid`` and
+``swish``,
 and for the diffusion path ``group_norm``, ``interpolate`` /
 ``upsample``, ``silu``, ``gelu`` and ``softmax``; the other ops of the language-model training paths are called from
 ``ops.nn_ops`` directly.  Random draws take an explicit
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp.state import amp_op, no_amp
 from ..core.flags import flag
 from ..ops import nn_ops
 
@@ -24,10 +27,15 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     for CUDA tensors, its plain version for CPU ones, both with the fused
     rounding rule); otherwise the plain op ``ops.nn_ops.rms_norm``."""
     if weight is not None and flag("FLAGS_use_fused_rms_norm"):
-        from ..ops.kernels.rms_norm import fused_rms_norm
-
-        return fused_rms_norm(x, weight, epsilon)
+        return _fused_rms_norm(x, weight, epsilon)
     return nn_ops.rms_norm(x, weight, epsilon)
+
+
+@amp_op("fused_rms_norm")
+def _fused_rms_norm(x, weight, epsilon):
+    from ..ops.kernels.rms_norm import fused_rms_norm
+
+    return fused_rms_norm(x, weight, epsilon)
 
 
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
@@ -56,6 +64,31 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def relu(x):
     return torch.relu(x)
+
+
+@amp_op("relu6")
+def relu6(x):
+    """``min(max(x, 0), 6)``; the gradient passes where 0 < x < 6, as the
+    reference's hand-written one does (``hardtanh``'s backward)."""
+    return torch.nn.functional.hardtanh(x, 0.0, 6.0)
+
+
+@amp_op("hardswish")
+def hardswish(x):
+    """``x * clip(x + 3, 0, 6) / 6``, in that order, in x's dtype."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+@amp_op("hardsigmoid")
+def hardsigmoid(x, slope=1 / 6, offset=0.5):
+    """``clip(slope * x + offset, 0, 1)``."""
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+@amp_op("swish")
+def swish(x):
+    """``x * sigmoid(x)`` (the reference's ``swish`` is ``jax.nn.silu``)."""
+    return x * torch.sigmoid(x)
 
 
 def silu(x):
@@ -150,7 +183,7 @@ def _bn_running_update(running_mean, running_var, mean, var, momentum):
     if running_mean is None:
         return
     m = momentum
-    with torch.no_grad():
+    with torch.no_grad(), no_amp():
         running_mean.copy_(m * running_mean + (1 - m) * mean.detach())
         running_var.copy_(m * running_var + (1 - m) * var.detach())
 

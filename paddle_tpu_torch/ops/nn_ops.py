@@ -35,7 +35,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..amp.state import amp_op
 
+
+@amp_op("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm over the last axis: computed in fp32, cast back to
     ``x.dtype``, then multiplied by ``weight`` cast to ``x.dtype`` (an
@@ -49,6 +52,7 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
+@amp_op("einsum")
 def einsum(eq, *operands):
     """``torch.einsum`` with jnp's promotion of mixed float dtypes (a bf16
     operand meeting an fp32 one computes in fp32); ``torch.einsum``
@@ -99,6 +103,7 @@ def fused_rope(q, k, cos, sin, position_ids=None, neox=True):
     return q * c + rot(q) * s, k * c + rot(k) * s
 
 
+@amp_op("layer_norm")
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last axis as ``_layer_norm_plain`` computes it:
     mean and variance in **x's dtype** (a bf16 stream normalises in bf16,
@@ -118,6 +123,7 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     return out
 
 
+@amp_op("swiglu")
 def swiglu(x, y=None):
     """``silu(x) * y``; with one argument, its last axis is split in two."""
     if y is None:
@@ -125,18 +131,21 @@ def swiglu(x, y=None):
     return x * torch.sigmoid(x) * y
 
 
+@amp_op("gelu")
 def gelu(x):
     """GELU in its exact erf form (``ops.gelu``'s default,
     ``approximate=False``, which BERT uses), in x's dtype."""
     return torch.nn.functional.gelu(x)
 
 
+@amp_op("silu")
 def silu(x):
     """``x * sigmoid(x)`` in x's dtype (``ops.silu``); its gradient is the
     reference's ``g * s * (1 + x * (1 - s))``."""
     return torch.nn.functional.silu(x)
 
 
+@amp_op("softmax")
 def softmax(x, axis=-1):
     """Softmax along ``axis`` in x's dtype.  The reference's custom
     backward, ``out * (g - sum(out * g))``, is the library's own."""
@@ -145,6 +154,7 @@ def softmax(x, axis=-1):
 
 # -- diffusion: group norm and resizing -------------------------------------------
 
+@amp_op("group_norm")
 def group_norm(x, weight=None, bias=None, epsilon=1e-5, groups=32,
                data_format="NCHW"):
     """``_group_norm_plain``: x viewed as ``[N, groups, C / groups,
@@ -180,6 +190,7 @@ def group_norm(x, weight=None, bias=None, epsilon=1e-5, groups=32,
     return out
 
 
+@amp_op("interpolate")
 def interpolate(x, size, mode="nearest", data_format="NCHW"):
     """``_interp_plain`` (``jax.image.resize``) to spatial ``size`` (h, w).
     ``jax.image.resize``'s ``"nearest"`` takes the source pixel under each
@@ -219,6 +230,7 @@ def _need_generator(generator, device, what):
                          f"{generator.device}, the tensor on {device}")
 
 
+@amp_op("dropout")
 def dropout(x, p=0.5, training=True, mode="upscale_in_train",
             generator=None):
     """Dropout as ``dropout_raw`` applies it.  Training: a Bernoulli keep
@@ -297,6 +309,7 @@ def _seed(generator, device):
                          device=device, generator=generator)
 
 
+@amp_op("scaled_dot_product_attention")
 def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
          dropout_p=0.0, generator=None):
     """Scaled dot-product attention on ``[B, S, H, D]`` (the paddle
@@ -451,6 +464,7 @@ def _acc(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+@amp_op("reduce_mean")
 def mean_fp32acc(x, dim=None):
     """``jnp.mean``'s rounding: the sum accumulated in fp32, divided by
     the count and rounded once to x's dtype (bf16 included).  torch's
@@ -514,6 +528,7 @@ def _same_pads(size, k, stride, dilation):
     return total // 2, total - total // 2
 
 
+@amp_op("conv2d")
 def conv2d(x, weight, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """``_conv2d_plain``: the weight cast to x's dtype (``_conv_dtype``:
@@ -556,6 +571,7 @@ def _pool_args(x, kernel_size, stride, padding, data_format):
             _pair(padding))
 
 
+@amp_op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, data_format="NCHW"):
     """``_max_pool2d_plain``: the max over each window, padding at -inf
     (the output size is the floor one).  The gradient goes to the first
@@ -571,6 +587,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, data_format="NCHW"):
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
+@amp_op("avg_pool2d")
 def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
                data_format="NCHW"):
     """``_avg_pool2d_plain``: window sums over the zero-padded input
@@ -588,6 +605,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
+@amp_op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     """``_adaptive_avg_pool2d_plain``: a reshape and a mean when the
     sizes divide, else the mean of each interval ``[i*h // oh,
@@ -620,6 +638,7 @@ def _bn_axes_shape(ndim, data_format):
     return tuple(range(ndim - 1)), (1,) * (ndim - 1) + (-1,)
 
 
+@amp_op("batch_norm_stats")
 def batch_norm_stats(x, data_format="NCHW"):
     """``_batch_norm_stats``: the batch mean and the biased variance in
     x's dtype (each accumulated in fp32 and rounded once, as ``jnp.mean``
@@ -639,6 +658,7 @@ def batch_norm_stats(x, data_format="NCHW"):
     return mean_fp32acc(x, axes), var.to(x.dtype)
 
 
+@amp_op("batch_norm_infer")
 def batch_norm_infer(x, mean, var, weight=None, bias=None, epsilon=1e-5,
                      data_format="NCHW"):
     """``_batch_norm_infer``: ``rsqrt`` of the fp32 variance plus epsilon,
@@ -653,7 +673,7 @@ def batch_norm_infer(x, mean, var, weight=None, bias=None, epsilon=1e-5,
     else:
         shape = (1,) * (x.dim() - 1) + (-1,)
     dt = x.dtype
-    inv = torch.rsqrt(_acc(var).reshape(shape) + epsilon).to(dt)
+    inv = torch.rsqrt(var.float().reshape(shape) + epsilon).to(dt)
     out = (x - mean.to(dt).reshape(shape)) * inv
     if weight is not None:
         out = out * weight.to(dt).reshape(shape)
@@ -706,6 +726,7 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx, dgamma.to(w.dtype), dbeta.to(w.dtype), None, None
 
 
+@amp_op("batch_norm_train")
 def batch_norm_train(x, weight, bias, epsilon=1e-5, data_format="NCHW"):
     """Training-mode batch norm with a weight and a bias (the fused op):
     ``(y, batch mean, biased batch variance)``, the statistics in fp32
@@ -754,6 +775,7 @@ class _SoftmaxCrossEntropy(torch.autograd.Function):
         return gl.to(dtype), None, None, None, None
 
 
+@amp_op("softmax_with_cross_entropy")
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, axis=-1):
     """The per-row loss ``[..., 1]`` (fp32) of ``logits`` against integer

@@ -44,10 +44,10 @@ DataLoader worker counts its own hits (deterministic per worker).
 Counterpart of ``paddle_tpu/testing/faults.py``: a copy of the whole
 module (the port imports nothing of the JAX package), with the same
 registry, so one spec string arms the same point in either package.
-The port's serving, fleet, checkpoint and train-step sites follow the
-reference's control flow, hit for hit.  Points whose site the port does
-not have yet stay registered: ``io.worker`` (the ``DataLoader``;
-ROADMAP.md Queue 1, item 4) and ``hapi.save`` (``hapi``; item 9), the
+The port's serving, fleet, checkpoint, train-step and ``DataLoader``
+worker (``io.worker``) sites follow the reference's control flow, hit
+for hit.  Points whose site the port does not have yet stay registered:
+``hapi.save`` (``hapi``; ROADMAP.md Queue 1, item 9), the
 telemetry ones (``obs.*``; item 9), ``aot.cache`` (the port keeps no
 compile cache on disk) and ``sp.*`` (item 8).
 """

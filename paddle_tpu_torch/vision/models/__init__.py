@@ -1,7 +1,31 @@
-"""The ResNet family (``paddle_tpu/vision/models/resnet.py``)."""
+"""The vision model zoo.  Counterpart of ``paddle_tpu/vision/models``:
+every family and constructor it exports (ResNet / ResNeXt / wide
+ResNet, VGG, LeNet, AlexNet, MobileNet v1-v3, SqueezeNet, ShuffleNet v2,
+DenseNet, GoogLeNet, Inception v3) with the same state-dict keys, built
+on ``device`` (default CUDA) from ``seed``."""
+from .densenet import (  # noqa: F401
+    DenseNet, densenet121, densenet161, densenet169, densenet201,
+    densenet264,
+)
+from .googlenet import GoogLeNet, googlenet  # noqa: F401
+from .inceptionv3 import InceptionV3, inception_v3  # noqa: F401
+from .mobilenetv1 import MobileNetV1, mobilenet_v1  # noqa: F401
+from .mobilenetv2 import MobileNetV2, mobilenet_v2  # noqa: F401
+from .mobilenetv3 import (  # noqa: F401
+    MobileNetV3Large, MobileNetV3Small, mobilenet_v3_large,
+    mobilenet_v3_small,
+)
 from .resnet import (  # noqa: F401
     BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34, resnet50,
     resnet101, resnet152, resnext50_32x4d, resnext50_64x4d,
     resnext101_32x4d, resnext101_64x4d, resnext152_32x4d,
     resnext152_64x4d, wide_resnet50_2, wide_resnet101_2,
 )
+from .shufflenetv2 import (  # noqa: F401
+    ShuffleNetV2, shufflenet_v2_x0_25, shufflenet_v2_x0_33,
+    shufflenet_v2_x0_5, shufflenet_v2_x1_0, shufflenet_v2_x1_5,
+    shufflenet_v2_x2_0, shufflenet_v2_swish,
+)
+from .simple import AlexNet, LeNet, alexnet  # noqa: F401
+from .squeezenet import SqueezeNet, squeezenet1_0, squeezenet1_1  # noqa: F401
+from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401
