@@ -96,6 +96,8 @@ result):
              eager (whose warmup arms the ladder and captures nothing),
              AotMissError at a rung with no graph after seal(), and
              decode_n(8) at batch 8 equal to 8 decode steps, each timed.
+             (Its control leg, an aot="off" engine at half the chunk
+             whose streams were reported, not gated, was cut for time.)
 4f. features — Llama-2-7B at full width and depth, phase 4's engine,
              the page pool's invariants checked after every step of every
              leg: (a) the prefix cache on vs off on 8 requests of 128-512
@@ -345,7 +347,8 @@ result):
              where cuDNN repeats its bits, else held at bf16's relative
              2e-2.
 13. detection train — bench.py's config 4 (bench.py:469-519): ResNet-18
-             features with 1x1 box and class heads, L1 + BCE-with-logits,
+             features with 1x1 box and class heads (Detector, shared
+             with 17b and 18), L1 + BCE-with-logits,
              B = 64 at 320 px bf16, lr 1e-3, timed as in 12 (10 eager
              steps).
 14. vision parity — fp32, the card against the CPU, with TF32 at the
@@ -375,12 +378,11 @@ result):
              finite; none of the eleven kernels launches (the step
              computes in fp32 as the reference's does: see
              paddle_tpu_torch/models/unet.py).
-15b. unet profile — one eager step of 15 traced with
-             testing/vision_profile.py: device ms by family (group norm,
-             conv forward / dgrad / wgrad, attention, Linear GEMMs,
-             AdamW, other; the backward parts beside), and the port's
-             group_norm against torch.nn.functional.group_norm at the
-             top level's shape (bits, time).
+15b. unet profile — the port's group_norm against
+             torch.nn.functional.group_norm at the top level's shape
+             (bits, time).  (One eager step of 15 traced by family with
+             testing/vision_profile.py was cut for time; the module
+             prints it on its own.)
 15c. unet at the published latent — the same model at SD v1.5's own
              sample_size, 64 x 64 latents (512 px images), B = 4: 2
              warm-up and 2 eager steps, multi_step(2) captured and
@@ -430,6 +432,34 @@ result):
              1e-5 of the largest logit; one O1 train step of each on the
              card with a finite loss.  Phases 17-17d launch none of the
              eleven kernels.
+18. detection eval — BASELINE config 4's eval side: (a) phase 13's
+             detector (one class, Detector, shared by 13, 17b and 18) in
+             eval, decorate(O2) + auto_cast(O2), B = 64 at 320 px; boxes
+             decoded as tests/test_detection_amp.py:84-92 does (cell
+             centres at stride 32 -+ |offset| x 32, rounded to 1/16 px),
+             sigmoid scores; per image the top 1000 (cell, class) pairs
+             (a stable sort), class-aware nms at IoU 0.7 keeping 300
+             (PP-YOLOE+'s MultiClassNMS settings).  Eager nms (float64)
+             on the card must keep the CPU's indices exactly on the same
+             fp32 candidates; the fixed-size float32 route, batched over
+             the 64 images and nms itself for image 0, captured in a CUDA
+             graph and replayed, must equal the eager route's first
+             count entries (padding -1 after) in every image with no IoU
+             within 1e-6 of the threshold.  Forward ms, decode + nms ms,
+             images/s, the replay's ms.  (b) each op at a published
+             size, card against the port on the CPU (1e-5 of the largest
+             value, integers equal), timed: roi_align on a Mask R-CNN FPN
+             P2 map [2, 256, 200, 336] with 512 ROIs an image at 7x7 and
+             14x14, sampling ratio -1 and 2 (held at 64 ROIs an image,
+             timed at 512), roi_pool and psroi_pool (R-FCN's 7 x 7 x 81
+             maps) at 7x7, yolo_box on YOLOv3's three 608-px heads,
+             generate_proposals at 2000 / 1000, matrix_nms at 80
+             classes, deform_conv2d v2 at [8, 512, 19, 19] (PP-YOLOv2's
+             DCN stage), Conv2DTranspose, Conv1D, Conv3D and
+             Conv3DTranspose, the index pool with max_unpool and the
+             ceil-mode pools, bicubic interpolate up and down and
+             gelu(approximate=True).  None of the eleven kernels
+             launches in 18.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -1982,17 +2012,6 @@ def phase_aot(device, phase4, cfg=None, load=None, dtype=torch.bfloat16,
         f"{same} of {len(phase4)} streams equal, {lead} of {total} tokens "
         f"before each stream's first difference (other chunk lengths, so "
         f"other GEMM shapes and bf16 rounding in the prefill)")
-    # the control: no ladder, only another chunk length
-    half = dict(engine_kw, prefill_chunk=engine_kw["prefill_chunk"] // 2)
-    _, eng, other = phase_serve(device, cfg=cfg, load=load, dtype=dtype,
-                                tag="aot control", engine_kw=half)
-    del eng
-    _empty(device)
-    same, lead, total = _agreement(other, phase4)
-    log(f"[aot] control, aot=off with prefill_chunk="
-        f"{half['prefill_chunk']}: {same} of {len(phase4)} streams equal "
-        f"to phase 4's, {lead} of {total} tokens before each stream's "
-        f"first difference")
     engines = {}
     for mode in ("warm", "strict"):
         _, eng, streams = phase_serve(
@@ -5222,12 +5241,18 @@ class Detector(torch.nn.Module):
                               generator=gen)
         self.to(memory_format=torch.channels_last)   # as the backbone
 
+    def heads(self, x):
+        """(box offsets ``[B, 4, H/32, W/32]``, class logits ``[B, 80,
+        H/32, W/32]``)."""
+        f = self.backbone(x)
+        return self.box(f), self.cls(f)
+
     def forward(self, x, box_t, cls_t):
         from paddle_tpu_torch.nn import functional as F
 
-        f = self.backbone(x)
-        l_box = torch.abs(self.box(f) - box_t).mean()
-        l_cls = F.binary_cross_entropy_with_logits(self.cls(f), cls_t)
+        box, cls = self.heads(x)
+        l_box = torch.abs(box - box_t).mean()
+        l_cls = F.binary_cross_entropy_with_logits(cls, cls_t)
         return l_box + l_cls
 
 
@@ -5652,16 +5677,14 @@ def phase_unet_train(device, limit, run=None, tag="unet-train",
 
 
 def phase_unet_profile(step, batch, device, limit, iters=20):
-    """15b: one eager step traced by family; then the port's group_norm
-    against the library's at the top level's shape [B, 320, 32, 32] fp32,
-    32 groups: equal bits or the largest difference, and both timed
-    (``time_ms``: CUDA events, L2 flushed; forward; forward + backward)."""
+    """15b: the port's group_norm against the library's at the top
+    level's shape [B, 320, 32, 32] fp32, 32 groups: equal bits or the
+    largest difference, and both timed (``time_ms``: CUDA events, L2
+    flushed; forward; forward + backward).  (Its traced step by family
+    was cut for time: ``python3 -m paddle_tpu_torch.testing.vision_profile
+    unet`` prints it.)"""
     from paddle_tpu_torch.ops import nn_ops
-    from paddle_tpu_torch.testing import vision_profile as vp
 
-    fam, wall, busy, kernels, spans = vp.families(step, batch, steps=1,
-                                                  plan=vp.UNET)
-    vp.report("unet-profile", fam, wall, busy, kernels, spans, log=log)
     B = batch[0].shape[0]
     gen = torch.Generator(device).manual_seed(7)
     x = torch.randn(B, 320, 32, 32, device=device, generator=gen)
@@ -5696,7 +5719,6 @@ def phase_unet_profile(step, batch, device, limit, iters=20):
         f"{times['library'][1]:.4f} | bounds (x read once, y written once; "
         f"backward x, g read, dx written) {2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
         f" / {5 * nbytes / HBM_BYTES_PER_S * 1e3:.4f} | {limit}")
-    return fam
 
 
 def phase_unet_parity(device, steps=3, lr=1e-4):
@@ -6233,6 +6255,375 @@ def phase_zoo(device, limit, models=ZOO):
     return errs
 
 
+#: 18's eval: PaddleDetection's PP-YOLOE+ MultiClassNMS settings
+#: (nms_top_k 1000, keep_top_k 300, nms_threshold 0.7) on phase 13's
+#: detector (stride 32, 80 classes) at B = 64, 320 px
+DET_EVAL = dict(batch=64, image=320, stride=32, top=1000, keep=300,
+                iou=0.7)
+
+
+def det_candidates(box, cls, stride, top):
+    """The eval decode of tests/test_detection_amp.py:84-92 at stride
+    ``stride``: cell centres ``(i + 1/2) * stride``, boxes ``centre -+
+    |offset| * stride`` (the offsets in stride units, as the anchor-free
+    heads decode their distances), rounded to 1/16 px so that the
+    category offset of nms's fixed-size route is exact in fp32; scores
+    the sigmoid of the class logits in fp32.  Per image the ``top``
+    (class, cell) pairs by a stable descending sort: (boxes [B, top, 4],
+    scores [B, top], classes [B, top])."""
+    B, _, H, W = box.shape
+    dev = box.device
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    centre = (torch.stack([xs, ys, xs, ys]).reshape(4, -1).T.float()
+              + 0.5) * stride                                   # [HW, 4]
+    off = box.float().abs().reshape(B, 4, -1).transpose(1, 2) * stride
+    boxes = torch.cat([centre[None, :, :2] - off[..., :2],
+                       centre[None, :, 2:] + off[..., 2:]], -1)
+    boxes = torch.round(boxes * 16) / 16
+    scores = torch.sigmoid(cls.float()).reshape(B, -1)      # class-major
+    order = torch.sort(-scores, dim=1, stable=True).indices[:, :top]
+    cell = order % (H * W)
+    cand = boxes.gather(1, cell[..., None].expand(-1, -1, 4))
+    return cand, scores.gather(1, order), order // (H * W)
+
+
+def _eager_nms(cand, scores, classes, run):
+    from paddle_tpu_torch.vision import ops as vops
+
+    return [vops.nms(cand[i], run["iou"], scores[i], classes[i],
+                     top_k=run["keep"]) for i in range(cand.shape[0])]
+
+
+def _near_threshold(cand, classes, thr, eps=1e-6):
+    """Per image: whether some pair of its boxes of one class has an IoU
+    (float64) within ``eps`` of ``thr`` (where fp32 and fp64 may take
+    opposite sides)."""
+    from paddle_tpu_torch.vision import ops as vops
+
+    b = vops._category_shift(cand.double(), classes)
+    iou = vops._iou_matrix(b)
+    n = iou.shape[-1]
+    iou = iou.masked_fill(torch.eye(n, dtype=torch.bool,
+                                    device=iou.device), -1.0)
+    return ((iou - thr).abs() < eps).flatten(1).any(1)
+
+
+def phase_detection_eval(device, limit, run=None):
+    """18a: BASELINE config 4's eval side (module docstring)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.vision import ops as vops
+
+    run = dict(DET_EVAL, **(run or {}))
+    B, hw, keep = run["batch"], run["image"], run["keep"]
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    model = amp.decorate(models=Detector(device), level="O2")
+    model.eval()
+    x = torch.as_tensor(np.random.RandomState(0).randn(
+        B, 3, hw, hw).astype(np.float32), device=device)
+
+    def forward():
+        with torch.no_grad(), amp.auto_cast(level="O2"):
+            return model.heads(x)
+
+    def decode_nms():
+        cand, scores, classes = det_candidates(*heads, run["stride"],
+                                               run["top"])
+        return cand, scores, classes, _eager_nms(cand, scores, classes,
+                                                 run)
+    heads = forward()                       # cuDNN's first calls
+    heads, fwd_ms = _timed(device, forward)
+    if {heads[0].dtype, heads[1].dtype} != {torch.bfloat16}:
+        raise AssertionError(f"[det-eval] heads {heads[0].dtype}, "
+                             f"{heads[1].dtype}: O2 computes in bf16")
+    decode_nms()
+    (cand, scores, classes, kept), nms_ms = _timed(device, decode_nms)
+    # the same fp32 candidates through the eager route on the CPU
+    cpu = _eager_nms(cand.cpu(), scores.cpu(), classes.cpu(), run)
+    bad = [i for i in range(B) if not torch.equal(kept[i].cpu(), cpu[i])]
+    if bad:
+        raise AssertionError(f"[det-eval] eager nms card != CPU in images "
+                             f"{bad[:8]}")
+    # the fixed-size route, captured in a CUDA graph and replayed
+    sb, ss, sc = cand.clone(), scores.clone(), classes.clone()
+    side = torch.cuda.Stream() if device.type == "cuda" else None
+
+    def fixed_route():
+        one = vops.nms(sb[0], run["iou"], ss[0], sc[0], top_k=keep)
+        return one, vops._nms_device(vops._category_shift(sb, sc), ss,
+                                     run["iou"], keep)
+    if side is not None:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fixed_route()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            one, fixed = fixed_route()
+        capture_s = time.perf_counter() - t0
+        graph.replay()
+        _, replay_ms = _timed(device, graph.replay)
+        if one.shape != (keep,) or not torch.equal(one, fixed[0]):
+            raise AssertionError("[det-eval] nms under capture is not the "
+                                 "fixed-size route of image 0")
+    else:
+        (one, fixed), replay_ms = _timed(device, fixed_route)
+        capture_s = 0.0
+    near = _near_threshold(cand, classes, run["iou"]).cpu()
+    counts = [len(k) for k in kept]
+    for i in range(B):
+        if near[i]:
+            continue
+        want = torch.full((keep,), -1, dtype=torch.int64)
+        want[:counts[i]] = kept[i].cpu()
+        if not torch.equal(fixed[i].cpu(), want):
+            raise AssertionError(f"[det-eval] image {i}: the fixed-size "
+                                 f"route differs from the eager one")
+    _no_kernels("det-eval", counters)
+    ms = fwd_ms + nms_ms
+    log(f"[det-eval] detector eval, B={B}, {hw} px, decorate(O2) + "
+        f"auto_cast(O2): forward {fwd_ms:.2f} ms | decode + class-aware "
+        f"nms (top {run['top']} of {heads[1].shape[1]} classes x "
+        f"{heads[1].shape[2] * heads[1].shape[3]} cells, IoU {run['iou']}, "
+        f"keep {keep}), eager float64: {nms_ms:.2f} ms, kept "
+        f"{min(counts)}-{max(counts)} an image (mean "
+        f"{np.mean(counts):.1f}), equal to the CPU's | {B / (ms / 1e3):.1f}"
+        f" images/s | fixed-size float32 route in a CUDA graph (captured "
+        f"in {capture_s:.2f} s): replay {replay_ms:.2f} ms for the batch, "
+        f"equal to the eager route in {B - int(near.sum())} images, "
+        f"{int(near.sum())} exempt (an IoU within 1e-6 of the threshold) "
+        f"| none of the eleven kernels launched | {limit}")
+    del model, heads
+    _empty(device)
+    return {"fwd_ms": fwd_ms, "nms_ms": nms_ms, "replay_ms": replay_ms,
+            "imgs_per_s": B / (ms / 1e3)}
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _op_on_both(tag, fn, args, flush, iters=5, cpu_fn=None, timed=None):
+    """``fn`` on the card's ``args`` and ``cpu_fn`` (default ``fn``) on
+    their CPU copies: every float output within 1e-5 of the largest
+    magnitude of the CPU's (at least 1), every other output equal; then
+    ``fn`` timed on the card at ``timed`` (default ``args``): mean ms of
+    ``iters`` calls after a warm-up, CUDA events, L2 flushed.  Returns
+    (ms, largest relative error, the CPU's seconds)."""
+    def cpu(a):
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+    got = _flat(fn(*args))
+    t0 = time.perf_counter()
+    want = _flat((cpu_fn or fn)(*[cpu(a) for a in args]))
+    cpu_s = time.perf_counter() - t0
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"[det-ops] {tag}: shape {tuple(g.shape)}"
+                                 f" on the card, {tuple(w.shape)} on the "
+                                 f"CPU")
+        if w.is_floating_point():
+            d = float((g.detach().cpu().double() - w.detach().double())
+                      .abs().max()) if w.numel() else 0.0
+            scale = max(1.0, float(w.abs().max()) if w.numel() else 1.0)
+            err = max(err, d / scale)
+        elif not torch.equal(g.cpu(), w):
+            raise AssertionError(f"[det-ops] {tag}: integer outputs differ")
+    if err > 1e-5:
+        raise AssertionError(f"[det-ops] {tag}: {err:.2e} of the largest "
+                             f"value (limit 1e-5)")
+    timed = args if timed is None else timed
+    if args and isinstance(args[0], torch.Tensor) and args[0].is_cuda:
+        ms = time_ms(lambda: fn(*timed), flush, iters=iters, warmup=1)
+    else:
+        ms = float("nan")
+    return ms, err, cpu_s
+
+
+def _rois(rng, n, img_h, img_w, lo, hi):
+    """``n`` boxes with sqrt-area uniform in [lo, hi] px and aspect in
+    [1/2, 2], centres uniform in the image."""
+    s = rng.uniform(lo, hi, n)
+    ar = np.exp(rng.uniform(np.log(0.5), np.log(2.0), n))
+    w, h = s * np.sqrt(ar), s / np.sqrt(ar)
+    cx, cy = rng.uniform(0, img_w, n), rng.uniform(0, img_h, n)
+    return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                    1).astype(np.float32)
+
+
+def _rpn_anchors(H, W, stride, sizes=(32, 64, 128, 256, 512),
+                 ratios=(0.5, 1.0, 2.0)):
+    """Faster R-CNN's anchors ``[H, W, A, 4]``: every size and ratio at
+    every cell centre."""
+    wh = np.array([(s * np.sqrt(1 / r), s * np.sqrt(r)) for s in sizes
+                   for r in ratios])
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    c = (np.stack([xs, ys], -1)[:, :, None, :] + 0.5) * stride
+    return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+
+
+def phase_detection_ops(device, limit, sizes=None):
+    """18b: each op at a published size, card against the port on the
+    CPU (module docstring); ``sizes`` shrinks the shapes for a rehearsal
+    (a dict of overrides, see DET_OPS)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.models import load_numpy_state
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops as vops
+
+    z = dict(DET_OPS, **(sizes or {}))
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    cpu = torch.device("cpu")
+    flush = (torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                         device=device) if device.type == "cuda" else None)
+    rng = np.random.RandomState(0)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    rows = []
+
+    def hold(tag, fn, *args, cpu_fn=None, timed=None):
+        ms, err, cpu_s = _op_on_both(tag, fn, args, flush, cpu_fn=cpu_fn,
+                                     timed=timed)
+        rows.append(f"{tag} {ms:.3f} ms ({err:.1e}; CPU {cpu_s:.2f} s)")
+        return ms
+    # roi_align over a Mask R-CNN FPN P2 map (stride 4), ROIs of P2's
+    # scale range, 512 an image, timed at all of them; card and CPU are
+    # held on the first ``rois_held`` of each image (ROIs are
+    # independent), to keep the CPU leg short
+    n_img, C, H, W = z["p2"]
+    x = dev(rng.randn(n_img, C, H, W).astype(np.float32))
+    per = [_rois(rng, z["rois"], H * 4, W * 4, 16, 112)
+           for _ in range(n_img)]
+    full = (x, dev(np.concatenate(per)),
+            dev(np.full(n_img, z["rois"], np.int32)))
+    held = (x, dev(np.concatenate([b[:z["rois_held"]] for b in per])),
+            dev(np.full(n_img, z["rois_held"], np.int32)))
+    for out, ratio in ((7, -1), (7, 2), (14, -1), (14, 2)):
+        hold(f"roi_align {out}x{out} ratio {ratio}",
+             lambda a, b, n, o=out, r=ratio: vops.roi_align(
+                 a, b, n, o, 0.25, r, True), *held, timed=full)
+    hold("roi_pool 7x7", lambda a, b, n: vops.roi_pool(a, b, n, 7, 0.25),
+         *held, timed=full)
+    del x, full, held
+    n_img, C, H, W = z["rfcn"]
+    xs = dev(rng.randn(n_img, C, H, W).astype(np.float32))
+    rb = dev(np.concatenate([_rois(rng, z["rfcn_rois"], H * 16, W * 16, 32,
+                                   400) for _ in range(n_img)]))
+    hold("psroi_pool 7x7", lambda a, b, n: vops.psroi_pool(a, b, n, 7,
+                                                           1 / 16),
+         xs, rb, dev(np.full(n_img, z["rfcn_rois"], np.int32)))
+    del xs
+    # YOLOv3's three 608-px heads, 80 classes
+    B = z["yolo_batch"]
+    img = dev(np.full((B, 2), 608, np.int32))
+    for side, an in ((19, [116, 90, 156, 198, 373, 326]),
+                     (38, [30, 61, 62, 45, 59, 119]),
+                     (76, [10, 13, 16, 30, 33, 23])):
+        hold(f"yolo_box {side}x{side}",
+             lambda a, i, an=an, s=side: vops.yolo_box(
+                 a, i, an, 80, 0.005, 608 // s),
+             dev(rng.randn(B, 255, side, side).astype(np.float32)), img)
+    # RPN proposals: a C4 map at stride 16 of an 800 x 1344 image
+    N, A, H, W = z["rpn"]
+    anchors = dev(_rpn_anchors(H, W, 16))
+    hold("generate_proposals 2000/1000",
+         lambda s, d, i, a, v: vops.generate_proposals(
+             s, d, i, a, v, pre_nms_top_n=2000, post_nms_top_n=1000,
+             nms_thresh=0.7, min_size=0.0, return_rois_num=True),
+         dev(rng.rand(N, A, H, W).astype(np.float32)),
+         dev((rng.randn(N, 4 * A, H, W) * 0.3).astype(np.float32)),
+         dev(np.full((N, 2), (H * 16, W * 16), np.float32)), anchors,
+         dev(np.ones((H, W, A, 4), np.float32)))
+    N, M = z["matrix"]
+    mb = _rois(rng, N * M, 640, 640, 8, 200).reshape(N, M, 4)
+    hold("matrix_nms 80 classes",
+         lambda b, s: vops.matrix_nms(
+             b, s, 0.01, post_threshold=0.01, nms_top_k=500,
+             keep_top_k=100, use_gaussian=True, gaussian_sigma=2.0,
+             background_label=-1, normalized=False, return_index=True),
+         dev(mb), dev(rng.rand(N, 80, M).astype(np.float32)))
+    # PP-YOLOv2's DCN stage: deform_conv2d v2 at [8, 512, 19, 19], 3x3
+    B, C, S = z["dcn"]
+    dcn = vops.DeformConv2D(C, C, 3, padding=1, device=device)
+    hold("deform_conv2d v2", lambda a, o, m, w, b: vops.deform_conv2d(
+        a, o, w, b, padding=1, mask=m),
+        dev(rng.randn(B, C, S, S).astype(np.float32)),
+        dev((rng.randn(B, 18, S, S) * 2).astype(np.float32)),
+        dev(rng.rand(B, 9, S, S).astype(np.float32)),
+        dcn.weight.detach(), dcn.bias.detach())
+    # convolutions at UNet / sequence / video sizes
+    for tag, ctor, kw, shape in z["convs"]:
+        layer = getattr(pnn, ctor)(**kw, device=device)
+        twin = getattr(pnn, ctor)(**kw, device=cpu)
+        load_numpy_state(twin, {k: v.detach().cpu().numpy()
+                                for k, v in layer.state_dict().items()})
+        with torch.no_grad():
+            hold(tag, layer, dev(rng.randn(*shape).astype(np.float32)),
+                 cpu_fn=twin)
+    # pools: indices and unpool (SegNet), ceil mode
+    shape = z["pool"]
+    xp = dev(rng.randn(*shape).astype(np.float32))
+    hold("max_pool2d return_mask + max_unpool2d", lambda a: (
+        lambda v, i: (v, i, F.max_unpool2d(v, i, 2, 2)))(
+        *F.max_pool2d(a, 2, 2, return_mask=True)), xp)
+    hold("avg_pool2d 3x3/2 ceil_mode", lambda a: F.avg_pool2d(
+        a[..., 1:, 1:], 3, 2, ceil_mode=True), xp)
+    hold("max_pool3d 2/2 ceil_mode", lambda a: F.max_pool3d(
+        a, 2, 2, ceil_mode=True),
+        dev(rng.randn(*z["pool3d"]).astype(np.float32)))
+    del xp
+    xi = dev(rng.randn(*z["image"]).astype(np.float32))
+    side = z["image"][-1]
+    hold(f"bicubic {side} -> {2 * side}", lambda a: F.interpolate(
+        a, size=(2 * side, 2 * side), mode="bicubic"), xi)
+    hold(f"bicubic {side} -> {side // 2}", lambda a: F.interpolate(
+        a, size=(side // 2, side // 2), mode="bicubic"), xi)
+    hold("gelu tanh", lambda a: F.gelu(a, approximate=True),
+         dev(rng.randn(*z["gelu"]).astype(np.float32)))
+    _no_kernels("det-ops", counters)
+    log("[det-ops] card vs the port on the CPU, each within 1e-5 of the "
+        "largest value (integers equal), card ms (mean of 5, L2 flushed), "
+        "error, the CPU leg's seconds: "
+        + "; ".join(rows) + f" | none of the eleven kernels launched | "
+        f"{limit}")
+    _empty(device)
+    return rows
+
+
+#: 18b's shapes: a Mask R-CNN FPN P2 map of an 800 x 1344 image with 512
+#: ROIs an image; R-FCN's 7 x 7 x 81 position-sensitive maps at stride 16
+#: of a 600 x 1000 image, 300 ROIs an image; YOLOv3 at 608 px, B = 8; a
+#: C4 RPN (15 anchors) at stride 16 of 800 x 1344; PP-YOLOE+'s 8400
+#: boxes at 640 px; PP-YOLOv2's DCN stage; a UNet up-sampling conv, a
+#: sequence conv, a C3D-size 3-d conv and its transpose; SegNet's pools
+DET_OPS = dict(
+    p2=(2, 256, 200, 336), rois=512, rois_held=64, rfcn=(2, 3969, 38, 63), rfcn_rois=300,
+    yolo_batch=8, rpn=(2, 15, 50, 84), matrix=(2, 8400),
+    dcn=(8, 512, 19),
+    convs=(("Conv2DTranspose 256->128 k2 s2 [4, 256, 64, 64]",
+            "Conv2DTranspose", dict(in_channels=256, out_channels=128,
+                                    kernel_size=2, stride=2),
+            (4, 256, 64, 64)),
+           ("Conv1D 256->256 k3 [8, 256, 1024]", "Conv1D",
+            dict(in_channels=256, out_channels=256, kernel_size=3,
+                 padding=1), (8, 256, 1024)),
+           ("Conv3D 64->64 k3 [2, 64, 16, 56, 56]", "Conv3D",
+            dict(in_channels=64, out_channels=64, kernel_size=3,
+                 padding=1), (2, 64, 16, 56, 56)),
+           ("Conv3DTranspose 64->32 k2 s2 [2, 64, 8, 28, 28]",
+            "Conv3DTranspose", dict(in_channels=64, out_channels=32,
+                                    kernel_size=2, stride=2),
+            (2, 64, 8, 28, 28))),
+    pool=(16, 64, 112, 112), pool3d=(2, 64, 15, 55, 55),
+    image=(8, 3, 224, 224), gelu=(64, 197, 3072))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -6408,6 +6799,9 @@ def main():
     elapsed("phase 17c")
     phase_zoo(device, limit)
     elapsed("eager loop and zoo")
+    phase_detection_eval(device, limit)
+    phase_detection_ops(device, limit)
+    elapsed("phase 18")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

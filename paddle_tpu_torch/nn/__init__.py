@@ -6,7 +6,8 @@ generator), ``RMSNorm``, ``LayerNorm``, ``GroupNorm``,
 ``InstanceNorm2D``, the transformer layers (``MultiHeadAttention`` with
 its decode caches, ``TransformerEncoderLayer``, ``TransformerEncoder``,
 ``TransformerDecoderLayer``, ``TransformerDecoder``, ``Transformer``),
-``Conv2D``, the pools, the batch norms, the activations ``Silu``,
+``Conv2D``, ``Conv1D``, ``Conv2DTranspose``, the N-d conv and pool
+layers (``layers_nd``), the pools, the batch norms, the activations ``Silu``,
 ``GELU``, ``Softmax``, ``ReLU6``, ``Hardswish``, ``Hardsigmoid`` and
 ``Swish``, ``Upsample``, gradient clipping (``ClipGradByValue``,
 ``ClipGradByNorm``, ``ClipGradByGlobalNorm``, ``clip_grad_norm_``), and
@@ -26,7 +27,14 @@ from .common import (  # noqa: F401
     GELU, Dropout, Embedding, Hardsigmoid, Hardswish, Linear, ReLU6, Silu,
     Softmax, Swish, Upsample,
 )
-from .conv import Conv2D  # noqa: F401
+from .conv import Conv1D, Conv2D, Conv2DTranspose  # noqa: F401
+from .layers_nd import (  # noqa: F401
+    AdaptiveAvgPool1D, AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+    AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D, AvgPool3D,
+    Conv1DTranspose, Conv3D, Conv3DTranspose, FractionalMaxPool2D,
+    FractionalMaxPool3D, LPPool1D, LPPool2D, MaxPool1D, MaxPool3D,
+    MaxUnPool1D, MaxUnPool2D, MaxUnPool3D,
+)
 from .norm import (  # noqa: F401
     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
     InstanceNorm2D, LayerNorm, RMSNorm, running_stats_frozen,

@@ -148,7 +148,8 @@ class Silu(nn.Module):
 
 
 class GELU(nn.Module):
-    """GELU (``F.gelu``); ``approximate=True`` is not ported yet."""
+    """GELU (``F.gelu``): the erf form, or the tanh form with
+    ``approximate=True``."""
 
     def __init__(self, approximate=False):
         super().__init__()

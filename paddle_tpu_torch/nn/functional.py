@@ -1,13 +1,19 @@
 """Functional ops of the port's layers.  Counterpart of
 ``paddle_tpu/nn/functional/__init__.py`` ``rms_norm``, ``layer_norm``,
-``dropout`` and ``scaled_dot_product_attention``, and for the vision
-path ``conv2d``, the pools, ``batch_norm`` (with ``_bn_running_update``),
-``cross_entropy``, ``binary_cross_entropy_with_logits``, ``relu``, and
-for the vision zoo ``relu6``, ``hardswish``, ``hardsigmoid`` and
-``swish``,
-and for the diffusion path ``group_norm``, ``interpolate`` /
-``upsample``, ``silu``, ``gelu`` and ``softmax``; the other ops of the language-model training paths are called from
-``ops.nn_ops`` directly.  Random draws take an explicit
+``dropout`` and ``scaled_dot_product_attention``; for the vision path
+``conv2d``, ``conv1d``, ``conv2d_transpose``, the N-d tail
+(``conv1d_transpose``, ``conv3d``, ``conv3d_transpose``, the 1-d and 3-d
+max / average pools, ``lp_pool1d`` / ``lp_pool2d``, the adaptive pools,
+``max_unpool1d`` / ``2d`` / ``3d``, ``fractional_max_pool2d`` / ``3d``:
+``ops/nn_ops_nd.py``), the 2-d pools (``ceil_mode``, ``exclusive``,
+``divisor_override``, ``return_mask``), ``batch_norm`` (with
+``_bn_running_update``), ``cross_entropy``,
+``binary_cross_entropy_with_logits``, ``relu``; for the vision zoo
+``relu6``, ``hardswish``, ``hardsigmoid`` and ``swish``; for the
+diffusion path ``group_norm``, ``interpolate`` / ``upsample`` (nearest,
+bilinear, bicubic), ``silu``, ``gelu`` (erf and tanh forms) and
+``softmax``.  The other ops of the language-model training paths are
+called from ``ops.nn_ops`` directly.  Random draws take an explicit
 ``torch.Generator``."""
 from __future__ import annotations
 
@@ -16,9 +22,7 @@ import torch
 from ..amp.state import amp_op, no_amp
 from ..core.flags import flag
 from ..ops import nn_ops
-
-_CEIL = ("ceil_mode / divisor_override are not ported yet (ROADMAP.md "
-         "Queue 1, item 4)")
+from ..ops import nn_ops_nd as nd
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -96,11 +100,8 @@ def silu(x):
 
 
 def gelu(x, approximate=False):
-    """GELU; only the exact erf form (``approximate=False``) is ported."""
-    if approximate:
-        raise NotImplementedError(
-            "gelu(approximate=True) is not ported yet (ROADMAP.md Queue 1)")
-    return nn_ops.gelu(x)
+    """GELU: the erf form, or the tanh form with ``approximate``."""
+    return nn_ops.gelu(x, bool(approximate))
 
 
 def softmax(x, axis=-1):
@@ -151,21 +152,254 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     return out
 
 
-def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               data_format="NCHW"):
-    """``ops.nn_ops.max_pool2d`` (stride defaults to the kernel size)."""
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    """``ops.nn_ops.conv1d`` (int stride, dilation, and padding or the
+    first of a sequence, as the reference takes them) plus the bias as
+    ``(1, -1, 1)``."""
+    if isinstance(padding, (list, tuple)):
+        padding = padding[0]
+    out = nn_ops.conv1d(x, weight, int(stride), int(padding), int(dilation),
+                        int(groups))
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1)
+    return out
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCHW"):
+    """``ops.nn_ops.conv2d_transpose`` plus the bias; ``output_size`` is
+    ignored, as the reference ignores it."""
+    out = nn_ops.conv2d_transpose(x, weight, stride, padding,
+                                  output_padding, dilation, groups,
+                                  data_format)
+    if bias is not None:
+        shape = (1, -1, 1, 1) if data_format == "NCHW" else (1, 1, 1, -1)
+        out = out + bias.reshape(shape)
+    return out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL"):
+    out = nd.conv1d_transpose(x, weight, int(stride), int(padding),
+                              int(output_padding), int(dilation),
+                              int(groups))
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1)
+    return out
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1,
+           groups=1, data_format="NCDHW"):
+    out = nd.conv3d(x, weight, stride, padding, dilation, int(groups))
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1, 1)
+    return out
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW"):
+    out = nd.conv3d_transpose(x, weight, stride, padding, output_padding,
+                              dilation, int(groups))
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1, 1)
+    return out
+
+
+def _nchw(fn, x, *args):
+    """``fn`` of an NHWC x, computed in NCHW and moved back (each output
+    of a tuple)."""
+    out = fn(x.permute(0, 3, 1, 2), *args)
+    if isinstance(out, tuple):
+        return tuple(o.permute(0, 2, 3, 1) for o in out)
+    return out.permute(0, 2, 3, 1)
+
+
+def _no_mask_with_ceil(name, ceil_mode):
     if ceil_mode:
-        raise NotImplementedError(_CEIL)
+        raise NotImplementedError(
+            f"{name}(return_mask=True) does not support ceil_mode")
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    """``ops.nn_ops.max_pool2d`` (stride defaults to the kernel size).
+    ``ceil_mode`` is ignored, as the reference's ``max_pool2d_op``
+    ignores it (the output size is the floor one).  ``return_mask``:
+    (values, int64 flat indices) from ``max_pool_with_index``, and with
+    ``ceil_mode`` it raises, as the reference does."""
+    stride = kernel_size if stride is None else stride
+    if return_mask:
+        _no_mask_with_ceil("max_pool2d", ceil_mode)
+        if data_format == "NHWC":
+            return _nchw(max_pool2d, x, kernel_size, stride, padding,
+                         False, True)
+        return nd.max_pool_with_index(x, nn_ops._pair(kernel_size),
+                                      nn_ops._pair(stride),
+                                      nn_ops._pair(padding))
     return nn_ops.max_pool2d(x, kernel_size, stride, padding, data_format)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW"):
-    """``ops.nn_ops.avg_pool2d`` (stride defaults to the kernel size)."""
+    """``ops.nn_ops.avg_pool2d`` (stride defaults to the kernel size);
+    with ``ceil_mode`` or ``divisor_override`` the generic pool
+    (``nn_ops_nd.avg_pool2d_g``), as the reference routes them."""
+    stride = kernel_size if stride is None else stride
     if ceil_mode or divisor_override is not None:
-        raise NotImplementedError(_CEIL)
+        if data_format == "NHWC":
+            return _nchw(avg_pool2d, x, kernel_size, stride, padding,
+                         ceil_mode, exclusive, divisor_override)
+        return nd.avg_pool2d_g(
+            x, nn_ops._pair(kernel_size), nn_ops._pair(stride),
+            nn_ops._pair(padding), bool(ceil_mode), bool(exclusive),
+            None if divisor_override is None else float(divisor_override))
     return nn_ops.avg_pool2d(x, kernel_size, stride, padding, exclusive,
                              data_format)
+
+
+def _pool_args(kernel_size, stride, padding, n):
+    stride = kernel_size if stride is None else stride
+    return (nd._tup(kernel_size, n), nd._tup(stride, n),
+            nd._tup(padding, n))
+
+
+def _max_pool(n, x, kernel_size, stride, padding, return_mask, ceil_mode):
+    k, s, p = _pool_args(kernel_size, stride, padding, n)
+    if return_mask:
+        _no_mask_with_ceil(f"max_pool{n}d", ceil_mode)
+        return nd.max_pool_with_index(x, k, s, p)
+    pool = nd.max_pool1d if n == 1 else nd.max_pool3d
+    return pool(x, k, s, p, bool(ceil_mode))
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False):
+    return _max_pool(1, x, kernel_size, stride, padding, return_mask,
+                     ceil_mode)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCDHW"):
+    return _max_pool(3, x, kernel_size, stride, padding, return_mask,
+                     ceil_mode)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False):
+    k, s, p = _pool_args(kernel_size, stride, padding, 1)
+    return nd.avg_pool1d(x, k, s, p, bool(ceil_mode), bool(exclusive))
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW"):
+    k, s, p = _pool_args(kernel_size, stride, padding, 3)
+    return nd.avg_pool3d(
+        x, k, s, p, bool(ceil_mode), bool(exclusive),
+        None if divisor_override is None else float(divisor_override))
+
+
+def lp_pool1d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False):
+    """``ceil_mode`` is ignored, as the reference ignores it."""
+    k, s, p = _pool_args(kernel_size, stride, padding, 1)
+    return nd.lp_pool1d(x, k, s, p, float(norm_type))
+
+
+def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False, data_format="NCHW"):
+    """``ceil_mode`` is ignored, as the reference ignores it."""
+    k, s, p = _pool_args(kernel_size, stride, padding, 2)
+    return nd.lp_pool2d(x, k, s, p, float(norm_type))
+
+
+def adaptive_avg_pool1d(x, output_size):
+    return nd.adaptive_avg_pool1d(x, output_size)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+    return nd.adaptive_avg_pool3d(x, output_size)
+
+
+def _adaptive_max(x, output_size, n, return_mask):
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask with adaptive max pooling is not supported; "
+            "use max_poolNd(return_mask=True) with explicit kernels")
+    return {1: nd.adaptive_max_pool1d, 2: nd.adaptive_max_pool2d,
+            3: nd.adaptive_max_pool3d}[n](x, output_size)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False):
+    return _adaptive_max(x, output_size, 1, return_mask)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    return _adaptive_max(x, output_size, 2, return_mask)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False):
+    return _adaptive_max(x, output_size, 3, return_mask)
+
+
+def _max_unpool(x, indices, n, kernel_size, stride=None, padding=0,
+                output_size=None):
+    k, s, p = _pool_args(kernel_size, stride, padding, n)
+    if output_size is None:
+        out_spatial = tuple((x.shape[2 + i] - 1) * s[i] - 2 * p[i] + k[i]
+                            for i in range(n))
+    else:
+        out_spatial = tuple(int(v) for v in output_size[-n:])
+    return nd.max_unpool(x, indices, out_spatial)
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None):
+    return _max_unpool(x, indices, 1, kernel_size, stride, padding,
+                       output_size)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None):
+    return _max_unpool(x, indices, 2, kernel_size, stride, padding,
+                       output_size)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None):
+    return _max_unpool(x, indices, 3, kernel_size, stride, padding,
+                       output_size)
+
+
+def _fractional(x, n, output_size, random_u, return_mask, generator):
+    if return_mask:
+        raise NotImplementedError(
+            f"fractional_max_pool{n}d(return_mask=True) is not supported")
+    if random_u is None:
+        if generator is None:
+            raise ValueError(
+                f"fractional_max_pool{n}d draws random_u: pass random_u or "
+                "an explicit generator (a torch.Generator)")
+        random_u = float(torch.rand((), generator=generator,
+                                    device=generator.device))
+    return nd.fractional_max_pool(x, nd._tup(output_size, n),
+                                  (float(random_u),) * n)
+
+
+def fractional_max_pool2d(x, output_size, kernel_size=None, random_u=None,
+                          return_mask=False, generator=None):
+    """Regions from ``random_u``, or from one U(0, 1) draw of
+    ``generator`` when it is None (the reference draws from its global
+    key)."""
+    return _fractional(x, 2, output_size, random_u, return_mask, generator)
+
+
+def fractional_max_pool3d(x, output_size, kernel_size=None, random_u=None,
+                          return_mask=False, generator=None):
+    return _fractional(x, 3, output_size, random_u, return_mask, generator)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):

@@ -30,6 +30,7 @@ here, with the reference's rounding points and dtype promotion.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -132,10 +133,13 @@ def swiglu(x, y=None):
 
 
 @amp_op("gelu")
-def gelu(x):
-    """GELU in its exact erf form (``ops.gelu``'s default,
-    ``approximate=False``, which BERT uses), in x's dtype."""
-    return torch.nn.functional.gelu(x)
+def gelu(x, approximate=False):
+    """GELU in x's dtype: the exact erf form (``ops.gelu``'s default,
+    ``approximate=False``, which BERT uses), or with ``approximate`` the
+    tanh form ``0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))``
+    (``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
+                                    else "none")
 
 
 @amp_op("silu")
@@ -190,6 +194,52 @@ def group_norm(x, weight=None, bias=None, epsilon=1e-5, groups=32,
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _cubic_weights(n_in, n_out, antialias, device="cpu"):
+    """``jax.image.resize``'s weight matrix ``[n_in, n_out]`` for one axis
+    (``compute_weight_mat`` with scale ``n_out / n_in``, no translation),
+    in fp32 as it is computed there: the sample point of output pixel i
+    is ``(i + 0.5) / scale - 0.5``; the Keys cubic (a = -0.5) of the
+    distance to each input pixel, widened by ``1 / scale`` when it
+    shrinks and ``antialias``; taps outside the image are absent and
+    each column is renormalised to sum to 1 (so an edge pixel's missing
+    taps are dropped, where torch's bicubic clamps the index and its
+    a = -0.75).  Built on the CPU, so that every device gets the same
+    bits, and kept per (sizes, device): the result is read only."""
+    scale = torch.tensor(n_out / n_in, dtype=torch.float32)
+    inv = 1.0 / scale
+    kscale = torch.clamp(inv, min=1.0) if antialias else 1.0
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+         ).abs() / kscale
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = torch.where(x >= 2.0, torch.zeros(()), w)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(
+        torch.float32).eps), w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0).to(device)
+
+
+def cubic_resize(x, size, antialias=True):
+    """``jax.image.resize(method="cubic")`` of an NCHW ``x`` to spatial
+    ``size``: one weight matrix per axis whose size changes
+    (:func:`_cubic_weights`),
+    applied as two matmuls.  A bf16 (or fp16) x is resized in fp32 and
+    rounded once."""
+    dt = x.dtype
+    out = x.float()
+    for axis, n_out in ((2, int(size[0])), (3, int(size[1]))):
+        n_in = out.shape[axis]
+        if n_in == n_out:
+            continue
+        w = _cubic_weights(n_in, n_out, bool(antialias), str(out.device))
+        out = torch.movedim(torch.matmul(torch.movedim(out, axis, -1), w),
+                            -1, axis)
+    return out.to(dt)
+
+
 @amp_op("interpolate")
 def interpolate(x, size, mode="nearest", data_format="NCHW"):
     """``_interp_plain`` (``jax.image.resize``) to spatial ``size`` (h, w).
@@ -201,20 +251,18 @@ def interpolate(x, size, mode="nearest", data_format="NCHW"):
     ``align_corners`` says (the reference ignores it, and so does this),
     and a triangle filter widened by the scale when it shrinks, which is
     torch's ``bilinear`` with ``antialias=True``; a bf16 input is resized
-    in fp32 and rounded once.  ``"bicubic"`` raises: the reference's cubic
-    is Keys' with a = -0.5 and torch's a = -0.75 (ROADMAP.md Queue 1)."""
-    if mode == "bicubic":
-        raise NotImplementedError(
-            "bicubic interpolate is not ported yet: jax.image.resize's "
-            "cubic (Keys, a = -0.5) is not torch's (a = -0.75); ROADMAP.md "
-            "Queue 1")
-    if mode not in ("nearest", "bilinear"):
+    in fp32 and rounded once.  ``"bicubic"`` is ``jax.image.resize``'s
+    ``"cubic"`` (:func:`cubic_resize`: Keys' a = -0.5, antialiased when
+    it shrinks, taps renormalised at the edges), not torch's bicubic."""
+    if mode not in ("nearest", "bilinear", "bicubic"):
         raise ValueError(f"unknown interpolate mode {mode!r}")
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
     size = tuple(int(s) for s in size)
     if mode == "nearest":
         out = F.interpolate(x, size=size, mode="nearest-exact")
+    elif mode == "bicubic":
+        out = cubic_resize(x, size)
     else:
         out = F.interpolate(x.float(), size=size, mode="bilinear",
                             align_corners=False, antialias=True).to(x.dtype)
@@ -494,31 +542,40 @@ def _fp32_conv(x):
         torch.backends.cudnn.allow_tf32 = True
 
 
-class _Conv2d(torch.autograd.Function):
-    """The library's 2-D convolution (cuDNN on the card) with its
-    backward under the same TF32 rule as its forward.  With the
-    library's defaults (no ``benchmark``, no ``deterministic``) the
-    algorithms cuDNN picked for ResNet-50's forward, dgrad and wgrad gave
-    the same bits run to run on the H100 (chip_smoke 12c), so no
-    convolution of the port's own is needed for repeatable steps."""
+class _Conv(torch.autograd.Function):
+    """The library's convolution (cuDNN on the card), plain or transposed,
+    in 1, 2 or 3 spatial dimensions, with its backward under the same
+    TF32 rule as its forward.  With the library's defaults (no
+    ``benchmark``, no ``deterministic``) the algorithms cuDNN picked for
+    ResNet-50's forward, dgrad and wgrad gave the same bits run to run on
+    the H100 (chip_smoke 12c), so no convolution of the port's own is
+    needed for repeatable steps."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
+    def forward(ctx, x, w, stride, padding, dilation, groups,
+                transposed=False, output_padding=None):
+        output_padding = output_padding or (0,) * len(stride)
         ctx.save_for_backward(x, w)
-        ctx.cfg = (stride, padding, dilation, groups)
+        ctx.cfg = (stride, padding, dilation, transposed, output_padding,
+                   groups)
         with _fp32_conv(x):
-            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+            return torch.ops.aten.convolution(
+                x, w, None, stride, padding, dilation, transposed,
+                output_padding, groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        stride, padding, dilation, groups = ctx.cfg
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
         with _fp32_conv(x):
             dx, dw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, stride, padding, dilation, False, [0, 0],
-                groups, mask)
-        return dx, dw, None, None, None, None
+                g, x, w, None, *ctx.cfg, mask)
+        return dx, dw, None, None, None, None, None, None
+
+
+class _Conv2d(_Conv):
+    """The 2-D convolution of ``conv2d`` (its own class, so that profiles
+    name its backward ``_Conv2dBackward``)."""
 
 
 def _same_pads(size, k, stride, dilation):
@@ -558,6 +615,34 @@ def conv2d(x, weight, stride=1, padding=0, dilation=1, groups=1,
     else:
         padding = _pair(padding)
     out = _Conv2d.apply(x, w, stride, padding, dilation, int(groups))
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+@amp_op("conv1d")
+def conv1d(x, weight, stride=1, padding=0, dilation=1, groups=1):
+    """``_conv1d_plain``: ``[N, C, L]`` by an OIL weight ``[out, in /
+    groups, k]`` cast to x's dtype; int stride, padding (both sides) and
+    dilation."""
+    return _Conv.apply(x, weight.to(x.dtype), (int(stride),),
+                       (int(padding),), (int(dilation),), int(groups))
+
+
+@amp_op("conv2d_transpose")
+def conv2d_transpose(x, weight, stride=1, padding=0, output_padding=0,
+                     dilation=1, groups=1, data_format="NCHW"):
+    """``_conv2d_transpose_plain``: the gradient of a convolution (XLA's
+    lhs-dilated convolution over the mirrored kernel is the library's
+    transposed convolution), output ``(H - 1) * stride - 2 * padding +
+    dilation * (k - 1) + output_padding + 1``.  NCHW takes an IOHW weight
+    ``[in, out / groups, kh, kw]``; NHWC, as in the reference, an HWIO
+    one."""
+    w = weight.to(x.dtype)
+    if data_format == "NHWC":
+        x, w = x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1)
+    elif data_format != "NCHW":
+        raise ValueError(f"unknown data_format {data_format!r}")
+    out = _Conv.apply(x, w, _pair(stride), _pair(padding), _pair(dilation),
+                      int(groups), True, _pair(output_padding))
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 

@@ -22,8 +22,9 @@ reference's (a skipped update is 1 off, one off by a factor k is
 convolutions round their sums differently), config 4 within 1e-3 fp32
 and 0.1 at O2 (measured 3.3e-6, 1.3e-2).  Config 4's loop runs without AMP and at O2 (its
 reference at O1 refuses the detector's backward: a bf16 cotangent
-meets an fp32 output in its VJP).  Counterparts of ``tests/test_detection_amp.py:37-74``
-close the file (the nms eval test waits for ``vision/ops.py``).
+meets an fp32 output in its VJP).  Counterparts of ``tests/test_detection_amp.py:37-104``
+close the file; the nms eval test's kept indices equal the reference's
+exactly.
 """
 import sys
 from pathlib import Path
@@ -32,10 +33,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
+from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.vision import models as jmodels
 from paddle_tpu_torch import amp as pamp
 from paddle_tpu_torch import io as pio
@@ -258,3 +261,44 @@ def test_detection_amp_o2_bf16_compute():
     with pamp.auto_cast(level="O2"):
         f = net.backbone(x)
     assert f.dtype == torch.bfloat16
+
+
+def test_detection_eval_nms_pipeline():
+    """Head output -> boxes (cell centre +- |offset|) -> nms, as
+    ``tests/test_detection_amp.py:75-104``: the reference's detector and
+    its weights in the port, the same input; the kept indices equal the
+    reference's nms on the reference's boxes, in descending score
+    order."""
+    from paddle_tpu.vision import ops as jops
+    from paddle_tpu_torch.vision import ops as pops
+
+    paddle.seed(1)
+    jm = TinyDetector()
+    jm.eval()
+    pm = PortTinyDetector()
+    load_numpy_state(pm, _state(jm))
+    pm.eval()
+    x = np.random.RandomState(2).randn(1, 3, 32, 32).astype("float32")
+
+    def decode(box_off, cls):
+        ys, xs = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+        centers = np.stack([xs, ys, xs, ys], 0)[None] * 4.0 + 2.0
+        off = np.abs(box_off)
+        boxes = np.concatenate([centers[:, :2] - off[:, :2] - 1.0,
+                                centers[:, 2:] + off[:, 2:] + 1.0], 1)
+        return (boxes.reshape(4, -1).T.astype("float32"),
+                cls.max(1).reshape(-1).astype("float32"))
+    jb, jc = jax.jit(lambda v: [t._data for t in jm(Tensor(v))])(x)
+    with torch.no_grad():
+        pb, pc = pm(torch.from_numpy(x))
+    jboxes, jscores = decode(_np(jb), _np(jc))
+    boxes, scores = decode(pb.numpy(), pc.numpy())
+    np.testing.assert_allclose(boxes, jboxes, rtol=0, atol=1e-5 * max(
+        1.0, np.abs(jboxes).max()))
+    keep = pops.nms(torch.from_numpy(jboxes), iou_threshold=0.5,
+                    scores=torch.from_numpy(jscores)).numpy()
+    want = _np(jops.nms(paddle.to_tensor(jboxes), iou_threshold=0.5,
+                        scores=paddle.to_tensor(jscores)))
+    np.testing.assert_array_equal(keep, want)
+    assert keep.ndim == 1 and len(keep) >= 1
+    assert (np.diff(scores[keep]) <= 1e-6).all()

@@ -4,8 +4,8 @@
 embeddings): the JAX model's state dict goes through numpy into the
 port's ``LlamaForCausalLM`` (``load_numpy_state``), and both run on the
 CPU on the same seeded token ids.  The JAX side is taken as its train
-step traces it (``jax.value_and_grad`` of ``CompiledTrainStep.loss_of``,
-x64 off), with ``FLAGS_use_fused_rms_norm`` on in both packages where a
+step traces it (``jax.value_and_grad`` of ``CompiledTrainStep.loss_of``
+under ``jax.jit``, x64 off), with ``FLAGS_use_fused_rms_norm`` on in both packages where a
 test says so.
 
 Tolerances: fp32 loss rtol 1e-5, gradients atol 1e-4 (fp32 on both
@@ -106,7 +106,7 @@ def test_load_numpy_state_round_trips_names():
 def _jax_loss_and_grads(jmodel, ids, labels, compute_dtype=None):
     step = JaxTrainStep(jmodel, donate=False, compute_dtype=compute_dtype)
     with jax.enable_x64(False):
-        loss, grads = jax.value_and_grad(step.loss_of)(
+        loss, grads = jax.jit(jax.value_and_grad(step.loss_of))(
             step.params, jnp.asarray(ids), jnp.asarray(labels))
     return float(loss), {k: _np(g) for k, g in grads.items()}
 

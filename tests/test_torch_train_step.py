@@ -376,7 +376,7 @@ def test_policy_equals_full_and_jax(policy):
     assert all(torch.equal(grads[k], full[k]) for k in full)
     jstep = JaxTrainStep(jmodel, donate=False)
     with jax.enable_x64(False):
-        jl, jg = jax.value_and_grad(jstep.loss_of)(
+        jl, jg = jax.jit(jax.value_and_grad(jstep.loss_of))(
             jstep.params, jnp.asarray(ids), jnp.asarray(labels))
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     for k in jg:

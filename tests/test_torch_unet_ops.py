@@ -1,6 +1,6 @@
 """The diffusion path's ops and layers of the PyTorch port against
-``paddle_tpu``: GroupNorm, interpolate, softmax, SiLU, GELU, the Linear
-dtype promotion and the timestep embedding.
+``paddle_tpu``: GroupNorm, interpolate, softmax, SiLU, GELU (erf and
+tanh), the Linear dtype promotion and the timestep embedding.
 
 The same seeded numpy inputs go through the JAX op (``paddle_tpu/ops/
 nn_ops.py``'s plain functions, or the ``nn.functional`` wrappers with the
@@ -16,6 +16,7 @@ Tolerances:
   rounding boundary can round the other way;
 - interpolate nearest: bit for bit (an index rule); bilinear, with the
   reference's antialiasing when it shrinks: atol 1e-6 (values of order 1);
+  bicubic: atol 1e-5 of the largest magnitude;
 - the Linear promotion: an fp32 x times a bf16 weight equals the fp32
   product of the bf16-rounded weight exactly; with equal dtypes the
   output is ``torch.matmul``'s, bit for bit;
@@ -177,7 +178,13 @@ def test_interpolate_bilinear(src, dst):
 
 def test_interpolate_scale_factor_upsample_and_bicubic():
     """The size rule ``int(h * scale_factor)``, the ``Upsample`` layer
-    and ``upsample``; bicubic refuses (another cubic than torch's)."""
+    and ``upsample``; bicubic is ``jax.image.resize``'s cubic (Keys'
+    a = -0.5, taps renormalised at the edges), up and down, antialiased
+    when it shrinks (``F.interpolate``) and not (``cubic_resize`` against
+    ``jax.image.resize(antialias=False)``), and NHWC; within atol 1e-5 of
+    the largest magnitude."""
+    import jax
+
     x = np.random.RandomState(3).randn(1, 2, 3, 5).astype(np.float32)
     want = _np(JF.interpolate(_jt(x), scale_factor=1.5))
     got = PF.upsample(torch.from_numpy(x), scale_factor=1.5)
@@ -185,8 +192,17 @@ def test_interpolate_scale_factor_upsample_and_bicubic():
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         pnn.Upsample(scale_factor=1.5)(torch.from_numpy(x)).numpy(), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PF.interpolate(torch.from_numpy(x), size=(6, 10), mode="bicubic")
+    big = np.random.RandomState(4).randn(2, 3, 11, 9).astype(np.float32)
+    for a, size, fmt in ((x, (6, 10), "NCHW"), (big, (4, 5), "NCHW"),
+                         (big.transpose(0, 2, 3, 1), (7, 13), "NHWC")):
+        _close(PF.interpolate(torch.from_numpy(a), size=size,
+                              mode="bicubic", data_format=fmt),
+               JF.interpolate(_jt(a), size=size, mode="bicubic",
+                              data_format=fmt))
+    _close(nn_ops.cubic_resize(torch.from_numpy(big), (4, 12),
+                               antialias=False),
+           jax.image.resize(big, (2, 3, 4, 12), method="cubic",
+                            antialias=False))
 
 
 # -- softmax, SiLU, GELU ------------------------------------------------------
@@ -221,9 +237,14 @@ def test_activation_layers_and_grads(act):
     yt.backward(torch.from_numpy(g))
     _close(yt, yj)
     _close(xt.grad, xj.grad)
-    if act == "gelu":
-        with pytest.raises(NotImplementedError):
-            pnn.GELU(approximate=True)(xt)
+    if act == "gelu":           # the tanh form, as jax.nn.gelu's
+        xj, xt = _jt(x, True), torch.from_numpy(x).requires_grad_(True)
+        yj = jnn.GELU(approximate=True)(xj)
+        paddle.sum(yj * _jt(g)).backward()
+        yt = pnn.GELU(approximate=True)(xt)
+        yt.backward(torch.from_numpy(g))
+        _close(yt, yj)
+        _close(xt.grad, xj.grad)
 
 
 # -- Linear's dtype promotion ---------------------------------------------------
