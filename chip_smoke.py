@@ -460,6 +460,25 @@ result):
              ceil-mode pools, bicubic interpolate up and down and
              gelu(approximate=True).  None of the eleven kernels
              launches in 18.
+19. op namespace — ``import paddle_tpu_torch as paddle``'s flat op
+             families (PR 21): (a) every op of the CPU tests' tables
+             (math, activation, in-place, reduction, manipulation,
+             creation) on the card and on the CPU from the same seeded
+             numpy inputs, fp32 and bf16: dtypes and shapes equal,
+             integers and bools exactly, floats within the CPU tests'
+             tolerances (2e-6 fp32, 1.6e-2 bf16, of the largest value),
+             and every differentiable fp32 op's gradients through
+             autograd on both; (b) draws repeat under ``seed`` and under
+             ``set_rng_state``, and the moments of rand, randn and
+             randint at 2^20 samples fall within 6 standard errors; (c)
+             ``paddle.save`` of CUDA tensors in fp32, bf16 and int64,
+             ``paddle.load`` back bit for bit; (d) a user's MLP script
+             written with ``paddle.*`` names only (to_tensor,
+             create_parameter, matmul, tanh, mean, subtract_, seed) takes
+             50 steps on the card and on the CPU: the loss falls, the
+             card's losses equal the CPU's within rtol 1e-4, and the
+             steps' wall time is printed; (e) a tensor made with no place
+             lies on cuda:0.  None of the eleven kernels launches in 19.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -2175,6 +2194,7 @@ def phase_features(device, phase4, cfg=None, dtype=torch.bfloat16,
             f"{ttft('on', 'ttft_ms_p99')} ms at hit rate "
             f"{st_on['prefix_hit_rate']}; prefill tokens "
             f"{st_off['prefill_tokens']} -> {st_on['prefill_tokens']}")
+    t_ev = time.perf_counter()
     _, eng, ev, st_ev = leg("4f-prefix-evict", prefix_load,
                             prefix_cache=True, num_pages=evict_pages)
     if st_ev["evicted_pages"] <= 0:
@@ -2184,6 +2204,7 @@ def phase_features(device, phase4, cfg=None, dtype=torch.bfloat16,
                       f"vs the full pool, prefix on")
     del eng
     _empty(device)
+    log(f"[4f-prefix-evict] leg {time.perf_counter() - t_ev:.1f} s")
 
     # (b) speculative decode
     verify_launches = {}
@@ -6624,6 +6645,382 @@ DET_OPS = dict(
     image=(8, 3, 224, 224), gelu=(64, 197, 3072))
 
 
+# -- phase 19: the op namespace ---------------------------------------------
+
+#: 19a's ops: (name, arguments after the tensor ones, number of tensor
+#: arguments, input range, differentiable).  The inputs are seeded numpy
+#: arrays of NS_SHAPE, the same on both devices.
+NS_SHAPE = (6, 8, 4)
+NS_UNARY = [
+    ("exp", 1), ("expm1", 1), ("log", 2), ("log2", 2), ("log10", 2),
+    ("log1p", 2), ("sqrt", 2), ("rsqrt", 2), ("square", 1), ("abs", 1),
+    ("neg", 1), ("sign", 0), ("floor", 0), ("ceil", 0), ("trunc", 0),
+    ("frac", 1), ("reciprocal", 2), ("sin", 1), ("cos", 1), ("tan", 1),
+    ("asin", 3), ("acos", 3), ("atan", 1), ("sinh", 1), ("cosh", 1),
+    ("asinh", 1), ("atanh", 3), ("erf", 1), ("erfinv", 3), ("lgamma", 2),
+    ("digamma", 2), ("i0", 1), ("isnan", 0), ("isinf", 0),
+    ("isfinite", 0), ("logical_not", 0), ("tanh", 1), ("sigmoid", 1),
+    ("relu", 1), ("relu6", 1), ("silu", 1), ("gelu", 1),
+    ("leaky_relu", 1), ("elu", 1), ("selu", 1), ("celu", 1),
+    ("softplus", 1), ("softsign", 1), ("hardtanh", 1),
+    ("hardsigmoid", 1), ("hardswish", 1), ("mish", 1), ("tanhshrink", 1),
+    ("softshrink", 1), ("hardshrink", 1), ("thresholded_relu", 1),
+    ("log_sigmoid", 1), ("stanh", 1), ("nan_to_num", 0), ("softmax", 1),
+    ("log_softmax", 1)]
+NS_BINARY = ["add", "subtract", "multiply", "divide", "pow", "maximum",
+             "minimum", "remainder", "floor_divide", "fmax", "fmin",
+             "logaddexp", "atan2", "equal", "not_equal", "greater_than",
+             "greater_equal", "less_than", "less_equal", "isclose"]
+NS_INT_BINARY = ["add", "multiply", "floor_divide", "remainder", "gcd",
+                 "lcm", "bitwise_and", "bitwise_or", "bitwise_xor",
+                 "left_shift", "right_shift", "maximum", "divide"]
+
+
+def _ns_cases(P, rng):
+    """{name: (fn, numpy inputs, differentiable)} of 19a, from the
+    package ``P`` (the port)."""
+    shape = NS_SHAPE
+    ranges = {0: (-3.0, 3.0), 1: (-2.0, 2.0), 2: (0.2, 3.0),
+              3: (-0.9, 0.9)}
+
+    def arr(lo, hi, sh=shape):
+        return rng.uniform(lo, hi, sh).astype(np.float32)
+
+    x, y = arr(-2, 2), arr(0.5, 2)
+    xi = rng.integers(-5, 9, shape).astype(np.int32)
+    yi = rng.integers(1, 6, shape).astype(np.int64)
+    xb = rng.random(shape) > 0.5
+    idx = np.array([3, 0, 3, 5], np.int64)
+    cases = {}
+    for op, r in NS_UNARY:
+        cases[op] = (getattr(P, op), [arr(*ranges[r])], r > 0)
+    for op in ("abs", "neg", "square", "sqrt", "exp", "floor",
+               "bitwise_not", "sign"):
+        cases[f"{op}[i32]"] = (getattr(P, op), [xi], False)
+    for op in NS_BINARY:
+        cases[op] = (getattr(P, op), [x, y], op not in (
+            "remainder", "floor_divide", "fmax", "fmin", "equal",
+            "not_equal", "greater_than", "greater_equal", "less_than",
+            "less_equal", "isclose"))
+        cases[f"{op}[bcast]"] = (getattr(P, op), [x, y[:1, :, :1]], False)
+    for op in NS_INT_BINARY:
+        cases[f"{op}[i32_i64]"] = (getattr(P, op), [np.abs(xi) % 7, yi],
+                                   False)
+    for op in ("add", "multiply", "divide", "less_than"):
+        cases[f"{op}[i32_pyfloat]"] = (
+            lambda a, op=op: getattr(P, op)(a, 2.5), [xi], False)
+        cases[f"{op}[f32_npf64]"] = (
+            lambda a, op=op: getattr(P, op)(a, np.float64(1.5)), [x], False)
+    for op in ("logical_and", "logical_or", "logical_xor"):
+        cases[op] = (getattr(P, op), [xb, ~xb], False)
+    cases["clip"] = (lambda a: P.clip(a, -0.5, 0.7), [x], True)
+    cases["scale"] = (lambda a: P.scale(a, 2.0, 0.5), [x], True)
+    cases["lerp"] = (P.lerp, [x, y, arr(0, 1)], True)
+    for op in ("sum", "mean", "max", "min", "amax", "amin", "prod",
+               "logsumexp", "nansum", "nanmean", "median", "var", "std",
+               "quantile"):
+        extra = (0.3,) if op == "quantile" else ()
+        cases[f"{op}[all]"] = (lambda a, op=op, e=extra: getattr(P, op)(
+            a, *e), [x], True)
+        cases[f"{op}[axis]"] = (lambda a, op=op, e=extra: getattr(P, op)(
+            a, *e, axis=2), [x], True)
+        if op not in ("prod", "quantile"):
+            cases[f"{op}[keep]"] = (lambda a, op=op: getattr(P, op)(
+                a, axis=[0, 2], keepdim=True), [x], True)
+    for op in ("sum", "mean", "max", "prod", "median", "var"):
+        cases[f"{op}[i32]"] = (lambda a, op=op: getattr(P, op)(a, axis=1),
+                               [xi], False)
+    for op in ("any", "all"):
+        cases[op] = (lambda a, op=op: getattr(P, op)(a, axis=1), [xb], False)
+    for op in ("argmax", "argmin", "cumsum", "cumprod", "cummax", "cummin"):
+        cases[op] = (lambda a, op=op: getattr(P, op)(a, 1), [x],
+                     op in ("cumsum", "cumprod"))
+        cases[f"{op}[flat]"] = (getattr(P, op), [xi], False)
+    cases["count_nonzero"] = (lambda a: P.count_nonzero(a, 1), [xi], False)
+    cases["numel"] = (P.numel, [x], False)
+    manip = {
+        "cast": lambda a: P.cast(a, "int32"),
+        "reshape": lambda a: P.reshape(a, [4, -1]),
+        "transpose": lambda a: P.transpose(a, [2, 0, 1]),
+        "t": lambda a: P.t(a[0]),
+        "squeeze": lambda a: P.squeeze(a[:, :1], 1),
+        "unsqueeze": lambda a: P.unsqueeze(a, [0, -1]),
+        "flatten": lambda a: P.flatten(a, 1, 2),
+        "expand": lambda a: P.expand(a[:, :1], [2, 6, 8, 4]),
+        "tile": lambda a: P.tile(a, [2, 1, 1]),
+        "concat": lambda a: P.concat([a, a[:, :2]], 1),
+        "stack": lambda a: P.stack([a, a], 2),
+        "split": lambda a: P.split(a, [2, -1, 3], 1),
+        "chunk": lambda a: P.chunk(a, 2, 2),
+        "unstack": lambda a: P.unstack(a, 0),
+        "flip": lambda a: P.flip(a, [0, 2]),
+        "roll": lambda a: P.roll(a, [1, -2], [0, 2]),
+        "pad": lambda a: P.pad(a, [1, 2], "constant", 0.5),
+        "pad[reflect]": lambda a: P.pad(a, [2, 1], "reflect"),
+        "gather": lambda a: P.gather(a, P.to_tensor(idx, place=a.device),
+                                     1),
+        "take_along_axis": lambda a: P.take_along_axis(
+            a, P.to_tensor(np.arange(8).reshape(1, 8, 1) % 3,
+                           place=a.device), 2),
+        "put_along_axis": lambda a: P.put_along_axis(
+            a, P.to_tensor(np.arange(8).reshape(1, 8, 1) % 3,
+                           place=a.device), 9.0, 2),
+        "scatter": lambda a: P.scatter(
+            a[:, :, 0], P.to_tensor(np.array([4, 1]), place=a.device),
+            a[:2, :, 1]),
+        "scatter_nd_add": lambda a: P.scatter_nd_add(
+            a, P.to_tensor(np.array([[0, 1], [2, 3]]), place=a.device),
+            a[0, :2]),
+        "gather_nd": lambda a: P.gather_nd(
+            a, P.to_tensor(np.array([[0, 1], [2, 3]]), place=a.device)),
+        "where": lambda a: P.where(a > 0, a, -2 * a),
+        "masked_fill": lambda a: P.masked_fill(a, a > 0, 2.0),
+        "masked_select": lambda a: P.masked_select(a, a > 0.5),
+        "topk": lambda a: P.topk(a, 2),
+        "sort": lambda a: P.sort(a, 1, True),
+        "argsort": lambda a: P.argsort(a, 1),
+        "unique": lambda a: P.unique(P.cast(a * 2, "int64"),
+                                     return_counts=True),
+        "nonzero": lambda a: P.nonzero(a > 1),
+        "tril": lambda a: P.tril(a, -1),
+        "triu": lambda a: P.triu(a[0], 1),
+        "diagonal": lambda a: P.diagonal(a, 0, 1, 2),
+        "diag": lambda a: P.diag(a[0, 0]),
+        "repeat_interleave": lambda a: P.repeat_interleave(a, 2, 1),
+        "moveaxis": lambda a: P.moveaxis(a, 0, 2),
+        "slice": lambda a: P.slice(a, [0, 2], [1, -3], [4, 100]),
+        "matmul": lambda a: P.matmul(a, P.transpose(a, [0, 2, 1])),
+        "one_hot": lambda a: P.one_hot(P.cast(a.abs() * 2, "int64"), 5),
+        "meshgrid": lambda a: P.meshgrid(a[0, 0], a[1, 1]),
+        "diag_embed": lambda a: P.diag_embed(a[0]),
+        "zeros_like": lambda a: P.zeros_like(a),
+        "full_like": lambda a: P.full_like(a, 7, "int32"),
+    }
+    for k, fn in manip.items():
+        cases[k] = (fn, [x], k not in (
+            "cast", "masked_select", "unique", "nonzero", "one_hot",
+            "argsort", "zeros_like", "full_like"))
+    return cases
+
+
+def _ns_leaves(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _ns_close(tag, got, want, tol):
+    """got (card) against want (CPU): dtype, shape, values."""
+    if got.dtype != want.dtype or tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"[namespace] {tag}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}")
+    g, w = got.detach().cpu(), want.detach()
+    if not (w.is_floating_point() or w.is_complex()):
+        if not torch.equal(g, w):
+            raise AssertionError(f"[namespace] {tag}: integers differ")
+        return 0.0
+    g, w = g.double(), w.double()
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        raise AssertionError(f"[namespace] {tag}: NaN positions differ")
+    ok = ~torch.isnan(w)
+    if not bool(ok.any()):
+        return 0.0
+    fin = ok & torch.isfinite(w)
+    scale = max(1.0, float(w[fin].abs().max())) if bool(fin.any()) else 1.0
+    err = float((g[ok] - w[ok]).abs().max()) if bool(ok.any()) else 0.0
+    if not err <= tol * scale:
+        raise AssertionError(f"[namespace] {tag}: {err:.3e} > "
+                             f"{tol:.1e} x {scale:.3g}")
+    return err / scale
+
+
+def _ns_families(P, device, cpu, rng):
+    """19a: (ops, comparisons, worst error over the largest value) over
+    the ops, fp32 and bf16, values and fp32 gradients."""
+    cases = _ns_cases(P, rng)
+    sides = (("card", device), ("cpu", cpu))
+    n, worst = 0, {"float32": 0.0, "bfloat16": 0.0, "grad": 0.0}
+    for tag, (fn, arrays, diff) in cases.items():
+        for dt in ("float32", "bfloat16"):
+            ins, outs = {}, {}
+            for side, d in sides:
+                ts = [P.to_tensor(a, place=d) for a in arrays]
+                if dt == "bfloat16":
+                    ts = [P.cast(t, "bfloat16") if t.is_floating_point()
+                          else t for t in ts]
+                if dt == "float32" and diff:
+                    for t in ts:
+                        if t.is_floating_point():
+                            t.stop_gradient = False
+                ins[side] = ts
+                outs[side] = _ns_leaves(fn(*ts))
+            tol = 2e-6 if dt == "float32" else 1.6e-2
+            for i, (g, w) in enumerate(zip(outs["card"], outs["cpu"])):
+                worst[dt] = max(worst[dt], _ns_close(f"{tag}[{dt}] out {i}",
+                                                     g, w, tol))
+                n += 1
+            if dt != "float32" or not diff:
+                continue
+            for side, d in sides:
+                terms = [(o * torch.linspace(-1, 1, o.numel()).reshape(
+                    o.shape).to(d)).sum() for o in outs[side]
+                    if o.is_floating_point() and o.requires_grad]
+                if terms:
+                    sum(terms).backward()
+            for i, (g, w) in enumerate(zip(ins["card"], ins["cpu"])):
+                if w.grad is not None:
+                    worst["grad"] = max(worst["grad"], _ns_close(
+                        f"{tag} grad {i}", g.grad, w.grad, 2e-6))
+                    n += 1
+    return len(cases), n, worst
+
+
+def _ns_inplace(P, device, cpu, rng):
+    """19a's in-place leg: each variant on both devices, the same object
+    back with the CPU's value and dtype."""
+    x = rng.uniform(0.3, 2.0, NS_SHAPE).astype(np.float32)
+    xi = rng.integers(1, 9, NS_SHAPE).astype(np.int32)
+    calls = [("add_", x, (2.5,)), ("add_", xi, (2.5,)),
+             ("multiply_", xi, (x,)), ("divide_", xi, (3,)),
+             ("exp_", x, ()), ("sqrt_", xi, ()), ("less_than_", x, (1.0,)),
+             ("clip_", x, (0.5, 1.5)), ("scale_", x, (2.0, 1.0)),
+             ("cast_", x, ("int64",)), ("reshape_", x, ([4, -1],)),
+             ("transpose_", x, ([2, 0, 1],)), ("cumsum_", x, (1,)),
+             ("masked_fill_", x, (x > 1, 0.0)), ("tril_", x, ()),
+             ("subtract_", x, (x,)), ("floor_divide_", xi, (xi,))]
+    for name, a, args in calls:
+        res = []
+        for d in (device, cpu):
+            t = P.to_tensor(a, place=d)
+            argv = [P.to_tensor(v, place=d) if isinstance(v, np.ndarray)
+                    else v for v in args]
+            if getattr(P, name)(t, *argv) is not t:
+                raise AssertionError(f"[namespace] {name}: a new object")
+            res.append(t)
+        _ns_close(f"{name} in place", res[0], res[1], 2e-6)
+    return len(calls)
+
+
+def _ns_mlp(P, place, x, y, init, steps=50, lr=0.1):
+    """19d: a user's script, ``paddle.*`` names only.  Returns (losses,
+    seconds of the steps)."""
+    P.set_device(place)
+    P.seed(0)
+    xt, yt = P.to_tensor(x), P.to_tensor(y)
+    params = [P.create_parameter(list(v.shape), "float32",
+                                 default_initializer=lambda p, v=v:
+                                 p.set_value(v))
+              for v in init]
+    w1, b1, w2 = params
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        h = P.tanh(P.add(P.matmul(xt, w1), b1))
+        err = P.subtract(P.matmul(h, w2), yt)
+        loss = P.mean(P.multiply(err, err))
+        loss.backward()
+        with P.no_grad():
+            for p in params:
+                P.subtract_(p, P.scale(p.grad, lr))
+                p.clear_grad()
+        losses.append(float(loss))
+    return losses, time.perf_counter() - t0
+
+
+def phase_namespace(device, limit):
+    """19 (module docstring): the flat op namespace on the card."""
+    import paddle_tpu_torch as P
+
+    counters = _unet_train_counters()
+    _zero_counts(counters)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    # (e) the place rule: with no place a tensor lies on the card
+    if P.get_device() != "gpu:0" or P.ones([2]).device != torch.device(
+            "cuda", 0):
+        raise AssertionError(f"[namespace] the current place is "
+                             f"{P.get_device()}, not gpu:0")
+    rng = np.random.default_rng(0)
+    n_ops, n_cmp, worst = _ns_families(P, device, cpu, rng)
+    n_inplace = _ns_inplace(P, device, cpu, rng)
+    t_a = time.perf_counter() - t0
+    # (b) random on the card
+    n = 1 << 20
+    P.seed(21)
+    a = P.rand([n])
+    P.seed(21)
+    if not torch.equal(a, P.rand([n])):
+        raise AssertionError("[namespace] rand does not repeat under seed")
+    state = P.get_rng_state()
+    b = P.randn([n])
+    P.set_rng_state(state)
+    if not torch.equal(b, P.randn([n])):
+        raise AssertionError("[namespace] randn does not replay its state")
+    c = P.randint(-3, 7, [n])
+    moments = []
+    for tag, v, mu, var in (("rand", a, 0.5, 1 / 12), ("randn", b, 0.0, 1.0),
+                            ("randint", c, 1.5, 99 / 12)):
+        v = v.double()
+        m, s2 = float(v.mean()), float(v.var())
+        se = (var / n) ** 0.5
+        if abs(m - mu) > 6 * se or abs(s2 - var) > 6 * var * (2 / n) ** 0.5 \
+                * 1.5:
+            raise AssertionError(f"[namespace] {tag} moments {m}, {s2}")
+        moments.append(f"{tag} mean {m:.5f} var {s2:.5f}")
+    if a.device != torch.device("cuda", 0) or c.dtype != torch.int64:
+        raise AssertionError("[namespace] draws off the card or mistyped")
+    del a, b, c
+    # (c) save / load of CUDA tensors, bit for bit
+    state = {"w": P.randn([256, 128]), "h": P.cast(P.randn([64, 64]),
+                                                   "bfloat16"),
+             "step": P.arange(1000), "nested": [P.ones([3])]}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pdparams")
+        t1 = time.perf_counter()
+        P.save(state, path)
+        back = P.load(path)
+        t_io = time.perf_counter() - t1
+    for k in ("w", "h", "step"):
+        if back[k].device != state[k].device or not torch.equal(
+                back[k].view(torch.uint8), state[k].view(torch.uint8)):
+            raise AssertionError(f"[namespace] {k} did not load back")
+    # (d) the user's MLP script, on the card and on the CPU
+    mrng = np.random.default_rng(7)
+    x = mrng.standard_normal((256, 32)).astype(np.float32)
+    y = np.sin(x[:, :1] * 2 + x[:, 1:2]).astype(np.float32)
+    init = [mrng.uniform(-0.3, 0.3, (32, 64)).astype(np.float32),
+            np.zeros(64, np.float32),
+            mrng.uniform(-0.3, 0.3, (64, 1)).astype(np.float32)]
+    try:
+        card, card_s = _ns_mlp(P, "gpu:0", x, y, init)
+        host, host_s = _ns_mlp(P, "cpu", x, y, init)
+    finally:
+        P.set_device("gpu:0")
+    if not card[-1] < 0.5 * card[0]:
+        raise AssertionError(f"[namespace] the MLP loss did not fall: "
+                             f"{card[0]} -> {card[-1]}")
+    bad = [i for i, (u, v) in enumerate(zip(card, host))
+           if abs(u - v) > 1e-4 * abs(v)]
+    if bad:
+        raise AssertionError(f"[namespace] card and CPU losses part at "
+                             f"step {bad[0]}: {card[bad[0]]} vs "
+                             f"{host[bad[0]]}")
+    _no_kernels("namespace", counters)
+    log(f"[namespace] (a) {n_ops} ops, {n_cmp} card-vs-CPU comparisons "
+        f"(values and fp32 gradients) and {n_inplace} in-place calls "
+        f"agree; worst error over the largest value: fp32 "
+        f"{worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e}, gradients "
+        f"{worst['grad']:.2e} ({t_a:.2f} s); (b) seed and state replay "
+        f"exact at 2^20, {'; '.join(moments)}; (c) save + load of 3 CUDA "
+        f"tensors bit for bit in {t_io * 1e3:.1f} ms; (d) MLP 50 steps: "
+        f"loss {card[0]:.5f} -> {card[-1]:.5f}, card = CPU within "
+        f"{max(abs(u - v) / abs(v) for u, v in zip(card, host)):.1e}, "
+        f"{card_s * 1e3 / 50:.3f} ms a step on the card ({card_s:.3f} s), "
+        f"{host_s * 1e3 / 50:.3f} ms on the CPU; (e) no place -> cuda:0 | "
+        f"none of the eleven kernels launched | phase "
+        f"{time.perf_counter() - t0:.1f} s | {limit}")
+    _empty(device)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -6742,6 +7139,7 @@ def main():
     torch.cuda.empty_cache()
     elapsed("phase 6e")
     phase_graph_ab(device, limit)
+    elapsed("phase 6f (fp32 master)")
     phase_graph_ab(device, limit, master="bfloat16_sr")
     elapsed("phase 6f")
     phase_remat_policies(device, limit)
@@ -6802,6 +7200,8 @@ def main():
     phase_detection_eval(device, limit)
     phase_detection_ops(device, limit)
     elapsed("phase 18")
+    phase_namespace(device, limit)
+    elapsed("phase 19")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

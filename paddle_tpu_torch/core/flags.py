@@ -1,4 +1,5 @@
-"""Runtime flags of the port.  Counterpart of ``paddle_tpu/core/flags.py``
+"""Runtime flags of the port (``set_flags``, ``get_flags``).  Counterpart
+of ``paddle_tpu/core/flags.py``
 for the one flag the training path reads so far,
 ``FLAGS_use_fused_rms_norm`` (default False): with it on,
 ``nn.functional.rms_norm`` takes the fused RMSNorm kernel
@@ -24,3 +25,11 @@ def set_flags(flags: dict) -> None:
 def flag(name: str):
     """The value of one flag."""
     return _flags[_key(name)]
+
+
+def get_flags(flags) -> dict:
+    """{name: value} for a flag name or a list of them, keyed as
+    given."""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {name: _flags[_key(name)] for name in flags}

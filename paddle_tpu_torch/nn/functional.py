@@ -8,12 +8,13 @@ max / average pools, ``lp_pool1d`` / ``lp_pool2d``, the adaptive pools,
 ``ops/nn_ops_nd.py``), the 2-d pools (``ceil_mode``, ``exclusive``,
 ``divisor_override``, ``return_mask``), ``batch_norm`` (with
 ``_bn_running_update``), ``cross_entropy``,
-``binary_cross_entropy_with_logits``, ``relu``; for the vision zoo
-``relu6``, ``hardswish``, ``hardsigmoid`` and ``swish``; for the
-diffusion path ``group_norm``, ``interpolate`` / ``upsample`` (nearest,
-bilinear, bicubic), ``silu``, ``gelu`` (erf and tanh forms) and
-``softmax``.  The other ops of the language-model training paths are
-called from ``ops.nn_ops`` directly.  Random draws take an explicit
+``binary_cross_entropy_with_logits``; for the diffusion path
+``group_norm`` and ``interpolate`` / ``upsample`` (nearest, bilinear,
+bicubic).  The activations (``relu``, ``relu6``, ``hardswish``,
+``hardsigmoid``, ``swish``, ``silu``, ``gelu``, ``softmax``) are
+``ops.activation``'s, re-exported as the reference re-exports them.
+The other ops of the language-model training paths are called from
+``ops.nn_ops`` directly.  Random draws take an explicit
 ``torch.Generator``."""
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ from ..amp.state import amp_op, no_amp
 from ..core.flags import flag
 from ..ops import nn_ops
 from ..ops import nn_ops_nd as nd
+from ..ops.activation import (  # noqa: F401  - re-exported activations
+    gelu, hardsigmoid, hardswish, relu, relu6, silu, softmax, swish,
+)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -64,48 +68,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     p = float(dropout_p) if training else 0.0
     return nn_ops.sdpa(query, key, value, attn_mask, causal=bool(is_causal),
                        impl=impl, dropout_p=p, generator=generator)
-
-
-def relu(x):
-    return torch.relu(x)
-
-
-@amp_op("relu6")
-def relu6(x):
-    """``min(max(x, 0), 6)``; the gradient passes where 0 < x < 6, as the
-    reference's hand-written one does (``hardtanh``'s backward)."""
-    return torch.nn.functional.hardtanh(x, 0.0, 6.0)
-
-
-@amp_op("hardswish")
-def hardswish(x):
-    """``x * clip(x + 3, 0, 6) / 6``, in that order, in x's dtype."""
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
-
-
-@amp_op("hardsigmoid")
-def hardsigmoid(x, slope=1 / 6, offset=0.5):
-    """``clip(slope * x + offset, 0, 1)``."""
-    return torch.clamp(slope * x + offset, 0.0, 1.0)
-
-
-@amp_op("swish")
-def swish(x):
-    """``x * sigmoid(x)`` (the reference's ``swish`` is ``jax.nn.silu``)."""
-    return x * torch.sigmoid(x)
-
-
-def silu(x):
-    return nn_ops.silu(x)
-
-
-def gelu(x, approximate=False):
-    """GELU: the erf form, or the tanh form with ``approximate``."""
-    return nn_ops.gelu(x, bool(approximate))
-
-
-def softmax(x, axis=-1):
-    return nn_ops.softmax(x, axis)
 
 
 # -- diffusion: group norm, resizing ------------------------------------------------

@@ -33,8 +33,6 @@ import pytest
 import paddle_tpu as paddle
 from paddle_tpu.inference.server import ServingCluster as JaxCluster
 from paddle_tpu.inference.server import ServingEngine as JaxEngine
-from paddle_tpu.models import LlamaConfig as JaxConfig
-from paddle_tpu.models import LlamaForCausalLM
 from paddle_tpu.testing import faults as jfaults
 from paddle_tpu_torch.inference.server import (
     DEAD_STATES, RequestState, ServingCluster, ServingEngine,
@@ -43,9 +41,10 @@ from paddle_tpu_torch.inference.server import (
 from paddle_tpu_torch.inference.server.wal import (
     compact, segment_paths, stream_crc,
 )
-from paddle_tpu_torch.models import numpy_state
 from paddle_tpu_torch.testing import faults
 from paddle_tpu_torch.testing.durability_worker import build
+
+from test_torch_serving_faults import reference_tiny_llama  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,14 +54,7 @@ def setup():
     """(model, cfg, params, engine kwargs, work): the worker's tiny
     setup and the reference's model on its weights."""
     cfg, params, kw, work = build("tiny", "cpu")
-    paddle.seed(11)
-    model = LlamaForCausalLM(JaxConfig(
-        vocab_size=256, hidden_size=64, intermediate_size=128,
-        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-        max_position_embeddings=128))
-    model.eval()
-    missing, unknown = model.set_state_dict(numpy_state(params, cfg))
-    assert not missing and not unknown
+    model = reference_tiny_llama(params, cfg)
     return model, cfg, params, kw, work
 
 

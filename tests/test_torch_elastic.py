@@ -23,8 +23,6 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.inference.server import ServingCluster as JaxCluster
 from paddle_tpu.inference.server import ServingEngine as JaxEngine
-from paddle_tpu.models import LlamaConfig as JaxConfig
-from paddle_tpu.models import LlamaForCausalLM
 from paddle_tpu.testing import faults as jfaults
 from paddle_tpu.testing.load import run_load as jax_run_load
 from paddle_tpu_torch.inference.server import (
@@ -32,10 +30,11 @@ from paddle_tpu_torch.inference.server import (
     check_pool_invariants,
 )
 from paddle_tpu_torch.inference.server.wal import segment_paths
-from paddle_tpu_torch.models import numpy_state
 from paddle_tpu_torch.testing import faults
 from paddle_tpu_torch.testing.durability_worker import build
 from paddle_tpu_torch.testing.load import LoadSpec, generate_load, run_load
+
+from test_torch_serving_faults import reference_tiny_llama  # noqa: E402
 
 KW = dict(max_seqs=2, page_size=4, max_len=64, prefill_chunk=8)
 #: tests/test_chaos.py's load (as tests/test_torch_cluster.py)
@@ -46,14 +45,7 @@ LOAD = dict(n_requests=8, mean_interarrival=1.0, prompt_len=(4, 14),
 @pytest.fixture(scope="module")
 def pair():
     cfg, params, _, _ = build("tiny", "cpu")
-    paddle.seed(11)
-    model = LlamaForCausalLM(JaxConfig(
-        vocab_size=256, hidden_size=64, intermediate_size=128,
-        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-        max_position_embeddings=128))
-    model.eval()
-    missing, unknown = model.set_state_dict(numpy_state(params, cfg))
-    assert not missing and not unknown
+    model = reference_tiny_llama(params, cfg)
     return model, cfg, params
 
 

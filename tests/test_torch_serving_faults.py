@@ -22,6 +22,8 @@ The weights are the port's seeded tiny Llama
 2 layers, 4 heads, 2 kv heads, fp32) loaded into the reference's model
 through ``models.numpy_state``.  Streams must be identical.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ import paddle_tpu as paddle
 from paddle_tpu.inference.server import ServingEngine as JaxEngine
 from paddle_tpu.models import LlamaConfig as JaxConfig
 from paddle_tpu.models import LlamaForCausalLM
+from paddle_tpu.models.llama import _rope_tables
 from paddle_tpu.testing import faults as jfaults
 from paddle_tpu.testing import load as jload
 from paddle_tpu_torch.inference.server import (
@@ -75,18 +78,38 @@ POINTS = [
 PROMPT = np.random.RandomState(3).randint(1, 256, (9,)).astype(np.int32)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    cfg, params, _, _ = build("tiny", "cpu")
-    paddle.seed(11)
-    model = LlamaForCausalLM(JaxConfig(
+def reference_tiny_llama(params, cfg):
+    """The reference's tiny Llama on the port's ``params``: built under
+    ``jax.eval_shape`` after ``paddle.seed(11)`` (its initializers compile
+    nothing and advance the generator as an eager build does), its rope
+    tables computed eagerly, every parameter set from ``params``."""
+    jcfg = JaxConfig(
         vocab_size=256, hidden_size=64, intermediate_size=128,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-        max_position_embeddings=128))
+        max_position_embeddings=128)
+    paddle.seed(11)
+    paddle.get_rng_state()      # the key made eagerly, not under the trace
+    box = {}
+
+    def build():
+        box["m"] = LlamaForCausalLM(jcfg)
+        return {k: p._data for k, p in box["m"].named_parameters()}
+
+    jax.eval_shape(build)
+    model = box["m"]
+    cos, sin = _rope_tables(jcfg)
+    model.llama.rope_cos._data = jnp.asarray(cos)
+    model.llama.rope_sin._data = jnp.asarray(sin)
     model.eval()
     missing, unknown = model.set_state_dict(numpy_state(params, cfg))
     assert not missing and not unknown
-    return model, cfg, params
+    return model
+
+
+@pytest.fixture(scope="module")
+def pair():
+    cfg, params, _, _ = build("tiny", "cpu")
+    return reference_tiny_llama(params, cfg), cfg, params
 
 
 @pytest.fixture(autouse=True)
