@@ -479,6 +479,35 @@ result):
              card's losses equal the CPU's within rtol 1e-4, and the
              steps' wall time is printed; (e) a tensor made with no place
              lies on cuda:0.  None of the eleven kernels launches in 19.
+20. nn     — ``paddle.nn`` as a user drives it: (a) GPT-2 small
+             (Radford et al. 2019, the ``gpt2`` config: 12 layers, 768
+             wide, 12 heads, FFN 3072, vocab 50257, context 1024, the
+             head tied) written as a ``paddle.nn.Layer`` script from
+             ``Embedding``, ``LayerNorm``, ``Linear``, ``GELU``,
+             ``Dropout(0.1)``, ``LayerList`` and ``CrossEntropyLoss`` at
+             the reference's defaults, attention through
+             ``F.flash_attention(dropout=0.1, causal=True)``, trained 10
+             AdamW steps under decorate(O2, bf16) + auto_cast at B = 8,
+             S = 1024: ms a step, tokens/s, MFU (6N + 12LdS flops a
+             token over 989 TFLOP/s), peak memory, the loss (it must
+             fall); the short-attention kernels launch 12 + 12 times a
+             step, and a traced step runs no library attention kernel;
+             (b) ``F.flash_attn_qkvpacked`` at [2, 2048, 3, 16, 128]
+             bf16, causal, forward and backward: the long-attention
+             kernels launch once each and agree with their plain
+             versions (3b's tolerances); (c) the PTB "large" LSTM
+             language model (Zaremba et al. 2014: 2 layers, 1500
+             hidden, 35 steps, batch 20, vocab 10000, dropout 0.65,
+             U(-0.04, 0.04) by ``ParamAttr``), 10 SGD steps with
+             ``ClipGradByGlobalNorm(5.0)``: ms a step and the losses;
+             (d) card = CPU: 76 layers and functional ops (values and
+             fp32 gradients within 1e-5 of the largest), and a 2-layer
+             GPT (the short kernel on the card) and a narrow LSTM with
+             the same weights, losses within 1e-4 over 3 steps, dropout
+             0 (on the CPU the attention takes the einsum route, whose
+             dropout mask is not the kernel's hash mask).  The kernel
+             line's rows 6-9 carry 20a's and 20b's launches as
+             ``nn_launches``.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -7021,6 +7050,646 @@ def phase_namespace(device, limit):
     _empty(device)
 
 
+# -- phase 20: nn ------------------------------------------------------------
+
+#: GPT-2 small (Radford et al. 2019; the published ``gpt2`` config):
+#: layers, width, heads, FFN width, vocabulary, context
+GPT2 = dict(layers=12, d=768, heads=12, ffn=3072, vocab=50257, ctx=1024)
+#: 20a: batch, sequence, steps, AdamW's learning rate, the dropouts
+GPT2_RUN = dict(batch=8, seq=1024, steps=10, lr=6e-4, dropout=0.1,
+                attn_dropout=0.1)
+#: the PTB "large" LSTM language model (Zaremba, Sutskever & Vinyals
+#: 2014): layers, hidden, unrolled steps, batch, vocabulary, dropout,
+#: the uniform init range
+PTB_LARGE = dict(layers=2, hidden=1500, steps=35, batch=20, vocab=10000,
+                 dropout=0.65, init=0.04)
+#: 20c: SGD iterations, learning rate and global-norm clip
+PTB_RUN = dict(iters=10, lr=1.0, clip=5.0)
+#: library attention kernels, by substrings of their names; none may run
+#: in 20a's traced step
+LIBRARY_ATTENTION = ("fmha", "flash_fwd", "flash_bwd", "pytorch_flash",
+                     "efficient_attention", "cudnn", "sdpa")
+
+
+def _gpt2(P, cfg, dropout, attn_dropout):
+    """A user's GPT-2 written against ``paddle.nn`` only: token and
+    position embeddings (N(0, 0.02), by ``ParamAttr``), pre-norm blocks
+    of a fused q/k/v ``Linear``, ``F.flash_attention(causal=True)``, an
+    output projection and a GELU (tanh form) MLP, each branch with
+    ``nn.Dropout``; the head tied to the token embedding; the loss
+    ``nn.CrossEntropyLoss``.  Everything else at the reference's
+    defaults (XavierUniform weights, zero biases)."""
+    nn, F = P.nn, P.nn.functional
+    d, H, V = cfg["d"], cfg["heads"], cfg["vocab"]
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln_1 = nn.LayerNorm(d)
+            self.c_attn = nn.Linear(d, 3 * d)
+            self.c_proj = nn.Linear(d, d)
+            self.ln_2 = nn.LayerNorm(d)
+            self.c_fc = nn.Linear(d, cfg["ffn"])
+            self.act = nn.GELU(approximate=True)
+            self.mlp_proj = nn.Linear(cfg["ffn"], d)
+            self.drop = nn.Dropout(dropout)
+
+        def forward(self, x):
+            B, S, _ = x.shape
+            qkv = self.c_attn(self.ln_1(x)).reshape([B, S, 3, H, d // H])
+            a, _ = F.flash_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                     qkv[:, :, 2], dropout=attn_dropout,
+                                     causal=True)
+            x = x + self.drop(self.c_proj(a.reshape([B, S, d])))
+            return x + self.drop(self.mlp_proj(self.act(self.c_fc(
+                self.ln_2(x)))))
+
+    class GPT2(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            emb = P.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+            self.wte = nn.Embedding(V, d, weight_attr=emb)
+            self.wpe = nn.Embedding(cfg["ctx"], d, weight_attr=emb)
+            self.drop = nn.Dropout(dropout)
+            self.h = nn.LayerList([Block() for _ in range(cfg["layers"])])
+            self.ln_f = nn.LayerNorm(d)
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, ids, labels):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            x = self.drop(self.wte(ids) + self.wpe(pos))
+            for block in self.h:
+                x = block(x)
+            logits = F.linear(self.ln_f(x), self.wte.weight.t())
+            return self.loss(logits.reshape([-1, V]), labels.reshape([-1]))
+
+    return GPT2()
+
+
+def _gpt2_matmul_params(cfg):
+    """N of 6N: the parameters every token multiplies by (the blocks'
+    Linear weights and the tied head)."""
+    d, f = cfg["d"], cfg["ffn"]
+    return cfg["layers"] * (4 * d * d + 2 * d * f) + cfg["vocab"] * d
+
+
+def _tokens(cfg, B, S, device, seed):
+    rng = np.random.RandomState(seed)
+    ids = torch.as_tensor(rng.randint(0, cfg["vocab"], (B, S + 1)),
+                          device=device)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def phase_nn_gpt(device, limit, cfg=None, run=None):
+    """20a: GPT-2 small as a user script, decorate(O2, bf16) + auto_cast,
+    AdamW; every attention through ``F.flash_attention(dropout=0.1,
+    causal=True)`` on the short-attention kernels (S = 1024, D = 64).
+    Returns {kernel: launches over the steps}."""
+    import paddle_tpu_torch as P
+
+    cfg = dict(GPT2, **(cfg or {}))
+    run = dict(GPT2_RUN, **(run or {}))
+    B, S, n, L = run["batch"], run["seq"], run["steps"], cfg["layers"]
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    P.seed(20)
+    prev = P.get_device()
+    P.set_device("gpu:0" if on_card else "cpu")
+    try:
+        model = _gpt2(P, cfg, run["dropout"], run["attn_dropout"])
+    finally:
+        P.set_device(prev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = P.optimizer.AdamW(learning_rate=run["lr"],
+                            parameters=model.parameters(), weight_decay=0.1)
+    model, opt = P.amp.decorate(models=model, optimizers=opt, level="O2",
+                                dtype="bfloat16")
+    ids, labels = _tokens(cfg, B, S, device, seed=20)
+    counters = _train_counters()
+    _zero_counts(counters)
+    _reset_peak(device)
+    losses, step_ms = [], []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        with P.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = model(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))         # float() synchronises
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = _counts(counters)
+    peak = _peak_gib(device)
+    want = {k: 0 for k in counters}
+    want.update(short_attention_fwd=L * n, short_attention_bwd=L * n)
+    if on_card and launches != want:
+        raise AssertionError(f"[nn-gpt] launched {launches}, expected "
+                             f"{want} (one short-attention forward and "
+                             f"backward per layer and step)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[nn-gpt] losses {losses}: not finite or "
+                             f"not falling")
+    library = []
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with P.amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss = model(ids, labels)
+            loss.backward()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        library = sorted(k for k in names
+                         if any(s in k.lower() for s in LIBRARY_ATTENTION))
+        ours = sorted(k for k in names if "sattn" in k)
+        _zero_counts(counters)
+        for k, v in launches.items():    # the traced step does not count
+            counters[k].launches = v
+        if library or not ours:
+            raise AssertionError(f"[nn-gpt] the traced step ran library "
+                                 f"attention {library} / short kernels "
+                                 f"{ours}")
+    ms = float(np.median(step_ms[1:]))
+    tokens = B * S
+    fpt = 6 * _gpt2_matmul_params(cfg) + 12 * L * cfg["d"] * S
+    mfu = fpt * tokens / (ms / 1e3) / BF16_FLOPS
+    log(f"[nn-gpt] GPT-2 small as a paddle.nn.Layer script ({L} layers, "
+        f"d {cfg['d']}, {cfg['heads']} heads, FFN {cfg['ffn']}, vocab "
+        f"{cfg['vocab']}, {n_params / 1e6:.2f} M parameters, tied head), "
+        f"decorate(O2, bf16) + auto_cast, AdamW({run['lr']}), dropout "
+        f"{run['dropout']} and attention dropout {run['attn_dropout']}, "
+        f"B={B} S={S}: first step {step_ms[0]:.1f} ms; step "
+        f"{ms:.1f} ms (median of {n - 1}; "
+        f"{', '.join(f'{v:.1f}' for v in step_ms[1:])}) | "
+        f"{tokens / (ms / 1e3):.0f} tokens/s | MFU {mfu:.4f} (6N + 12LdS = "
+        f"{fpt:.4e} flops/token over {BF16_FLOPS / 1e12:g} TFLOP/s bf16) | "
+        f"peak memory {peak:.2f} GiB | loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({[round(v, 4) for v in losses]}) | launches "
+        f"{_launched(counters)} | no library attention in a traced step | "
+        f"built in {time.perf_counter() - t0 - sum(step_ms) / 1e3:.1f} s | "
+        f"{limit}")
+    del model, opt
+    _empty(device)
+    return launches
+
+
+def phase_nn_long(device, limit, B=2, H=16, S=2048, D=128):
+    """20b: ``F.flash_attn_qkvpacked`` at S = 2048, D = 128, causal, no
+    dropout, forward and backward: the long-attention kernels, held
+    against their plain versions on the card.  Returns its launches."""
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.kernels import long_attention as la
+
+    counters = _train_counters()
+    gen = torch.Generator(device=device).manual_seed(20)
+    qkv = torch.randn(B, S, 3, H, D, generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_(True)
+    g = torch.randn(B, S, H, D, generator=gen, device=device).to(
+        torch.bfloat16)
+    _zero_counts(counters)
+    out = PF.flash_attn_qkvpacked(qkv, causal=True)
+    out.backward(g)
+    _sync(device)
+    launches = _counts(counters)
+    if device.type == "cuda" and not (launches["attention_fwd"] == 1
+                                      and launches["attention_bwd"] == 1):
+        raise AssertionError(f"[nn-long] launched {launches}")
+    q, k, v = (qkv.detach()[:, :, i].transpose(1, 2).contiguous()
+               for i in range(3))
+    scale = 1.0 / np.sqrt(D)
+    wout, wlse = la.attention_fwd_plain(q, k, v, scale, True)
+    e_out = _hold("nn-long out", out.detach().transpose(1, 2).contiguous(),
+                  wout, 2e-3, 2 ** -7, BF16_WHY)
+    wgrads = la.attention_bwd_plain(q, k, v, wout, wlse,
+                                    g.transpose(1, 2).contiguous(), scale,
+                                    True)
+    e_grad = max(_hold(f"nn-long d{n}", qkv.grad[:, :, i].transpose(
+        1, 2).contiguous(), w, 5e-3, 2 ** -6,
+        "bf16 outputs of sums over up to 4 x 2048 fp32 terms")
+        for i, (n, w) in enumerate(zip("qkv", wgrads)))
+    del wout, wlse, wgrads, q, k, v
+
+    def fwd_bwd():
+        qkv.grad = None
+        PF.flash_attn_qkvpacked(qkv, causal=True).backward(g)
+
+    saved = _counts(counters)
+    ms = _timed(device, lambda: [fwd_bwd() for _ in range(5)])[1] / 5
+    for name, f in counters.items():     # timing does not count
+        f.launches = saved[name]
+    log(f"[nn-long] F.flash_attn_qkvpacked(qkv [{B}, {S}, 3, {H}, {D}] "
+        f"bf16, causal) forward + backward: long_attention launches "
+        f"{launches['attention_fwd']} fwd / {launches['attention_bwd']} bwd; "
+        f"out max abs err {e_out:.3e}, dq/dk/dv {e_grad:.3e} against the "
+        f"plain version | {ms:.3f} ms a forward + backward | {limit}")
+    del qkv, g, out
+    _empty(device)
+    return launches
+
+
+def _ptb_lstm(P, cfg, dropout):
+    """The PTB "large" model as a user writes it with ``paddle.nn``:
+    embedding, dropout, a 2-layer LSTM (dropout between layers), dropout,
+    the softmax layer, every parameter U(-0.04, 0.04) by ``ParamAttr``;
+    the loss ``nn.CrossEntropyLoss``."""
+    nn = P.nn
+    Hd, V = cfg["hidden"], cfg["vocab"]
+
+    def attr():
+        return P.ParamAttr(initializer=nn.initializer.Uniform(
+            -cfg["init"], cfg["init"]))
+
+    class PTBModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(V, Hd, weight_attr=attr())
+            self.drop = nn.Dropout(dropout)
+            self.lstm = nn.LSTM(Hd, Hd, cfg["layers"], dropout=dropout,
+                                weight_ih_attr=attr(), weight_hh_attr=attr(),
+                                bias_ih_attr=attr(), bias_hh_attr=attr())
+            self.out = nn.Linear(Hd, V, weight_attr=attr(), bias_attr=attr())
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, x, y, state=None):
+            h, state = self.lstm(self.drop(self.embedding(x)), state)
+            logits = self.out(self.drop(h))
+            return self.loss(logits.reshape([-1, V]), y.reshape([-1])), state
+
+    return PTBModel()
+
+
+def _ptb_train(P, model, cfg, run, device, seed=0):
+    """``run["iters"]`` truncated-BPTT SGD steps over a seeded token
+    stream, the state carried (detached) between them: (losses, ms a
+    step)."""
+    opt = P.optimizer.SGD(learning_rate=run["lr"],
+                          parameters=model.parameters(),
+                          grad_clip=P.nn.ClipGradByGlobalNorm(run["clip"]))
+    B, T = cfg["batch"], cfg["steps"]
+    rng = np.random.RandomState(seed)
+    stream = torch.as_tensor(rng.randint(
+        0, cfg["vocab"], (B, run["iters"] * T + 1)), device=device)
+    state, losses, step_ms = None, [], []
+    for i in range(run["iters"]):
+        x = stream[:, i * T:(i + 1) * T]
+        y = stream[:, i * T + 1:(i + 1) * T + 1]
+        t1 = time.perf_counter()
+        loss, state = model(x, y, state)
+        state = tuple(s.detach() for s in state)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    return losses, step_ms
+
+
+def phase_nn_lstm(device, limit, cfg=None, run=None):
+    """20c: the PTB "large" LSTM language model, 10 SGD steps with
+    ``ClipGradByGlobalNorm(5.0)``, fp32."""
+    import paddle_tpu_torch as P
+
+    cfg = dict(PTB_LARGE, **(cfg or {}))
+    run = dict(PTB_RUN, **(run or {}))
+    counters = _train_counters()
+    _zero_counts(counters)
+    P.seed(21)
+    prev = P.get_device()
+    P.set_device("gpu:0" if device.type == "cuda" else "cpu")
+    try:
+        model = _ptb_lstm(P, cfg, cfg["dropout"])
+    finally:
+        P.set_device(prev)
+    _reset_peak(device)
+    losses, step_ms = _ptb_train(P, model, cfg, run, device)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[nn-lstm] losses {losses}")
+    _no_kernels("nn-lstm", counters)
+    ms = float(np.median(step_ms[1:]))
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[nn-lstm] PTB large LSTM LM ({cfg['layers']} layers, hidden "
+        f"{cfg['hidden']}, {cfg['steps']} unrolled steps, batch "
+        f"{cfg['batch']}, vocab {cfg['vocab']}, dropout {cfg['dropout']}, "
+        f"{n / 1e6:.2f} M parameters, fp32), SGD({run['lr']}) with "
+        f"ClipGradByGlobalNorm({run['clip']}): first step "
+        f"{step_ms[0]:.1f} ms; step {ms:.1f} ms (median of "
+        f"{len(step_ms) - 1}) | {cfg['batch'] * cfg['steps'] / (ms / 1e3):.0f}"
+        f" words/s | peak memory {_peak_gib(device):.2f} GiB | losses "
+        f"{[round(v, 4) for v in losses]} | none of the eleven kernels "
+        f"launched | {limit}")
+    del model
+    _empty(device)
+
+
+def _nn_cases(P, rng):
+    """20d's cases: {name: (build or None, fn(module, *tensors), numpy
+    inputs, differentiable)}.  ``build(P)`` makes the module once on the
+    CPU; each device gets a copy."""
+    nn, F = P.nn, P.nn.functional
+
+    def r(*s, scale=1.0):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    def u(*s):
+        return rng.uniform(0.05, 0.95, s).astype(np.float32)
+
+    def ids(hi, *s):
+        return rng.integers(0, hi, s).astype(np.int64)
+
+    def fn(name, *args, **kw):
+        return lambda m, *t: getattr(F, name)(*t, *args, **kw)
+
+    def call(m, *t):
+        return m(*t)
+
+    cases = {
+        "linear": (None, fn("linear"), [r(4, 8), r(8, 5), r(5)], True),
+        "embedding": (None, fn("embedding", padding_idx=0),
+                      [ids(6, 3, 4), r(6, 5)], False),
+        "normalize": (None, fn("normalize"), [r(4, 6)], True),
+        "mse_loss": (None, fn("mse_loss"), [r(4, 6), r(4, 6)], True),
+        "l1_loss": (None, fn("l1_loss"), [r(4, 6), r(4, 6)], True),
+        "smooth_l1_loss": (None, fn("smooth_l1_loss"), [r(4, 6), r(4, 6)],
+                           True),
+        "nll_loss": (None, fn("nll_loss"), [r(5, 4), ids(4, 5)], False),
+        "binary_cross_entropy": (None, fn("binary_cross_entropy"),
+                                 [u(4, 6), u(4, 6)], True),
+        "kl_div": (None, fn("kl_div"), [r(4, 6), u(4, 6)], True),
+        "cross_entropy": (None, fn("cross_entropy", label_smoothing=0.1),
+                          [r(6, 7), ids(7, 6)], False),
+        "dice_loss": (None, fn("dice_loss"), [u(3, 5, 4), ids(4, 3, 5, 1)],
+                      False),
+        "sigmoid_focal_loss": (None, fn("sigmoid_focal_loss"),
+                               [r(4, 3), u(4, 3)], True),
+        "multi_margin_loss": (None, fn("multi_margin_loss"),
+                              [r(5, 4), ids(4, 5)], False),
+        "margin_cross_entropy": (None, fn("margin_cross_entropy",
+                                          scale=8.0),
+                                 [u(4, 6) * 1.6 - 0.8, ids(6, 4)], False),
+        "ctc_loss": (None, fn("ctc_loss"), [r(8, 2, 5), ids(4, 2, 3) + 1,
+                                            np.array([8, 6]),
+                                            np.array([3, 2])], False),
+        "rnnt_loss": (None, fn("rnnt_loss"), [r(2, 5, 4, 6), ids(5, 2, 3) + 1,
+                                              np.array([5, 4]),
+                                              np.array([3, 2])], False),
+        "margin_ranking_loss": (None, fn("margin_ranking_loss"),
+                                [r(6), r(6), np.sign(r(6))], True),
+        "triplet_margin_loss": (None, fn("triplet_margin_loss"),
+                                [r(4, 5), r(4, 5), r(4, 5)], True),
+        "cosine_embedding_loss": (None, fn("cosine_embedding_loss"),
+                                  [r(4, 5), r(4, 5), np.sign(r(4))], True),
+        "poisson_nll_loss": (None, fn("poisson_nll_loss", full=True),
+                             [r(6), u(6) * 4], True),
+        "gaussian_nll_loss": (None, fn("gaussian_nll_loss"),
+                              [r(6), r(6), u(6)], True),
+        "npair_loss": (None, fn("npair_loss"), [r(4, 3), r(4, 3),
+                                                ids(2, 4)], False),
+        "pixel_shuffle": (None, fn("pixel_shuffle", 2), [r(1, 8, 3, 3)],
+                          True),
+        "grid_sample": (None, fn("grid_sample", align_corners=False),
+                        [r(2, 3, 5, 6), r(2, 4, 3, 2, scale=0.8)], True),
+        "affine_grid": (None, fn("affine_grid", [2, 3, 4, 5]),
+                        [r(2, 2, 3)], True),
+        "fold": (None, fn("fold", [4, 5], [2, 2], 2, 1), [r(2, 12, 9)],
+                 True),
+        "unfold": (None, fn("unfold", [3, 2]), [r(2, 3, 6, 5)], True),
+        "bilinear": (None, fn("bilinear"), [r(3, 4), r(3, 5), r(2, 4, 5)],
+                     True),
+        "local_response_norm": (None, fn("local_response_norm", 3),
+                                [r(2, 5, 3, 3)], True),
+        "instance_norm": (None, fn("instance_norm"), [r(2, 3, 4, 4)], True),
+        "temporal_shift": (None, fn("temporal_shift", 2), [r(4, 8, 2, 2)],
+                           True),
+        "gather_tree": (None, fn("gather_tree"), [ids(9, 4, 2, 3),
+                                                  ids(3, 4, 2, 3)], False),
+        "sequence_mask": (None, fn("sequence_mask", 5), [ids(5, 4)], False),
+        "flash_attention": (None, lambda m, q, k, v: F.flash_attention(
+            q, k, v, causal=True)[0], [r(2, 16, 2, 8), r(2, 16, 2, 8),
+                                       r(2, 16, 2, 8)], True),
+        "sparse_mask attention": (
+            None, lambda m, q, k, v, s: F.flash_attention_with_sparse_mask(
+                q, k, v, attn_mask_start_row_indices=s, is_causal=False),
+            [r(2, 16, 2, 8), r(2, 16, 2, 8), r(2, 16, 2, 8),
+             ids(16, 2, 16)], True),
+        "fused_rotary_position_embedding": (
+            None, lambda m, q, k, c, s: F.fused_rotary_position_embedding(
+                q, k, sin=s, cos=c)[:2],
+            [r(2, 16, 2, 8), r(2, 16, 2, 8), np.cos(r(16, 8)),
+             np.sin(r(16, 8))], True),
+    }
+    layers = {
+        "Linear": (lambda: nn.Linear(6, 4), [r(3, 6)]),
+        "Conv2D": (lambda: nn.Conv2D(3, 4, 3, 1, 1), [r(2, 3, 5, 5)]),
+        "LayerNorm": (lambda: nn.LayerNorm([4, 6]), [r(3, 4, 6)]),
+        "BatchNorm1D": (lambda: nn.BatchNorm1D(4), [r(5, 4)]),
+        "InstanceNorm1D": (lambda: nn.InstanceNorm1D(3), [r(2, 3, 7)]),
+        "LocalResponseNorm": (lambda: nn.LocalResponseNorm(3),
+                              [r(2, 5, 2, 2)]),
+        "PReLU": (lambda: nn.PReLU(3), [r(2, 3, 4)]),
+        "Bilinear": (lambda: nn.Bilinear(3, 4, 2), [r(5, 3), r(5, 4)]),
+        "GLU": (lambda: nn.GLU(), [r(3, 8)]),
+        "Pad2D reflect": (lambda: nn.Pad2D([1, 2, 1, 0], "reflect"),
+                          [r(1, 2, 4, 5)]),
+        "Unflatten": (lambda: nn.Unflatten(1, [2, 3]), [r(2, 6)]),
+        "Maxout": (lambda: nn.Maxout(2), [r(2, 4, 3)]),
+        "Softmax2D": (lambda: nn.Softmax2D(), [r(2, 3, 2, 2)]),
+        "SpectralNorm": (lambda: nn.SpectralNorm([6, 4]), [r(6, 4)]),
+        "PixelUnshuffle": (lambda: nn.PixelUnshuffle(2), [r(1, 2, 4, 4)]),
+        "CosineSimilarity": (lambda: nn.CosineSimilarity(), [r(4, 3),
+                                                             r(4, 3)]),
+        "SimpleRNN": (lambda: nn.SimpleRNN(5, 6, 2, direction="bidirect"),
+                      [r(3, 4, 5)]),
+        "LSTM": (lambda: nn.LSTM(5, 6, 2), [r(3, 4, 5)]),
+        "GRU": (lambda: nn.GRU(5, 6, time_major=True), [r(4, 3, 5)]),
+        "LSTMCell": (lambda: nn.LSTMCell(5, 6), [r(3, 5)]),
+        "MultiHeadAttention": (lambda: nn.MultiHeadAttention(8, 2),
+                               [r(2, 5, 8)]),
+        "TransformerEncoderLayer": (
+            lambda: nn.TransformerEncoderLayer(8, 2, 16, dropout=0.0),
+            [r(2, 5, 8)]),
+        "HSigmoidLoss": (lambda: nn.HSigmoidLoss(6, 7), [r(4, 6),
+                                                         ids(7, 4)]),
+        "AdaptiveLogSoftmaxWithLoss": (
+            lambda: nn.AdaptiveLogSoftmaxWithLoss(8, 12, [4, 8]),
+            [r(6, 8), ids(12, 6)]),
+    }
+    for act in ("CELU", "ELU", "Hardshrink", "Hardtanh", "LeakyReLU",
+                "LogSigmoid", "LogSoftmax", "Mish", "SELU", "Sigmoid",
+                "Softplus", "Softshrink", "Softsign", "Tanh", "Tanhshrink",
+                "ThresholdedReLU"):
+        layers[act] = (lambda act=act: getattr(nn, act)(), [r(3, 5,
+                                                              scale=2.0)])
+    for name, (build, arrays) in layers.items():
+        cases[name] = (build, call, arrays, True)
+    return cases
+
+
+def _nn_leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _nn_leaves(o)]
+    return []
+
+
+def _nn_run(mod, fn, arrays, grad, device):
+    """(output leaves, gradients of a fixed weighted sum of them with
+    respect to the float inputs and the parameters) on ``device``."""
+    ts = [torch.as_tensor(a, device=device) for a in arrays]
+    ins = [t.requires_grad_(grad) for t in ts if t.is_floating_point()]
+    params = [] if mod is None else [p for p in mod.parameters()
+                                     if p.requires_grad]
+    leaves = _nn_leaves(fn(mod, *ts))
+    grads = []
+    if grad:
+        total = sum((x * torch.cos(torch.arange(
+            x.numel(), device=device, dtype=x.dtype)).reshape(x.shape)).sum()
+            for x in leaves if x.is_floating_point())
+        grads = torch.autograd.grad(total, ins + params, allow_unused=True)
+    return ([x.detach().cpu() for x in leaves],
+            [None if g is None else g.detach().cpu() for g in grads])
+
+
+def _nn_parity_families(P, device, rng):
+    """20d(i): every case of ``_nn_cases`` on the card and on the CPU:
+    values and fp32 gradients within 1e-5 of the largest magnitude (at
+    least 1), the CPU tests' tolerance.  Returns (cases, worst)."""
+    import copy
+
+    cpu = torch.device("cpu")
+    worst = 0.0
+    cases = _nn_cases(P, rng)
+    for name, (build, fn, arrays, grad) in cases.items():
+        mod = None
+        if build is not None:
+            P.seed(0)
+            mod = build()
+            mod.eval()
+        outs = {}
+        for dev in (device, cpu):
+            m = None if mod is None else copy.deepcopy(mod).to(dev)
+            outs[dev.type] = _nn_run(m, fn, arrays, grad, dev)
+        (got, ggot), (want, gwant) = outs[device.type], outs["cpu"]
+        for kind, a, b in [("value", x, y) for x, y in zip(got, want)] + [
+                ("grad", x, y) for x, y in zip(ggot, gwant)
+                if x is not None]:
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"[nn-parity] {name} {kind}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"[nn-parity] {name} {kind} differ")
+                continue
+            scale = max(1.0, float(b.abs().max()) if b.numel() else 1.0)
+            err = float((a.double() - b.double()).abs().max()) / scale \
+                if b.numel() else 0.0
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise AssertionError(f"[nn-parity] {name} {kind}: error "
+                                     f"{err:.3e} of the largest value")
+    return len(cases), worst
+
+
+def _nn_parity_models(P, device):
+    """20d(ii): a 2-layer narrow GPT (fp32, AdamW) and the PTB LSTM at
+    hidden 64 (fp32, SGD + clip), the same weights on the card and on the
+    CPU, 3 steps each: losses within 1e-4.  ``nn.Dropout`` and the
+    attention dropout are 0 here: on the CPU the attention takes the
+    einsum route, whose dropout mask is not the kernel's hash mask."""
+    import copy
+
+    cpu = torch.device("cpu")
+    counters = _train_counters()
+    gcfg = dict(GPT2, layers=2, d=128, heads=2, ffn=512, vocab=512,
+                ctx=256)
+    lcfg = dict(PTB_LARGE, hidden=64, vocab=500, batch=4)
+    P.seed(22)
+    prev = P.get_device()
+    P.set_device("cpu")
+    try:
+        gpt = _gpt2(P, gcfg, 0.0, 0.0)
+        lstm = _ptb_lstm(P, lcfg, 0.0)
+    finally:
+        P.set_device(prev)
+    out = {}
+    for dev in (device, cpu):
+        g = copy.deepcopy(gpt).to(dev)
+        opt = P.optimizer.AdamW(learning_rate=1e-3, parameters=g.parameters())
+        ids, labels = _tokens(gcfg, 2, 256, dev, seed=22)
+        before = _counts(counters)
+        losses = []
+        for _ in range(3):
+            loss = g(ids, labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        launched = {k: v - before[k] for k, v in _counts(counters).items()}
+        if dev.type == "cuda" and not (
+                launched["short_attention_fwd"]
+                == launched["short_attention_bwd"] == 3 * gcfg["layers"]):
+            raise AssertionError(f"[nn-parity] the card's GPT did not take "
+                                 f"the short kernel: {launched}")
+        lm = copy.deepcopy(lstm).to(dev)
+        llosses, _ = _ptb_train(P, lm, lcfg, dict(PTB_RUN, iters=3), dev,
+                                seed=22)
+        out[dev.type] = (losses, llosses)
+    rel = []
+    for got, want in zip(out[device.type], out["cpu"]):
+        got, want = np.array(got), np.array(want)
+        rel.append(float(np.max(np.abs(got - want) / np.abs(want))))
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"[nn-parity] losses differ: {out}")
+    return out, rel
+
+
+def phase_nn_parity(device, limit):
+    """20d: card = CPU for the new layers and functional ops and for a
+    narrow GPT and LSTM carried across."""
+    import paddle_tpu_torch as P
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    prev = P.get_device()
+    P.set_device("cpu")
+    try:
+        n_cases, worst = _nn_parity_families(P, device, rng)
+    finally:
+        P.set_device(prev)
+    t_a = time.perf_counter() - t0
+    out, rel = _nn_parity_models(P, device)
+    log(f"[nn-parity] (i) {n_cases} layers and functional ops, card vs "
+        f"CPU from the same seeded inputs and weights: values and fp32 "
+        f"gradients agree, worst error {worst:.2e} of the largest value "
+        f"(limit 1e-5) ({t_a:.2f} s); (ii) 2-layer GPT (d 128, S 256, the "
+        f"short kernel on the card) losses {out[device.type][0]} vs CPU "
+        f"{out['cpu'][0]}, PTB LSTM (hidden 64) losses "
+        f"{out[device.type][1]} vs CPU {out['cpu'][1]}: max relative "
+        f"difference {max(rel):.2e} (limit 1e-4; dropout 0) | phase "
+        f"{time.perf_counter() - t0:.1f} s | {limit}")
+    _empty(device)
+
+
+def phase_nn(device, limit):
+    """20 (module docstring): ``paddle.nn`` as a user drives it.  Returns
+    {kernel: launches} of 20a and 20b together."""
+    t0 = time.perf_counter()
+    gpt = phase_nn_gpt(device, limit)
+    t_a = time.perf_counter()
+    long = phase_nn_long(device, limit)
+    t_b = time.perf_counter()
+    phase_nn_lstm(device, limit)
+    t_c = time.perf_counter()
+    phase_nn_parity(device, limit)
+    log(f"[nn] legs: 20a {t_a - t0:.1f} s, 20b {t_b - t_a:.1f} s, 20c "
+        f"{t_c - t_b:.1f} s, 20d {time.perf_counter() - t_c:.1f} s")
+    return {k: gpt[k] + long[k] for k in gpt}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -7202,6 +7871,12 @@ def main():
     elapsed("phase 18")
     phase_namespace(device, limit)
     elapsed("phase 19")
+    nn_launches = phase_nn(device, limit)
+    for row in rows:
+        if row["name"] in ("attention_fwd", "attention_bwd",
+                           "short_attention_fwd", "short_attention_bwd"):
+            row["nn_launches"] = nn_launches[row["name"]]
+    elapsed("phase 20")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7209,7 +7884,7 @@ def main():
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("replay_launches", "verify_launches",
                                   "durable_launches", "elastic_launches",
-                                  "decode_13b_launches")
+                                  "decode_13b_launches", "nn_launches")
          if k in r}
         for r in rows]}))
     print(limit)

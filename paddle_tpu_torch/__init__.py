@@ -84,6 +84,7 @@ from .autograd import (  # noqa: F401
     enable_grad, is_grad_enabled, no_grad, set_grad_enabled,
 )
 from . import nn  # noqa: F401
+from .nn.param_attr import ParamAttr  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import io  # noqa: F401
 from . import vision  # noqa: F401

@@ -109,11 +109,11 @@ class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, device=None, generator=None):
         super().__init__()
         h = cfg.hidden_size
-        self.word_embeddings = Embedding(cfg.vocab_size, h, device)
+        self.word_embeddings = Embedding(cfg.vocab_size, h, device=device)
         self.position_embeddings = Embedding(cfg.max_position_embeddings, h,
-                                             device)
+                                             device=device)
         self.token_type_embeddings = Embedding(cfg.type_vocab_size, h,
-                                               device)
+                                               device=device)
         self.layer_norm = LayerNorm(h, epsilon=cfg.layer_norm_eps,
                                     device=device)
         self.dropout = Dropout(cfg.hidden_dropout_prob, generator=generator)
@@ -134,8 +134,7 @@ class BertEmbeddings(nn.Module):
 class BertPooler(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
-        self.dense = Linear(cfg.hidden_size, cfg.hidden_size, device,
-                            bias=True)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size, device=device)
 
     def forward(self, hidden):
         return torch.tanh(self.dense(hidden[:, 0]))
@@ -228,8 +227,8 @@ class BertForSequenceClassification(_Head):
         super().__init__(cfg, device, seed, generator)
         self.dropout = Dropout(cfg.hidden_dropout_prob,
                                generator=self.generator)
-        self.classifier = Linear(cfg.hidden_size, num_classes, self._device,
-                                 bias=True)
+        self.classifier = Linear(cfg.hidden_size, num_classes,
+                                 device=self._device)
         self._ready(seed)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -250,7 +249,7 @@ class BertForQuestionAnswering(_Head):
     def __init__(self, cfg: BertConfig, device=None, seed=0,
                  generator=None):
         super().__init__(cfg, device, seed, generator)
-        self.qa_outputs = Linear(cfg.hidden_size, 2, self._device, bias=True)
+        self.qa_outputs = Linear(cfg.hidden_size, 2, device=self._device)
         self._ready(seed)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -274,10 +273,10 @@ class BertForMaskedLM(_Head):
                  generator=None):
         super().__init__(cfg, device, seed, generator)
         h = cfg.hidden_size
-        self.transform = Linear(h, h, self._device, bias=True)
+        self.transform = Linear(h, h, device=self._device)
         self.layer_norm = LayerNorm(h, epsilon=cfg.layer_norm_eps,
                                     device=self._device)
-        self.decoder = Linear(h, cfg.vocab_size, self._device, bias=True)
+        self.decoder = Linear(h, cfg.vocab_size, device=self._device)
         self._ready(seed)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,

@@ -247,10 +247,10 @@ class LlamaAttention(nn.Module):
         self.config = config
         h, d = config.hidden_size, config.head_dim
         kv = config.num_key_value_heads * d
-        self.q_proj = Linear(h, h, device)
-        self.k_proj = Linear(h, kv, device)
-        self.v_proj = Linear(h, kv, device)
-        self.o_proj = Linear(h, h, device)
+        self.q_proj = Linear(h, h, bias_attr=False, device=device)
+        self.k_proj = Linear(h, kv, bias_attr=False, device=device)
+        self.v_proj = Linear(h, kv, bias_attr=False, device=device)
+        self.o_proj = Linear(h, h, bias_attr=False, device=device)
 
     def forward(self, x, cos, sin, attn_mask=None):
         cfg = self.config
@@ -273,9 +273,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, i, device)
-        self.up_proj = Linear(h, i, device)
-        self.down_proj = Linear(i, h, device)
+        self.gate_proj = Linear(h, i, bias_attr=False, device=device)
+        self.up_proj = Linear(h, i, bias_attr=False, device=device)
+        self.down_proj = Linear(i, h, bias_attr=False, device=device)
 
     def forward(self, x):
         # the checkpoint sites "mlp_gate" and "mlp_up"
@@ -293,9 +293,10 @@ class LlamaDecoderLayer(nn.Module):
         eps = config.rms_norm_eps
         self.self_attn = LlamaAttention(config, device)
         self.mlp = LlamaMLP(config, device)
-        self.input_layernorm = RMSNorm(config.hidden_size, eps, device)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps,
+                                      device=device)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
-                                                device)
+                                                device=device)
 
     def forward(self, x, cos, sin, attn_mask=None):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_mask)
@@ -307,11 +308,12 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      device)
+                                      device=device)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            device=device)
         cos, sin = rope_tables(config, device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -363,7 +365,7 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, device)
         if not config.tie_word_embeddings:
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  device)
+                                  bias_attr=False, device=device)
         if device.type == "meta":   # shapes only: nothing to fill
             return
         gen = torch.Generator(device=device)

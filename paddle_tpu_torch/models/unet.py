@@ -46,7 +46,7 @@ from torch import nn
 from .. import nn as pnn
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.initializer import XavierUniform, seeded_generator, zeros_
+from ..nn.initializer import seeded_generator
 from ..ops import nn_ops
 
 
@@ -76,11 +76,8 @@ def timestep_embedding(t, dim, max_period=10000.0, freqs=None):
 def _linear(fan_in, fan_out, device, generator, bias=True):
     """A ``pnn.Linear`` drawn as ``paddle_tpu``'s default: the weight
     Xavier-uniform, the bias 0."""
-    lin = pnn.Linear(fan_in, fan_out, device=device, bias=bias)
-    XavierUniform()(lin.weight, generator)
-    if lin.bias is not None:
-        zeros_(lin.bias)
-    return lin
+    return pnn.Linear(fan_in, fan_out, bias_attr=None if bias else False,
+                      device=device, generator=generator)
 
 
 def _groups(ch, groups=32):

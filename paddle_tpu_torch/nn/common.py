@@ -1,65 +1,71 @@
-"""``Linear``, ``Embedding`` and ``Dropout`` with ``paddle_tpu``'s
-parameter layout and an explicit generator; the activation layers
-``Silu``, ``GELU``, ``Softmax``, ``ReLU6``, ``Hardswish``,
-``Hardsigmoid`` and ``Swish``, and ``Upsample``.
+"""Common layers: ``Linear``, ``Embedding``, the dropouts, ``Flatten``,
+``Upsample``, the activation layers, ``PReLU`` and the containers
+(``Sequential``, ``LayerList``, ``ParameterList``, ``LayerDict``).
+Counterpart of ``paddle_tpu/nn/common.py``, with the reference's
+constructors: positional arguments as the reference orders them, and
+``device``, ``dtype`` and ``generator`` keyword-only.
 
-``torch.nn.Linear`` keeps its weight ``[out, in]``; paddle's is
-``[in, out]`` and a projection is ``x @ w (+ b)``.  Keeping paddle's
-layout lets a ``paddle_tpu`` state dict load without a transpose.
-Parameters are created empty on the given device (default CUDA, see
-``device.resolve_device``); the model fills them from an explicit
-``torch.Generator`` (``models.llama.LlamaForCausalLM``,
-``models.bert.init_bert_params``).  ``Dropout`` draws its masks from the
-``torch.Generator`` it is given, never from the global RNG as
-``torch.nn.Dropout`` does.
+Parameters are drawn as the reference draws them (``Linear``:
+XavierUniform and a zero bias; ``Embedding``: Normal(0, 1) with the
+``padding_idx`` row zeroed; ``PReLU``: ``init``), on ``device`` (default:
+the current place) from ``generator`` (default: the port's generator of
+that device, see ``nn.initializer``).  The models fill their weights
+again from their own generators (``models.llama``, ``models.bert``,
+``models/unet.py``, ``vision/models/``).
+
+``Linear`` keeps paddle's layout, ``weight [in, out]``, so a
+``paddle_tpu`` state dict loads without a transpose.  The dropouts draw
+their masks from the ``generator`` they are given, else from the port's
+generator of the input's device, never from torch's global one.
+``Sequential`` and ``LayerList`` are torch's ``Sequential`` and
+``ModuleList`` as ``Layer`` s: they name their children ``0``, ``1``,
+... as ``paddle_tpu``'s do, so state dict keys such as
+``layer1.0.downsample.0.weight`` match.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..amp.state import amp_op, cast
-from ..device import resolve_device
+from ..ops import activation as A
+from ..ops import manipulation as M
 from . import functional as F
+from . import initializer as I
+from .layers import Layer
 
 
-@amp_op("matmul")
-def _matmul(x, w):
-    """``x @ w`` with jnp's promotion of two float dtypes (the
-    reference's ``matmul`` op; under AMP both come cast by the policy)."""
-    if w.dtype != x.dtype:
-        dt = torch.promote_types(x.dtype, w.dtype)
-        x, w = x.to(dt), w.to(dt)
-    return torch.matmul(x, w)
-
-
-class Linear(nn.Module):
-    """``y = x @ weight (+ bias)`` with ``weight [in_features,
-    out_features]``.  ``bias=False`` (the default, as the Llama
-    projections have none) registers no bias; ``bias=True`` adds one of
-    ``[out_features]``, cast to the product's dtype before the add (as
-    ``F.linear`` in ``paddle_tpu`` does, so an fp32 bias never promotes a
-    bf16 stream).  x and a weight of two float dtypes meet in jnp's
-    promotion, as ``ops.nn_ops.einsum``'s operands do: an fp32 x times a
-    bf16 weight computes in fp32 (a UNet step under bf16 compute feeds
-    its bf16 ``time_mlp1`` an fp32 embedding), where ``torch.matmul``
-    would refuse the pair."""
-
-    def __init__(self, in_features, out_features, device=None,
-                 dtype=torch.float32, bias=False):
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
         super().__init__()
-        device = resolve_device(device)
-        self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype))
-        self.bias = (nn.Parameter(torch.empty(out_features, device=device,
-                                              dtype=dtype))
-                     if bias else None)
 
     def forward(self, x):
-        out = _matmul(x, self.weight)
-        if self.bias is not None:
-            out = out + cast(self.bias, out.dtype)
-        return out
+        return x
+
+
+class Linear(Layer):
+    """``y = x @ weight (+ bias)``, ``weight [in_features, out_features]``
+    (XavierUniform), ``bias [out_features]`` (zeros; none with
+    ``bias_attr=False``), computed by ``F.linear``."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        self._in_features = in_features
+        self._out_features = out_features
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=I.XavierUniform(), **kw)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True, **kw)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
 
 
 def embedding_grad(ids, grad, num_embeddings, dtype):
@@ -105,105 +111,86 @@ class _EmbeddingFn(torch.autograd.Function):
         return None, embedding_grad(ids, grad, *ctx.table)
 
 
-class Embedding(nn.Module):
-    """Rows of ``weight [num_embeddings, embedding_dim]``; the backward is
+class _EmbeddingFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.table = (weight.shape[0], weight.dtype)
+        return torch.nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return None, embedding_grad(ids, grad, *ctx.table)
+
+
+class Embedding(Layer):
+    """Rows of ``weight [num_embeddings, embedding_dim]`` (Normal(0, 1),
+    the ``padding_idx`` row zeroed), by ``F.embedding``: the backward is
     ``embedding_grad``'s, the same bits on every run."""
 
-    def __init__(self, num_embeddings, embedding_dim, device=None,
-                 dtype=torch.float32):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype=None, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=resolve_device(device),
-            dtype=dtype))
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0), dtype=dtype,
+            device=device, generator=generator)
+        if padding_idx is not None and self.weight.device.type != "meta":
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, ids):
-        return _EmbeddingFn.apply(ids, self.weight)
+        return F.embedding(ids, self.weight, padding_idx=self._padding_idx)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Dropout at rate ``p`` in ``mode`` (``upscale_in_train`` or
     ``downscale_in_infer``), active in training mode, its masks drawn
     from ``generator`` (a ``torch.Generator`` on the inputs' device;
-    needed only when ``p`` > 0 and training)."""
+    default: the port's generator of that device)."""
 
-    def __init__(self, p=0.5, mode="upscale_in_train", generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
         self.p = float(p)
+        self.axis = axis
         self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.mode,
-                         self.generator)
+        return F.dropout(x, self.p, self.axis, self.training, self.mode,
+                         generator=self.generator)
 
     def extra_repr(self):
         return f"p={self.p}, mode={self.mode}"
 
 
-class Silu(nn.Module):
-    """``x * sigmoid(x)`` (``F.silu``)."""
-
-    def forward(self, x):
-        return F.silu(x)
+class Dropout2D(Dropout):
+    """The reference's ``Dropout2D`` is its ``Dropout`` (element-wise)."""
 
 
-class GELU(nn.Module):
-    """GELU (``F.gelu``): the erf form, or the tanh form with
-    ``approximate=True``."""
-
-    def __init__(self, approximate=False):
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__()
-        self.approximate = approximate
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
 
     def forward(self, x):
-        return F.gelu(x, self.approximate)
+        return M.flatten(x, self.start_axis, self.stop_axis)
 
 
-class ReLU6(nn.Module):
-    """``F.relu6``."""
-
-    def forward(self, x):
-        return F.relu6(x)
-
-
-class Hardswish(nn.Module):
-    """``F.hardswish``."""
-
-    def forward(self, x):
-        return F.hardswish(x)
-
-
-class Hardsigmoid(nn.Module):
-    """``F.hardsigmoid`` (slope 1/6, offset 0.5)."""
-
-    def forward(self, x):
-        return F.hardsigmoid(x)
-
-
-class Swish(nn.Module):
-    """``F.swish``."""
-
-    def forward(self, x):
-        return F.swish(x)
-
-
-class Softmax(nn.Module):
-    """Softmax along ``axis`` (``F.softmax``)."""
-
-    def __init__(self, axis=-1):
-        super().__init__()
-        self.axis = axis
-
-    def forward(self, x):
-        return F.softmax(x, self.axis)
-
-
-class Upsample(nn.Module):
+class Upsample(Layer):
     """``F.interpolate`` to ``size`` or by ``scale_factor`` (``"nearest"``:
     the reference's index rule, torch's ``"nearest-exact"``)."""
 
     def __init__(self, size=None, scale_factor=None, mode="nearest",
-                 align_corners=False, data_format="NCHW"):
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.size = size
         self.scale_factor = scale_factor
@@ -216,3 +203,122 @@ class Upsample(nn.Module):
                              scale_factor=self.scale_factor, mode=self.mode,
                              align_corners=self.align_corners,
                              data_format=self.data_format)
+
+
+# -- activation layers -------------------------------------------------------------
+
+def _act_layer(name, fn, **defaults):
+    """A layer applying ``fn(x, **kwargs)``; its constructor takes the
+    keyword arguments in ``defaults`` (positionally in that order) and
+    ``name``."""
+    keys = list(defaults)
+
+    def __init__(self, *args, **kwargs):
+        Layer.__init__(self)
+        merged = dict(defaults)
+        merged.update(zip(keys, args))
+        merged.update({k: v for k, v in kwargs.items() if k != "name"})
+        self._kwargs = merged
+
+    def forward(self, x):
+        return fn(x, **self._kwargs)
+
+    def extra_repr(self):
+        return ", ".join(f"{k}={v}" for k, v in self._kwargs.items())
+
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward,
+                                 "extra_repr": extra_repr,
+                                 "__module__": __name__,
+                                 "__doc__": f"``{fn.__name__}`` as a layer."})
+
+
+ReLU = _act_layer("ReLU", A.relu)
+ReLU6 = _act_layer("ReLU6", A.relu6)
+GELU = _act_layer("GELU", A.gelu, approximate=False)
+Sigmoid = _act_layer("Sigmoid", A.sigmoid)
+Tanh = _act_layer("Tanh", A.tanh)
+Silu = _act_layer("Silu", A.silu)
+LeakyReLU = _act_layer("LeakyReLU", A.leaky_relu, negative_slope=0.01)
+ELU = _act_layer("ELU", A.elu, alpha=1.0)
+SELU = _act_layer("SELU", A.selu)
+CELU = _act_layer("CELU", A.celu, alpha=1.0)
+Softplus = _act_layer("Softplus", A.softplus, beta=1.0, threshold=20.0)
+Softsign = _act_layer("Softsign", A.softsign)
+Hardtanh = _act_layer("Hardtanh", A.hardtanh, min=-1.0, max=1.0)
+Hardsigmoid = _act_layer("Hardsigmoid", A.hardsigmoid)
+Hardswish = _act_layer("Hardswish", A.hardswish)
+Swish = _act_layer("Swish", A.swish)
+Mish = _act_layer("Mish", A.mish)
+Tanhshrink = _act_layer("Tanhshrink", A.tanhshrink)
+Softshrink = _act_layer("Softshrink", A.softshrink, threshold=0.5)
+Hardshrink = _act_layer("Hardshrink", A.hardshrink, threshold=0.5)
+ThresholdedReLU = _act_layer("ThresholdedReLU", A.thresholded_relu,
+                             threshold=1.0)
+LogSigmoid = _act_layer("LogSigmoid", A.log_sigmoid)
+Softmax = _act_layer("Softmax", A.softmax, axis=-1)
+LogSoftmax = _act_layer("LogSoftmax", A.log_softmax, axis=-1)
+
+
+class PReLU(Layer):
+    """``x`` where ``x >= 0``, else ``weight * x``; ``weight
+    [num_parameters]`` starts at ``init``."""
+
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None, *, device=None, dtype=None):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_parameters], attr=weight_attr,
+            default_initializer=I.Constant(init), dtype=dtype,
+            device=device)
+
+    def forward(self, x):
+        return A.prelu(x, self.weight, data_format=self._data_format)
+
+
+# -- containers -----------------------------------------------------------------------
+
+class Sequential(Layer, nn.Sequential):
+    """Children ``0``, ``1``, ... (or the names of ``(name, layer)``
+    pairs), applied in order."""
+
+    def __init__(self, *layers):
+        Layer.__init__(self)
+        if len(layers) == 1 and isinstance(layers[0], dict):
+            layers = tuple(layers[0].items())
+        elif len(layers) == 1 and isinstance(layers[0], (list, tuple)) \
+                and layers[0] and isinstance(layers[0][0], (list, tuple)):
+            layers = layers[0]
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_sublayer(layer[0], layer[1])
+            else:
+                self.add_sublayer(str(i), layer)
+
+
+class LayerList(Layer, nn.ModuleList):
+    """A list of layers, children ``0``, ``1``, ..."""
+
+    def __init__(self, sublayers=None):
+        Layer.__init__(self)
+        if sublayers is not None:
+            self.extend(sublayers)
+
+
+class ParameterList(Layer, nn.ParameterList):
+    """A list of parameters named ``0``, ``1``, ..."""
+
+    def __init__(self, parameters=None):
+        Layer.__init__(self)
+        if parameters is not None:
+            for p in parameters:
+                self.append(p)
+
+
+class LayerDict(Layer, nn.ModuleDict):
+    """Layers by name."""
+
+    def __init__(self, sublayers=None):
+        Layer.__init__(self)
+        if sublayers:
+            self.update(sublayers)

@@ -6,14 +6,13 @@ reference's arguments and pass on what it passes on: ``MaxPool2D`` its
 ``AvgPool2D`` neither ``ceil_mode`` nor ``divisor_override``."""
 from __future__ import annotations
 
-from torch import nn
-
 from . import functional as F
+from .layers import Layer
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 return_mask=False, data_format="NCHW"):
+                 return_mask=False, data_format="NCHW", name=None):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride if stride is not None else kernel_size
@@ -27,9 +26,10 @@ class MaxPool2D(nn.Module):
                             data_format=self.data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 exclusive=True, divisor_override=None, data_format="NCHW"):
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride if stride is not None else kernel_size
@@ -43,8 +43,8 @@ class AvgPool2D(nn.Module):
                             data_format=self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
-    def __init__(self, output_size, data_format="NCHW"):
+class AdaptiveAvgPool2D(Layer):
+    def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size = output_size
         self.data_format = data_format

@@ -10,10 +10,16 @@ attention through ``F.scaled_dot_product_attention`` on the
 attention take the einsum route, as in ``paddle_tpu``), post-norm by
 default and pre-norm with ``normalize_before``.
 
-Parameters are created on ``device`` (default CUDA) and filled by the
-model (``models.bert.init_bert_params``) or by the caller.  Every
+The constructors are the reference's (``weight_attr`` / ``bias_attr``,
+which only ``MultiHeadAttention`` passes on to its projections, as in
+the reference); ``device`` and ``generator`` are keyword-only.
+Parameters are drawn on ``device`` (default: the current place) as the
+reference draws them (XavierUniform projections, zero biases, LayerNorm
+ones and zeros) from the port's default generator, and a model fills
+them again from its own (``models.bert.init_bert_params``).  Every
 dropout, attention dropout included, draws from the ``generator`` a
-layer is given.
+layer is given (default: the port's generator of the input's
+device).
 
 Incremental decoding: ``MultiHeadAttention.gen_cache(x)`` starts an
 empty fp32 ``Cache`` ``[B, 0, H, d]`` (as the reference's, so a bf16
@@ -27,12 +33,12 @@ from __future__ import annotations
 import copy
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..ops import nn_ops
 from . import functional as F
-from .common import Dropout, Linear
+from .common import Dropout, LayerList, Linear
+from .layers import Layer
 from .norm import LayerNorm
 
 _ACTIVATIONS = {"relu": torch.relu, "gelu": nn_ops.gelu}
@@ -46,7 +52,7 @@ def _convert_attn_mask(mask):
     return (~mask).to(torch.float32) * torch.finfo(torch.float32).min
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Self- or cross-attention: ``query [B, Sq, E]``, ``key``/``value``
     ``[B, Sk, kdim/vdim]`` (default: the query), an optional
     ``attn_mask`` (additive, or bool with True = keep; ``[B, Sq, Sk]`` or
@@ -54,7 +60,8 @@ class MultiHeadAttention(nn.Module):
     in training from ``generator``."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, device=None, generator=None):
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *, device=None, generator=None):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError(f"embed_dim {embed_dim} must divide "
@@ -64,13 +71,16 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = float(dropout)
+        self.need_weights = need_weights
         self.generator = generator
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
-        self.q_proj = Linear(embed_dim, embed_dim, device, bias=True)
-        self.k_proj = Linear(kdim, embed_dim, device, bias=True)
-        self.v_proj = Linear(vdim, embed_dim, device, bias=True)
-        self.out_proj = Linear(embed_dim, embed_dim, device, bias=True)
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     device=device)
+        self.q_proj = Linear(embed_dim, embed_dim, **attrs)
+        self.k_proj = Linear(kdim, embed_dim, **attrs)
+        self.v_proj = Linear(vdim, embed_dim, **attrs)
+        self.out_proj = Linear(embed_dim, embed_dim, **attrs)
 
     class Cache:
         """The incremental self-attention cache: K and V
@@ -129,7 +139,7 @@ class MultiHeadAttention(nn.Module):
         return out if cache is None else (out, cache)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention and a feed-forward block, each with a residual and
     a LayerNorm (epsilon 1e-5): after the residual by default (post-norm,
     BERT), before the block with ``normalize_before``.  ``dropout`` acts
@@ -139,7 +149,8 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, device=None, generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 device=None, generator=None):
         super().__init__()
         if activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; expected "
@@ -150,8 +161,8 @@ class TransformerEncoderLayer(nn.Module):
             d_model, nhead, dropout=(attn_dropout if attn_dropout is not None
                                      else dropout),
             device=device, generator=generator)
-        self.linear1 = Linear(d_model, dim_feedforward, device, bias=True)
-        self.linear2 = Linear(dim_feedforward, d_model, device, bias=True)
+        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, device=device)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.dropout = Dropout(dropout, generator=generator)
@@ -193,11 +204,11 @@ def _clones(layer, num_layers):
     shared = {id(g): g for g in (getattr(m, "generator", None)
                                  for m in layer.modules())
               if g is not None}
-    return nn.ModuleList([layer] + [copy.deepcopy(layer, dict(shared))
+    return LayerList([layer] + [copy.deepcopy(layer, dict(shared))
                                     for _ in range(num_layers - 1)])
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (the layer itself is the
     first; see :func:`_clones`), then an optional final ``norm``."""
 
@@ -216,7 +227,7 @@ class TransformerEncoder(nn.Module):
         return out
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over the encoder's ``memory`` and
     a feed-forward block, each with a residual and a LayerNorm: after the
     residual by default (post-norm), before the block with
@@ -235,7 +246,8 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, device=None, generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 device=None, generator=None):
         super().__init__()
         if activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; expected "
@@ -249,8 +261,8 @@ class TransformerDecoderLayer(nn.Module):
         self.cross_attn = MultiHeadAttention(d_model, nhead, dropout=ad,
                                              device=device,
                                              generator=generator)
-        self.linear1 = Linear(d_model, dim_feedforward, device, bias=True)
-        self.linear2 = Linear(dim_feedforward, d_model, device, bias=True)
+        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, device=device)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.norm3 = LayerNorm(d_model, device=device)
@@ -299,7 +311,7 @@ class TransformerDecoderLayer(nn.Module):
                     memory, type=MultiHeadAttention.StaticCache))
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` copies of ``decoder_layer`` (see :func:`_clones`),
     then an optional final ``norm``.  ``cache`` is a list of one layer
     cache each (:meth:`gen_cache`); the decoder then returns ``(out,
@@ -330,7 +342,7 @@ class TransformerDecoder(nn.Module):
         return [layer.gen_cache(memory) for layer in self.layers]
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """The encoder-decoder transformer, with the reference's defaults
     (d_model 512, 8 heads, 6 + 6 layers, feed-forward 2048, dropout
     0.1, ReLU, post-norm).  With ``normalize_before`` the encoder and
@@ -340,8 +352,9 @@ class Transformer(nn.Module):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, custom_encoder=None,
-                 custom_decoder=None, device=None, generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
+                 generator=None):
         super().__init__()
         device = resolve_device(device)
         self.d_model = d_model

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from ... import nn as pnn
 from ...device import resolve_device
-from ...nn.initializer import seeded_generator, xavier_uniform_, zeros_
+from ...nn.initializer import seeded_generator
 
 
 class Maker:
@@ -26,10 +26,8 @@ class Maker:
         return pnn.BatchNorm2D(ch, device=self.device)
 
     def linear(self, in_f, out_f):
-        layer = pnn.Linear(in_f, out_f, device=self.device, bias=True)
-        xavier_uniform_(layer.weight, self.gen)
-        zeros_(layer.bias)
-        return layer
+        return pnn.Linear(in_f, out_f, device=self.device,
+                          generator=self.gen)
 
     def dropout(self, p=0.5):
         return pnn.Dropout(p, generator=self.gen)

@@ -25,7 +25,7 @@ from torch import nn
 
 from ... import nn as pnn
 from ...device import resolve_device
-from ...nn.initializer import seeded_generator, xavier_uniform_, zeros_
+from ...nn.initializer import seeded_generator
 
 
 class BasicBlock(nn.Module):
@@ -123,9 +123,7 @@ class ResNet(nn.Module):
             self.avgpool = pnn.AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:
             self.fc = pnn.Linear(512 * block.expansion, num_classes,
-                                 device=device, bias=True)
-            xavier_uniform_(self.fc.weight, gen)
-            zeros_(self.fc.bias)
+                                 device=device, generator=gen)
         self.to(memory_format=torch.channels_last)
 
     def _make_layer(self, block, planes, blocks, stride=1, device=None,

@@ -317,7 +317,7 @@ def test_grad_scaler_disabled_and_unscale():
 
 def _eager_setup():
     torch.manual_seed(3)
-    net = pnn.Linear(4, 2, device="cpu", bias=True)
+    net = pnn.Linear(4, 2, device="cpu")
     torch.nn.init.uniform_(net.weight, -1, 1)
     torch.nn.init.zeros_(net.bias)
     opt = popt.Adam(learning_rate=0.1, parameters=net.parameters())
@@ -371,7 +371,7 @@ def test_amp_autocast_bf16():
 
 
 def test_grad_scaler_fp16_semantics():
-    model = pnn.Linear(2, 2, device="cpu", bias=True)
+    model = pnn.Linear(2, 2, device="cpu")
     torch.nn.init.ones_(model.weight)
     torch.nn.init.zeros_(model.bias)
     scaler = pamp.GradScaler(init_loss_scaling=2.0)

@@ -377,8 +377,9 @@ def test_num_params_and_flops_match_jax():
 
 
 def test_linear_bias_is_optional():
-    assert "bias" not in dict(pnn.Linear(4, 3, "cpu").named_parameters())
-    lin = pnn.Linear(4, 3, "cpu", bias=True)
+    assert "bias" not in dict(pnn.Linear(4, 3, bias_attr=False,
+                                         device="cpu").named_parameters())
+    lin = pnn.Linear(4, 3, device="cpu")
     assert dict(lin.named_parameters())["bias"].shape == (3,)
     with torch.no_grad():
         lin.weight.fill_(1.0)

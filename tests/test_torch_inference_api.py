@@ -414,9 +414,9 @@ def _mlp_pair(seed=5):
     paddle.seed(seed)
     jnet = paddle.nn.Sequential(paddle.nn.Linear(8, 16), paddle.nn.ReLU(),
                                 paddle.nn.Linear(16, 4))
-    net = torch.nn.Sequential(Linear(8, 16, "cpu", bias=True),
+    net = torch.nn.Sequential(Linear(8, 16, device="cpu"),
                               torch.nn.ReLU(),
-                              Linear(16, 4, "cpu", bias=True))
+                              Linear(16, 4, device="cpu"))
     load_numpy_state(net, {k: np.asarray(v._data)
                            for k, v in jnet.state_dict().items()})
     return jnet, net

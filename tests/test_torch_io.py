@@ -397,9 +397,9 @@ def test_mnist_style_training_loop():
     w = rng.randn(10, 3).astype(np.float32)
     labels = (x_np @ w).argmax(-1)
     gen = torch.Generator().manual_seed(1)
-    model = pnn.Sequential(pnn.Linear(10, 32, device="cpu", bias=True),
+    model = pnn.Sequential(pnn.Linear(10, 32, device="cpu"),
                            pnn.ReLU(),
-                           pnn.Linear(32, 3, device="cpu", bias=True))
+                           pnn.Linear(32, 3, device="cpu"))
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.3, generator=gen)
     opt = popt.Adam(learning_rate=0.01, parameters=model.parameters())

@@ -294,7 +294,7 @@ def test_sgd_converges_linear_regression():
     x = torch.from_numpy(np.random.RandomState(0).rand(64, 2).astype(
         np.float32))
     y = x @ torch.from_numpy(w_true) + 0.5
-    model = pnn.Linear(2, 1, device="cpu", bias=True)
+    model = pnn.Linear(2, 1, device="cpu")
     with torch.no_grad():
         model.weight.zero_()
         model.bias.zero_()
@@ -311,7 +311,7 @@ def test_sgd_converges_linear_regression():
 
 def test_adam_and_adamw_step():
     for cls in (popt.Adam, popt.AdamW):
-        model = pnn.Linear(4, 4, device="cpu", bias=True)
+        model = pnn.Linear(4, 4, device="cpu")
         torch.nn.init.ones_(model.weight)
         torch.nn.init.zeros_(model.bias)
         opt = cls(learning_rate=0.01, parameters=model.parameters())

@@ -251,8 +251,9 @@ def test_multi_step_graph_plumbing_on_the_cpu_is_the_loop():
 
 def test_bf16_sr_keeps_one_bf16_copy_and_converges():
     """As test_llama_training.py's single-copy test: no master, bf16
-    parameters outside the norms, and 30 steps of memorisation lower
-    the loss by more than 1.5."""
+    parameters outside the norms, and 8 steps of memorisation lower
+    the loss by more than 1.5 (it falls by about 2.6 in 3 steps, 4.7 in
+    8; each bf16 step costs about a second on the CPU)."""
     pmodel = _port(recompute=True)
     step = CompiledTrainStep(pmodel, lr=5e-3, compute_dtype="bfloat16",
                              moments_dtype="bfloat16",
@@ -262,7 +263,7 @@ def test_bf16_sr_keeps_one_bf16_copy_and_converges():
                for k, p in step.params.items())
     assert all(m.dtype == torch.bfloat16 for m in step._m.values())
     ids = np.random.RandomState(0).randint(0, 256, (2, 64))
-    losses = [float(step.step(ids, ids)) for _ in range(30)]
+    losses = [float(step.step(ids, ids)) for _ in range(8)]
     assert losses[-1] < losses[0] - 1.5, losses
 
 
@@ -446,7 +447,7 @@ def test_unknown_policy_raises():
 def _linear_pair(seed=3):
     paddle.seed(seed)
     jlin = paddle.nn.Linear(4, 3)
-    plin = Linear(4, 3, device="cpu", bias=True)
+    plin = Linear(4, 3, device="cpu")
     state = _state(jlin)
     with torch.no_grad():
         plin.weight.copy_(torch.from_numpy(state["weight"]))

@@ -257,7 +257,7 @@ def test_linear_promotes_mixed_float_dtypes():
     x = rng.randn(3, 16).astype(np.float32)
     w = rng.randn(16, 8).astype(np.float32)
     b = rng.randn(8).astype(np.float32)
-    lin = pnn.Linear(16, 8, device="cpu", bias=True)
+    lin = pnn.Linear(16, 8, device="cpu")
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(w))
         lin.bias.copy_(torch.from_numpy(b))
@@ -285,7 +285,7 @@ def test_linear_equal_dtypes_unchanged(dtype):
     the bias in the product's dtype, bit for bit."""
     rng = np.random.RandomState(7)
     x = torch.from_numpy(rng.randn(2, 5, 16).astype(np.float32)).to(dtype)
-    lin = pnn.Linear(16, 24, device="cpu", dtype=dtype, bias=True)
+    lin = pnn.Linear(16, 24, device="cpu", dtype=dtype)
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(rng.randn(16, 24).astype(
             np.float32)))
@@ -326,7 +326,7 @@ def test_timestep_embedding(dim):
 def test_layer_list_names_children_by_index():
     """``LayerList`` (torch's ``ModuleList``) names its children ``0``,
     ``1``, ... as ``paddle_tpu``'s does, nested too."""
-    inner = pnn.LayerList([pnn.Linear(2, 2, device="cpu")])
+    inner = pnn.LayerList([pnn.Linear(2, 2, bias_attr=False, device="cpu")])
     inner.append(pnn.GroupNorm(1, 2, device="cpu"))
     outer = pnn.LayerList([pnn.Identity(), inner])
     assert sorted(k for k, _ in outer.named_parameters()) == [
