@@ -33,7 +33,9 @@ result):
              every length 522) too; Llama-2-13B's 40 kv heads at ragged
              lengths in a 1024-token window, and timed at 4i's decode
              step (every length 543) beside its bound, plain version and
-             library call.  3b holds attention at [4, 32, 2048,
+             library call.  3b holds RMSNorm also at h = 4097 and 32768
+             in fp16 and with fp32 x and bf16 / fp16 weights (timed at
+             the first two), and attention at [4, 32, 2048,
              128] bf16 causal, at S=1024, in fp32, with fused RoPE, with
              GQA 32/8 at S=4096, not causal, and at S=4096, and times it
              at the training shape and in the flash region (S=4096
@@ -508,6 +510,31 @@ result):
              dropout mask is not the kernel's hash mask).  The kernel
              line's rows 6-9 carry 20a's and 20b's launches as
              ``nn_launches``.
+21. autograd, registry, incubate — (a) BERT-base (BASELINE config 2)
+             written from ``Embedding``, ``LayerNorm`` and 12
+             ``incubate.nn.FusedTransformerEncoderLayer(768, 12, 3072,
+             dropout_rate=0.1, activation="gelu")`` with the SQuAD head,
+             decorate(O2, bf16) + auto_cast, AdamW, B = 48, S = 384, 10
+             steps: ms a step, sequences/s, MFU, peak memory beside phase
+             8's step, the loss falling, 12 + 12 short launches a step;
+             one step's operator statistics and one step under the
+             tensor checker beside an unchecked one; (b) Llama-2-7B's
+             width at 2 layers, B = 2, S = 2048, O2, from
+             ``fused_rms_norm`` (``FLAGS_use_fused_rms_norm``),
+             ``fused_rotary_position_embedding``, ``swiglu`` and
+             ``F.flash_attention(causal=True)``, 5 AdamW steps with an
+             ``ExponentialMovingAverage``: 5 + 5 RMSNorm and 2 + 2 long
+             launches a step, one step's ``paddle.grad`` = ``backward``
+             bit for bit, the loss falling; (c) 5 critic steps of
+             WGAN-GP's CIFAR-10 ResNet critic (128 channels, batch 64,
+             λ 10) with the penalty through ``paddle.grad(create_graph=
+             True)``; (d) style transfer on VGG-19's features at 512²
+             with ``LBFGS(strong_wolfe)``, 5 outer steps, the loss
+             falling; (e) card = CPU for the new ops, optimizers,
+             autograd (second order included), the operator statistics,
+             the tensor checker, (c) at toy width and the RMSNorm kernels
+             at h = 4097 / 32768 in fp16.  The kernel line's rows 4-9
+             carry 21a's and 21b's launches as ``incubate_launches``.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -516,6 +543,7 @@ of paddle_tpu.
 from __future__ import annotations
 
 import collections
+import copy
 import gc
 import json
 import os
@@ -736,6 +764,8 @@ def time_ms(fn, flush, iters=50, warmup=5):
 
 BF16_WHY = "bf16 output: the two fp32 results may round to neighbouring " \
     "bf16 values, one ulp <= 2^-7 |want|"
+F16_WHY = "fp16 output: the two fp32 results may round to neighbouring " \
+    "fp16 values, one ulp <= 2^-10 |want|"
 
 
 def _hold(label, got, want, atol, rtol, why):
@@ -973,6 +1003,31 @@ def phase_kernels(device):
 # -- phase 3b: the training kernels -------------------------------------------
 
 TRAIN_SHAPE = dict(B=4, H=32, S=2048, D=128, h=4096)
+def rms_norm_new_shapes(rn, gen, flush, iters, eps):
+    """The RMSNorm kernels timed at the shapes the old kernel refused
+    (fp16 x at h = 4097 and h = 32768), beside their plain versions and
+    bounds; one log line each."""
+    f16 = torch.float16
+    for N, h, wd in ((4096, 4097, torch.float32), (1024, 32768, f16)):
+        x = torch.randn(N, h, generator=gen, device=gen.device).to(f16)
+        w = torch.ones(h, device=x.device, dtype=wd)
+        dy = torch.randn(N, h, generator=gen, device=x.device).to(f16)
+        _, rstd = rn.rms_norm_fwd(x, w, eps)
+        ms = [time_ms(f, flush, iters=iters) for f in (
+            lambda: rn.rms_norm_fwd(x, w, eps),
+            lambda: rn.rms_norm_fwd_reference(x, w, eps),
+            lambda: rn.rms_norm_bwd(x, w, rstd, dy),
+            lambda: rn.rms_norm_bwd_reference(x, w, rstd, dy))]
+        (fb, fby), (bb, bby) = rms_norm_bounds(N, h, 2, w.element_size())
+        staged = rn.smem_bytes(h)
+        log(f"[rms_norm h={h}] x [{N}, {h}] fp16, w {wd}: fwd "
+            f"{ms[0]:.4f} ms (plain {ms[1]:.4f}, bound {fb:.4f} by {fby}, "
+            f"row {'staged' if staged['fwd'] else 'read twice'}), bwd "
+            f"{ms[2]:.4f} ms (plain {ms[3]:.4f}, bound {bb:.4f} by {bby}, "
+            f"row {'staged' if staged['bwd'] else 'read twice'})")
+        del x, dy, rstd
+
+
 def rms_norm_bounds(N, h, x_bytes, w_bytes):
     """(fwd, bwd) (bound_ms, bound_by): each input read once, each output
     written once, over HBM rate, against ~4 flops per element (fwd) and
@@ -1022,25 +1077,32 @@ def phase_train_kernels(device, iters=20):
                                       la.attention_fwd, la.attention_bwd)}
     eps = 1e-5
 
-    # RMSNorm: (rows, x dtype, w dtype, atol, rtol, why)
+    # RMSNorm: (rows, hidden, x dtype, w dtype, atol, rtol, why); the
+    # fp16 rows at h = 4097 (vector body with a scalar head and tail) and
+    # h = 32768 (the backward past shared memory: rows read twice)
+    f16 = torch.float16
     norm_cases = [
-        (B * S, bf16, f32, 1e-6, 2 ** -7, BF16_WHY),
-        (B * 1024, bf16, f32, 1e-6, 2 ** -7, BF16_WHY),
-        (B * S, bf16, bf16, 1e-6, 2 ** -7, BF16_WHY),
-        (B * S, f32, f32, 1e-5, 0.0, "fp32 throughout, other summation "
+        (B * S, h, bf16, f32, 1e-6, 2 ** -7, BF16_WHY),
+        (B * 1024, h, bf16, f32, 1e-6, 2 ** -7, BF16_WHY),
+        (B * S, h, bf16, bf16, 1e-6, 2 ** -7, BF16_WHY),
+        (B * S, h, f32, f32, 1e-5, 0.0, "fp32 throughout, other summation "
          "order"),
-    ]
+    ] + [(n, hh, f16, wd, 1e-3, 2 ** -10, F16_WHY)
+         for n, hh in ((4096, 4097), (1024, 32768))
+         for wd in (f32, f16)] + [
+        (4096, 4097, f32, wd, 1e-5, 0.0, "fp32 x, fp32 math, other "
+         "summation order") for wd in (bf16, f16)]
     norm_err = {}
-    for N, xd, wd, atol, rtol, why in norm_cases:
-        x = torch.randn(N, h, generator=gen, device=device).to(xd)
-        w = (1 + 0.1 * torch.randn(h, generator=gen, device=device)).to(wd)
-        dy = torch.randn(N, h, generator=gen, device=device).to(xd)
+    for N, hn, xd, wd, atol, rtol, why in norm_cases:
+        x = torch.randn(N, hn, generator=gen, device=device).to(xd)
+        w = (1 + 0.1 * torch.randn(hn, generator=gen, device=device)).to(wd)
+        dy = torch.randn(N, hn, generator=gen, device=device).to(xd)
         out, rstd = rn.rms_norm_fwd(x, w, eps)
         dx = rn.rms_norm_bwd(x, w, rstd, dy)
         torch.cuda.synchronize()
         want, wrstd = rn.rms_norm_fwd_reference(x, w, eps)
         wdx = rn.rms_norm_bwd_reference(x, w, wrstd, dy)
-        tag = f"N={N} h={h} x {xd} w {wd}"
+        tag = f"N={N} h={hn} x {xd} w {wd}"
         e1 = _hold(f"rms_norm_fwd {tag}", out, want, atol, rtol, why)
         _hold(f"rms_norm_fwd rstd {tag}", rstd, wrstd, 1e-6, 1e-5,
               "fp32, other summation order")
@@ -1116,6 +1178,7 @@ def phase_train_kernels(device, iters=20):
     times = {name: [time_ms(f, flush, iters=iters) for f in fns]
              for name, fns in t.items()}
     del x, dy, xl, yl
+    rms_norm_new_shapes(rn, gen, flush, iters, eps)
     q, k, v, g = (torch.randn(B, H, S, D, generator=gen,
                               device=device).to(bf16) for _ in range(4))
     out, lse = la.attention_fwd(q, k, v, scale, True)
@@ -4651,6 +4714,7 @@ def phase_bert_train(device, limit, cfg=None, run=None):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"[bert] losses {losses}: not all finite")
     mean_ms = float(np.mean(step_ms))
+    _RESULTS["bert_step_ms"] = mean_ms
     tokens = B * S
     fpt = bert.flops_per_token(S)
     mfu = fpt * tokens / (mean_ms / 1e3) / BF16_FLOPS
@@ -6836,20 +6900,20 @@ def _ns_leaves(out):
     return list(out) if isinstance(out, (list, tuple)) else [out]
 
 
-def _ns_close(tag, got, want, tol):
+def _ns_close(tag, got, want, tol, prefix="[namespace]"):
     """got (card) against want (CPU): dtype, shape, values."""
     if got.dtype != want.dtype or tuple(got.shape) != tuple(want.shape):
-        raise AssertionError(f"[namespace] {tag}: {got.dtype} "
+        raise AssertionError(f"{prefix} {tag}: {got.dtype} "
                              f"{tuple(got.shape)} vs {want.dtype} "
                              f"{tuple(want.shape)}")
     g, w = got.detach().cpu(), want.detach()
     if not (w.is_floating_point() or w.is_complex()):
         if not torch.equal(g, w):
-            raise AssertionError(f"[namespace] {tag}: integers differ")
+            raise AssertionError(f"{prefix} {tag}: integers differ")
         return 0.0
     g, w = g.double(), w.double()
     if not torch.equal(torch.isnan(g), torch.isnan(w)):
-        raise AssertionError(f"[namespace] {tag}: NaN positions differ")
+        raise AssertionError(f"{prefix} {tag}: NaN positions differ")
     ok = ~torch.isnan(w)
     if not bool(ok.any()):
         return 0.0
@@ -6857,7 +6921,7 @@ def _ns_close(tag, got, want, tol):
     scale = max(1.0, float(w[fin].abs().max())) if bool(fin.any()) else 1.0
     err = float((g[ok] - w[ok]).abs().max()) if bool(ok.any()) else 0.0
     if not err <= tol * scale:
-        raise AssertionError(f"[namespace] {tag}: {err:.3e} > "
+        raise AssertionError(f"{prefix} {tag}: {err:.3e} > "
                              f"{tol:.1e} x {scale:.3g}")
     return err / scale
 
@@ -7690,6 +7754,1061 @@ def phase_nn(device, limit):
     return {k: gpt[k] + long[k] for k in gpt}
 
 
+# -- phase 21: the op registry, autograd and the incubate surface -------------
+
+#: BASELINE config 2: BERT-base (12 layers, 768 wide, 12 heads, FFN 3072,
+#: vocab 30522, 512 positions, 2 token types), GELU, dropout 0.1, post-LN
+BERT_FUSED = dict(layers=12, d=768, heads=12, ffn=3072, vocab=30522,
+                  ctx=512, types=2)
+BERT_FUSED_RUN = dict(batch=48, seq=384, steps=10, lr=5e-5, dropout=0.1)
+#: Llama-2-7B's width (Touvron et al. 2023) at 2 layers (the cut)
+LLAMA_BLOCKS = dict(layers=2, d=4096, heads=32, ffn=11008, vocab=32000)
+LLAMA_BLOCKS_RUN = dict(batch=2, seq=2048, steps=5, lr=1e-4, grad_step=2)
+#: WGAN-GP's CIFAR-10 ResNet critic (Gulrajani et al. 2017)
+WGAN = dict(ch=128, image=32, batch=64, lam=10.0, steps=5, lr=1e-4,
+            betas=(0.0, 0.9))
+#: neural style transfer (Gatys, Ecker & Bethge 2016) on VGG-19
+STYLE = dict(image=512, outer=5, max_iter=20, history=100,
+             content="conv4_2", style=("conv1_1", "conv2_1", "conv3_1",
+                                       "conv4_1", "conv5_1"))
+VGG19_LAYERS = {"conv1_1": 0, "conv2_1": 5, "conv3_1": 10, "conv4_1": 19,
+                "conv4_2": 21, "conv5_1": 28}
+_RESULTS = {}    # numbers an earlier phase leaves for a later one
+
+
+def _bert_fused(P, cfg, dropout):
+    """BERT-base as a user writes it from ``paddle.nn`` and
+    ``paddle.incubate.nn``: word, position and token-type embeddings,
+    LayerNorm and dropout, 12 ``FusedTransformerEncoderLayer``s (post-LN,
+    GELU) and the SQuAD span head, the loss the mean of the start and
+    end cross entropies."""
+    nn, F = P.nn, P.nn.functional
+    d = cfg["d"]
+
+    class Bert(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(cfg["vocab"], d)
+            self.pos = nn.Embedding(cfg["ctx"], d)
+            self.token_type = nn.Embedding(cfg["types"], d)
+            self.ln = nn.LayerNorm(d)
+            self.drop = nn.Dropout(dropout)
+            self.layers = nn.LayerList([
+                P.incubate.nn.FusedTransformerEncoderLayer(
+                    d, cfg["heads"], cfg["ffn"], dropout_rate=dropout,
+                    activation="gelu") for _ in range(cfg["layers"])])
+            self.qa = nn.Linear(d, 2)
+
+        def forward(self, ids, starts, ends):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            x = self.word(ids) + self.pos(pos) + self.token_type(
+                torch.zeros_like(ids))
+            x = self.drop(self.ln(x))
+            for layer in self.layers:
+                x = layer(x)
+            logits = self.qa(x)
+            return (F.cross_entropy(logits[..., 0], starts.long())
+                    + F.cross_entropy(logits[..., 1], ends.long())) / 2
+
+    return Bert()
+
+
+def phase_bert_fused(device, limit, cfg=None, run=None):
+    """21a: BERT-base from ``incubate.nn``'s fused layers, decorate(O2,
+    bf16) + auto_cast, AdamW, B = 48, S = 384, dropout 0.1, no padding
+    mask.  Returns its launches over the timed steps."""
+    import paddle_tpu_torch as P
+
+    cfg = dict(BERT_FUSED, **(cfg or {}))
+    run = dict(BERT_FUSED_RUN, **(run or {}))
+    B, S, n, L, d = (run["batch"], run["seq"], run["steps"], cfg["layers"],
+                     cfg["d"])
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    P.seed(21)
+    prev = P.get_device()
+    P.set_device("gpu:0" if on_card else "cpu")
+    try:
+        model = _bert_fused(P, cfg, run["dropout"])
+    finally:
+        P.set_device(prev)
+    opt = P.optimizer.AdamW(learning_rate=run["lr"],
+                            parameters=model.parameters(), weight_decay=0.01)
+    model, opt = P.amp.decorate(models=model, optimizers=opt, level="O2",
+                                dtype="bfloat16")
+    batch = _bert_batch(cfg["vocab"], B, S, device, seed=21)
+
+    def step():
+        with P.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = model(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)                  # float() synchronises
+
+    counters = _train_counters()
+    _zero_counts(counters)
+    _reset_peak(device)
+    losses, step_ms = [], []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        losses.append(step())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = _counts(counters)
+    peak = _peak_gib(device)
+    want = {k: 0 for k in counters}
+    want.update(short_attention_fwd=L * n, short_attention_bwd=L * n)
+    if on_card and launches != want:
+        raise AssertionError(f"[bert-fused] launched {launches}, expected "
+                             f"{want} (one short-attention forward and "
+                             f"backward per fused layer and step)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[bert-fused] losses {losses}: not finite or "
+                             f"not falling")
+    P.amp.debugging.enable_operator_stats_collection()
+    try:
+        step()
+    finally:
+        stats = P.amp.debugging.disable_operator_stats_collection()
+    if not stats or stats.get(("matmul", "bfloat16"), 0) < 4 * L:
+        raise AssertionError(f"[bert-fused] operator stats {stats}")
+    t1 = time.perf_counter()
+    step()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    P.amp.debugging.enable_tensor_checker(
+        P.amp.debugging.TensorCheckerConfig(enable=True))
+    try:
+        t1 = time.perf_counter()
+        step()
+        checked_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        P.amp.debugging.disable_tensor_checker()
+    if P.amp.state.amp_state().tally is not None:
+        raise AssertionError("[bert-fused] stats collection left on")
+    ms = float(np.median(step_ms[1:]))
+    tokens = B * S
+    n_matmul = L * (4 * d * d + 2 * d * cfg["ffn"]) + 2 * d
+    fpt = 6 * n_matmul + 12 * L * d * S
+    mfu = fpt * tokens / (ms / 1e3) / BF16_FLOPS
+    ref = _RESULTS.get("bert_step_ms")
+    log(f"[bert-fused] BERT-base from incubate.nn.FusedTransformerEncoderLayer"
+        f" x {L} (d {d}, {cfg['heads']} heads, FFN {cfg['ffn']}, vocab "
+        f"{cfg['vocab']}, GELU, post-LN, dropout {run['dropout']}) + SQuAD "
+        f"head, decorate(O2, bf16) + auto_cast, AdamW({run['lr']}), B={B} "
+        f"S={S}: first step {step_ms[0]:.1f} ms; step {ms:.1f} ms (median "
+        f"of {n - 1}; {', '.join(f'{v:.1f}' for v in step_ms[1:])}) | "
+        f"{B / (ms / 1e3):.1f} sequences/s | MFU {mfu:.4f} (6N + 12LdS = "
+        f"{fpt:.4e} flops/token over {BF16_FLOPS / 1e12:g} TFLOP/s bf16) | "
+        f"peak memory {peak:.2f} GiB | loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} | operator stats of one step: {len(stats)} "
+        f"(op, dtype) rows, {sum(stats.values())} calls | short-attention "
+        f"launches "
+        f"{launches['short_attention_fwd']} fwd / "
+        f"{launches['short_attention_bwd']} bwd over {n} steps | phase 8's "
+        f"CompiledTrainStep BERT on this card: "
+        f"{'not run' if ref is None else f'{ref:.1f} ms'} a step | {limit}")
+    log(f"[bert-fused] a step with the tensor checker on "
+        f"(TensorCheckerConfig(enable=True): every op's outputs read for "
+        f"NaN/Inf) {checked_ms:.1f} ms beside {plain_ms:.1f} ms unchecked "
+        f"({checked_ms / plain_ms:.2f}x); built in "
+        f"{time.perf_counter() - t0 - sum(step_ms) / 1e3:.1f} s")
+    del model, opt, batch
+    _empty(device)
+    return launches
+
+
+def _llama_blocks(P, cfg):
+    """A user's Llama written with the incubate functional ops: each
+    block ``fused_rms_norm``, q/k/v projections, ``fused_rotary_position_
+    embedding``, ``F.flash_attention(causal=True)``, the output
+    projection, ``fused_rms_norm``, the ``swiglu`` MLP; a final
+    ``fused_rms_norm``, the LM head and the cross entropy."""
+    nn, F, IF = P.nn, P.nn.functional, P.incubate.nn.functional
+    d, H, L = cfg["d"], cfg["heads"], cfg["layers"]
+    Dh = d // H
+    ones = nn.initializer.Constant(1.0)
+
+    def lin(i, o):
+        return nn.Linear(i, o, bias_attr=False)
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = self.create_parameter([d], default_initializer=ones)
+            self.q, self.k, self.v, self.o = (lin(d, d) for _ in range(4))
+            self.ln2 = self.create_parameter([d], default_initializer=ones)
+            self.gate, self.up = lin(d, cfg["ffn"]), lin(d, cfg["ffn"])
+            self.down = lin(cfg["ffn"], d)
+
+        def forward(self, x, cos, sin):
+            B, S, _ = x.shape
+            h = IF.fused_rms_norm(x, self.ln1, 1e-6)
+            q, k, v = (m(h).reshape([B, S, H, Dh])
+                       for m in (self.q, self.k, self.v))
+            q, k, _ = IF.fused_rotary_position_embedding(q, k, sin=sin,
+                                                         cos=cos)
+            a, _ = F.flash_attention(q, k, v, causal=True)
+            x = x + self.o(a.reshape([B, S, d]))
+            h = IF.fused_rms_norm(x, self.ln2, 1e-6)
+            return x + self.down(IF.swiglu(self.gate(h), self.up(h)))
+
+    class Llama(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(cfg["vocab"], d)
+            self.blocks = nn.LayerList([Block() for _ in range(L)])
+            self.norm = self.create_parameter([d], default_initializer=ones)
+            self.head = lin(d, cfg["vocab"])
+
+        def forward(self, ids, labels, cos, sin):
+            x = self.embed(ids)
+            for blk in self.blocks:
+                x = blk(x, cos, sin)
+            logits = self.head(IF.fused_rms_norm(x, self.norm, 1e-6))
+            return F.cross_entropy(logits.reshape([-1, cfg["vocab"]]),
+                                   labels.reshape([-1]))
+
+    return Llama()
+
+
+def _rope_tables(S, D, device, base=10000.0):
+    inv = 1.0 / (base ** (torch.arange(0, D, 2, dtype=torch.float32,
+                                       device=device) / D))
+    ang = torch.arange(S, dtype=torch.float32, device=device)[:, None] * inv
+    ang = torch.cat([ang, ang], dim=-1)
+    return ang.cos(), ang.sin()
+
+
+def phase_llama_blocks(device, limit, cfg=None, run=None):
+    """21b: Llama-2-7B's width at 2 layers, B = 2, S = 2048, decorate(O2,
+    bf16) + auto_cast, ``FLAGS_use_fused_rms_norm`` on, 5 AdamW steps with
+    an ``ExponentialMovingAverage(decay=0.999)`` updated after each; one
+    step takes its gradients from ``paddle.grad``, which must equal
+    ``backward``'s bit for bit.  Returns its launches."""
+    import paddle_tpu_torch as P
+
+    cfg = dict(LLAMA_BLOCKS, **(cfg or {}))
+    run = dict(LLAMA_BLOCKS_RUN, **(run or {}))
+    B, S, n, L = run["batch"], run["seq"], run["steps"], cfg["layers"]
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    P.seed(21)
+    prev = P.get_device()
+    P.set_device("gpu:0" if on_card else "cpu")
+    try:
+        model = _llama_blocks(P, cfg)
+    finally:
+        P.set_device(prev)
+    opt = P.optimizer.AdamW(learning_rate=run["lr"],
+                            parameters=model.parameters(), weight_decay=0.1)
+    model, opt = P.amp.decorate(models=model, optimizers=opt, level="O2",
+                                dtype="bfloat16")
+    params = list(model.parameters())
+    ema = P.incubate.ExponentialMovingAverage(params, decay=0.999)
+    ids, labels = _tokens(cfg, B, S, device, seed=21)
+    cos, sin = _rope_tables(S, cfg["d"] // cfg["heads"], device)
+    counters = _train_counters()
+    per_step = {k: 0 for k in counters}
+    per_step.update(rms_norm_fwd=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                    attention_fwd=L, attention_bwd=L)
+    P.set_flags({"FLAGS_use_fused_rms_norm": True})
+    _zero_counts(counters)
+    _reset_peak(device)
+    losses, step_ms, same = [], [], None
+    try:
+        for i in range(n):
+            before = _counts(counters)
+            t1 = time.perf_counter()
+            with P.amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss = model(ids, labels, cos, sin)
+            if i == run["grad_step"]:
+                grads = P.grad(loss, params, retain_graph=True)
+                loss.backward()
+                same = all(torch.equal(g, p.grad)
+                           for g, p in zip(grads, params))
+                for g, p in zip(grads, params):
+                    p.grad = g
+            else:
+                loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ema.update()
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            got = {k: v - before[k] for k, v in _counts(counters).items()}
+            want = dict(per_step)
+            if i == run["grad_step"]:      # a second backward
+                want.update(rms_norm_bwd=2 * (2 * L + 1),
+                            attention_bwd=2 * L)
+            if on_card and got != want:
+                raise AssertionError(f"[llama-blocks] step {i} launched "
+                                     f"{got}, expected {want}")
+    finally:
+        P.set_flags({"FLAGS_use_fused_rms_norm": False})
+    launches = _counts(counters)
+    peak = _peak_gib(device)
+    if not same:
+        raise AssertionError("[llama-blocks] paddle.grad's gradients differ "
+                             "from backward's")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[llama-blocks] losses {losses}: not finite or "
+                             f"not falling")
+    ema.apply()
+    drift = max(float((p.detach().float() - ema._backup[id(p)].float())
+                      .abs().max()) for p in params)
+    ema.restore()
+    ms = float(np.median(step_ms[1:]))
+    log(f"[llama-blocks] Llama-2-7B width x {L} layers (d {cfg['d']}, "
+        f"{cfg['heads']} heads, FFN {cfg['ffn']}, vocab {cfg['vocab']}) from "
+        f"incubate.nn.functional (fused_rms_norm under "
+        f"FLAGS_use_fused_rms_norm, fused_rotary_position_embedding, swiglu) "
+        f"and F.flash_attention(causal=True), decorate(O2, bf16) + "
+        f"auto_cast, AdamW({run['lr']}) + EMA(0.999), B={B} S={S}: step "
+        f"{ms:.1f} ms (median of {n - 1}; "
+        f"{', '.join(f'{v:.1f}' for v in step_ms)}) | "
+        f"{B * S / (ms / 1e3):.0f} tokens/s | peak memory {peak:.2f} GiB | "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} | launches a step: "
+        f"RMSNorm {per_step['rms_norm_fwd']} + {per_step['rms_norm_bwd']}, "
+        f"long attention {L} + {L} (step {run['grad_step']}: paddle.grad "
+        f"then backward, gradients equal bit for bit) | EMA weights within "
+        f"{drift:.3e} of the live ones | built in "
+        f"{time.perf_counter() - t0 - sum(step_ms) / 1e3:.1f} s | {limit}")
+    del model, opt, ema, params
+    _empty(device)
+    return launches
+
+
+def _wgan_critic(P, ch):
+    """The WGAN-GP CIFAR-10 ResNet critic: an optimized first block
+    (3 -> ch, down), a residual block down, two residual blocks, ReLU,
+    mean pool, Linear(ch, 1); no normalization."""
+    nn = P.nn
+
+    class Block(nn.Layer):
+        def __init__(self, cin, down, first=False):
+            super().__init__()
+            self.first, self.down = first, down
+            self.c1 = nn.Conv2D(cin, ch, 3, padding=1)
+            self.c2 = nn.Conv2D(ch, ch, 3, padding=1)
+            self.sc = nn.Conv2D(cin, ch, 1) if (cin != ch or down) else None
+            self.pool = nn.AvgPool2D(2)
+            self.relu = nn.ReLU()
+
+        def forward(self, x):
+            h = x if self.first else self.relu(x)
+            h = self.c2(self.relu(self.c1(h)))
+            s = x
+            if self.down:
+                h = self.pool(h)
+                s = self.sc(self.pool(s)) if self.first else \
+                    self.pool(self.sc(s))
+            elif self.sc is not None:
+                s = self.sc(s)
+            return h + s
+
+    class Critic(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.blocks = nn.Sequential(Block(3, True, first=True),
+                                        Block(ch, True), Block(ch, False),
+                                        Block(ch, False))
+            self.fc = nn.Linear(ch, 1)
+
+        def forward(self, x):
+            h = P.nn.functional.relu(self.blocks(x))
+            return self.fc(h.mean(dim=(2, 3)))
+
+    return Critic()
+
+
+def _wgan_step(P, critic, real, fake, eps, lam):
+    """(loss, penalty) of one critic step: the Wasserstein estimate and
+    λ (‖∇D(x̂)‖ - 1)², the gradient through ``paddle.grad(...,
+    create_graph=True)``."""
+    xh = (eps * real + (1 - eps) * fake).detach()
+    xh.stop_gradient = False
+    d = critic(xh)
+    (g,) = P.grad(d, xh, grad_outputs=torch.ones_like(d), create_graph=True)
+    gp = ((g.reshape([g.shape[0], -1]).norm(2, dim=1) - 1) ** 2).mean()
+    loss = critic(fake).mean() - critic(real).mean() + lam * gp
+    return loss, gp
+
+
+def phase_wgan_gp(device, limit, cfg=None):
+    """21c: 5 critic steps of WGAN-GP's CIFAR-10 ResNet critic at 128
+    channels, 32 x 32, batch 64, λ = 10, Adam(1e-4, betas (0, 0.9)), on
+    seeded data, fp32."""
+    import paddle_tpu_torch as P
+
+    cfg = dict(WGAN, **(cfg or {}))
+    B, ch, hw = cfg["batch"], cfg["ch"], cfg["image"]
+    P.seed(21)
+    prev = P.get_device()
+    P.set_device("gpu:0" if device.type == "cuda" else "cpu")
+    try:
+        critic = _wgan_critic(P, ch)
+    finally:
+        P.set_device(prev)
+    opt = P.optimizer.Adam(learning_rate=cfg["lr"], beta1=cfg["betas"][0],
+                           beta2=cfg["betas"][1],
+                           parameters=critic.parameters())
+    gen = torch.Generator(device=device).manual_seed(21)
+    penalties, step_ms = [], []
+    for _ in range(cfg["steps"]):
+        real = torch.rand(B, 3, hw, hw, generator=gen, device=device) * 2 - 1
+        fake = torch.randn(B, 3, hw, hw, generator=gen, device=device)
+        eps = torch.rand(B, 1, 1, 1, generator=gen, device=device)
+        t1 = time.perf_counter()
+        loss, gp = _wgan_step(P, critic, real, fake, eps, cfg["lam"])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        penalties.append(float(gp))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    if not all(np.isfinite(penalties)):
+        raise AssertionError(f"[wgan-gp] penalties {penalties}")
+    n_params = sum(p.numel() for p in critic.parameters())
+    log(f"[wgan-gp] CIFAR-10 ResNet critic ({ch} channels, "
+        f"{n_params / 1e6:.3f} M parameters), batch {B} at {hw}x{hw}, "
+        f"λ {cfg['lam']}, Adam({cfg['lr']}, betas {cfg['betas']}), fp32: "
+        f"critic step {np.median(step_ms[1:]):.1f} ms (median of "
+        f"{len(step_ms) - 1}; {', '.join(f'{v:.1f}' for v in step_ms)}) "
+        f"with the penalty's gradient through paddle.grad(create_graph="
+        f"True) | penalties {[round(v, 5) for v in penalties]} | {limit}")
+    del critic, opt
+    _empty(device)
+
+
+def _gram(f):
+    b, c, h, w = f.shape
+    f = f.reshape([b, c, h * w])
+    return f @ f.transpose(1, 2) / (c * h * w)
+
+
+def phase_style_lbfgs(device, limit, cfg=None):
+    """21d: neural style transfer on the zoo's VGG-19 features (seeded
+    random weights), one 512 x 512 image, content at conv4_2, style Gram
+    matrices at conv1_1 ... conv5_1, ``LBFGS(learning_rate=1, max_iter=
+    20, history_size=100, line_search_fn="strong_wolfe")`` for 5 outer
+    steps; the loss must fall."""
+    import paddle_tpu_torch as P
+
+    cfg = dict(STYLE, **(cfg or {}))
+    n = cfg["image"]
+    vgg = P.vision.models.vgg19(num_classes=0, with_pool=False,
+                                device=device, seed=21).features
+    last = max(VGG19_LAYERS[k] for k in (cfg["content"],) + cfg["style"])
+    layers = list(vgg)[:last + 2]
+    for p in vgg.parameters():
+        p.stop_gradient = True
+    taps = {VGG19_LAYERS[k] + 1: k for k in (cfg["content"],) + cfg["style"]}
+
+    def feats(x):
+        out = {}
+        for i, layer in enumerate(layers):
+            x = layer(x)
+            if i in taps:
+                out[taps[i]] = x
+        return out
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    content = torch.rand(1, 3, n, n, generator=gen, device=device)
+    style = torch.rand(1, 3, n, n, generator=gen, device=device)
+    with torch.no_grad():
+        fc = feats(content)[cfg["content"]]
+        fs = {k: _gram(v) for k, v in feats(style).items()
+              if k in cfg["style"]}
+    img = content.clone()
+    img.stop_gradient = False
+    opt = P.optimizer.LBFGS(learning_rate=1, max_iter=cfg["max_iter"],
+                            history_size=cfg["history"],
+                            line_search_fn="strong_wolfe", parameters=[img])
+
+    def loss_of(x):
+        f = feats(x)
+        loss = ((f[cfg["content"]] - fc) ** 2).mean()
+        for k in cfg["style"]:
+            loss = loss + 1e3 * ((_gram(f[k]) - fs[k]) ** 2).sum()
+        return loss
+
+    def closure():
+        opt.clear_grad()
+        loss = loss_of(img)
+        loss.backward()
+        return loss
+
+    with torch.no_grad():
+        start = float(loss_of(img))
+    losses, step_ms = [], []
+    for _ in range(cfg["outer"]):
+        t1 = time.perf_counter()
+        losses.append(float(opt.step(closure)))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    evals = opt._state["func_evals"]
+    if not all(np.isfinite(losses)) or not losses[-1] < start:
+        raise AssertionError(f"[style-lbfgs] loss {start} -> {losses}: not "
+                             f"finite or not falling")
+    log(f"[style-lbfgs] VGG-19 features (seeded random weights) on one "
+        f"{n}x{n} image, content {cfg['content']}, style "
+        f"{'/'.join(cfg['style'])}, LBFGS(lr 1, max_iter {cfg['max_iter']}, "
+        f"history {cfg['history']}, strong_wolfe), fp32: outer step "
+        f"{np.mean(step_ms):.1f} ms (mean of {len(step_ms)}; "
+        f"{', '.join(f'{v:.1f}' for v in step_ms)}), {evals} evaluations | "
+        f"loss {start:.6g} -> {[f'{v:.6g}' for v in losses]} | {limit}")
+    del vgg, layers, img, opt
+    _empty(device)
+
+
+def _reg_cases(P, rng):
+    """{name: (fn, numpy inputs, differentiable)} of 21e's op leg: the
+    new families (linalg, lowrank, extra, tail, fp8) from ``P``, each
+    output taken in a form both devices agree on (decompositions through
+    what they reconstruct or their invariants)."""
+    def arr(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    a, b = arr(5, 5), arr(5, 3)
+    spd = (a @ a.T + 5 * np.eye(5)).astype(np.float32)
+    x, y = arr(3, 4, 5), arr(3, 4, 5, lo=0.2, hi=2.0)
+    v, w = arr(6), arr(6)
+    ids = rng.integers(0, 6, (12,)).astype(np.int64)
+    low = (arr(6, 2) @ arr(2, 5)).astype(np.float32)
+    cases = {
+        "mm": (P.mm, [a, b], True), "bmm": (P.bmm, [x, x.transpose(0, 2, 1)],
+                                           True),
+        "inner": (P.inner, [x, y], True), "dot": (P.dot, [v, w], True),
+        "outer": (P.outer, [v, w], True),
+        "addmm": (lambda i, p, q: P.addmm(i, p, q, 0.5, 2.0),
+                  [arr(5, 3), a, b], True),
+        "einsum": (lambda p, q: P.einsum("bij,bkj->bik", p, q), [x, y],
+                   True),
+        "norm": (lambda t: P.linalg.norm(t, p=3, axis=1), [x], True),
+        "dist": (lambda p, q: P.dist(p, q, 2), [x, y], True),
+        "triangular_solve": (lambda p, q: P.linalg.triangular_solve(
+            p.triu() + 3 * torch.eye(5, device=p.device), q), [a, b], True),
+        "cholesky": (P.linalg.cholesky, [spd], True),
+        "inverse": (P.linalg.inv, [spd], True),
+        "det": (P.linalg.det, [spd], True),
+        "slogdet": (P.linalg.slogdet, [spd], False),
+        "solve": (P.linalg.solve, [spd, b], True),
+        "svd[s, usv]": (lambda t: (lambda u, s, vv: (
+            s, u @ torch.diag(s) @ vv.T))(*P.linalg.svd(t)), [b], False),
+        "qr[qr, |r|]": (lambda t: (lambda q, r: (q @ r, r.abs()))(
+            *P.linalg.qr(t)), [b], False),
+        "eigh[w]": (lambda t: P.linalg.eigh(t)[0], [spd], False),
+        "eigvalsh": (P.linalg.eigvalsh, [spd], False),
+        "svdvals": (P.linalg.svdvals, [b], False),
+        "matrix_power": (lambda t: P.linalg.matrix_power(t, 3), [a], True),
+        "pinv": (P.linalg.pinv, [b], False),
+        "matrix_rank": (P.linalg.matrix_rank, [low], False),
+        "cross": (lambda p, q: P.cross(p, q, axis=1), [arr(4, 3), arr(4, 3)],
+                  True),
+        "histogram": (lambda t: P.histogram(t, 7, -1, 1), [x], False),
+        "bincount": (lambda t: P.bincount(t, minlength=8), [ids], False),
+        "lu[plu]": (lambda t: (lambda pl, ll, uu: pl @ ll @ uu)(
+            *P.linalg.lu_unpack(*P.linalg.lu(t))), [a], False),
+        "cholesky_solve": (lambda p, q: P.linalg.cholesky_solve(
+            q, P.linalg.cholesky(p)), [spd, b], False),
+        "cond": (P.linalg.cond, [spd], False),
+        "corrcoef": (P.linalg.corrcoef, [arr(3, 7)], False),
+        "cov": (P.linalg.cov, [arr(3, 7)], False),
+        "lstsq": (lambda p, q: P.linalg.lstsq(p, q)[0],
+                  [arr(7, 3), arr(7, 2)], False),
+        "matrix_exp": (P.linalg.matrix_exp, [a * 0.3], False),
+        "multi_dot": (lambda p, q: P.linalg.multi_dot([p, q, q.T]),
+                      [a, b], True),
+        "vector_norm": (lambda t: P.linalg.vector_norm(t, 3, axis=[0, 2]),
+                        [x], True),
+        "matrix_norm[fro, nuc, 1]": (lambda t: (
+            P.linalg.matrix_norm(t), P.linalg.matrix_norm(t, "nuc"),
+            P.linalg.matrix_norm(t, 1)), [x], False),
+        "svd_lowrank[s]": (lambda t: P.linalg.svd_lowrank(t, q=2)[1],
+                           [low], False),
+        "householder_product": (lambda t: P.linalg.householder_product(
+            *torch.geqrf(t)), [b], False),
+        "fp8_fp8_half_gemm_fused": (lambda p, q: P.fp8_fp8_half_gemm_fused(
+            p, q, transpose_y=True, output_dtype="bfloat16").float(),
+            [arr(16, 32), arr(16, 32)], False),
+        "kron": (P.kron, [a[:2, :2], b[:2]], True),
+        "trace": (lambda t: P.trace(t, 1), [a], True),
+        "heaviside": (P.heaviside, [x, y], False),
+        "copysign": (P.copysign, [y, x], True),
+        "ldexp": (lambda t: P.ldexp(t, P.to_tensor(np.arange(5) - 2,
+                                                    place=t.device)),
+                  [x], True),
+        "hypot": (P.hypot, [x, y], True),
+        "deg2rad": (P.deg2rad, [x], True), "rad2deg": (P.rad2deg, [x], True),
+        "diff": (lambda t: P.diff(t, n=2, axis=-1), [x], True),
+        "trapezoid": (lambda t: P.trapezoid(t, dx=0.5), [x], True),
+        "cumulative_trapezoid": (P.cumulative_trapezoid, [x], True),
+        "vander": (lambda t: P.vander(t, 4), [v], True),
+        "logcumsumexp": (lambda t: P.logcumsumexp(t, 1), [x], True),
+        "renorm": (lambda t: P.renorm(t, 2.0, 1, 1.0), [x], True),
+        "cdist": (P.cdist, [arr(4, 3), arr(5, 3)], True),
+        "pdist": (P.pdist, [arr(5, 3)], True),
+        "tensordot": (lambda p, q: P.tensordot(p, q, [[1, 2], [1, 2]]),
+                      [x, y], True),
+        "bucketize": (lambda t: P.bucketize(t, P.to_tensor(
+            np.linspace(-1, 1, 5).astype(np.float32), place=t.device)),
+            [x], False),
+        "searchsorted": (lambda t: P.searchsorted(P.to_tensor(
+            np.linspace(-1, 1, 5).astype(np.float32), place=t.device), t),
+            [x], False),
+        "nanmedian": (lambda t: P.nanmedian(t, axis=1), [x], True),
+        "nanquantile": (lambda t: P.nanquantile(t, 0.3, axis=2), [x], True),
+        "mode": (lambda t: P.mode(P.round(t * 2), axis=1), [x], False),
+        "kthvalue": (lambda t: P.kthvalue(t, 2, axis=2), [x], True),
+        "rot90": (lambda t: P.rot90(t, 1, [1, 2]), [x], True),
+        "take": (lambda t: P.take(t, P.to_tensor(np.array([0, 7, -1, 33]),
+                                                 place=t.device)), [x], True),
+        "index_add": (lambda t, u: P.index_add(t, P.to_tensor(
+            np.array([0, 2, 0]), place=t.device), 1, u), [x, arr(3, 3, 5)],
+            True),
+        "index_fill": (lambda t: P.index_fill(t, P.to_tensor(
+            np.array([1, 3]), place=t.device), 1, 0.5), [x], True),
+        "index_put": (lambda t, u: P.index_put(t, (P.to_tensor(
+            np.array([0, 2]), place=t.device),), u, True), [x, arr(4, 5)],
+            True),
+        "unfold": (lambda t: P.unfold(t, 2, 2, 1), [x], True),
+        "as_strided": (lambda t: P.as_strided(t, [3, 4], [5, 2], 1), [x],
+                       True),
+        "select_scatter": (lambda t, u: P.select_scatter(t, u, 1, 2),
+                           [x, arr(3, 5)], True),
+        "slice_scatter": (lambda t, u: P.slice_scatter(
+            t, u, [2], [1], [5], [2]), [x, arr(3, 4, 2)], True),
+        "diagonal_scatter": (lambda t, u: P.diagonal_scatter(t, u, 1),
+                             [a, arr(4)], True),
+        "masked_scatter": (lambda t, u: P.masked_scatter(t, t > 0, u),
+                           [x, arr(60)], True),
+        "stack family": (lambda t: (P.column_stack([t[0, 0], t[1, 0]]),
+                                    P.row_stack([t[0], t[1]]),
+                                    P.dstack([t[0], t[1]]),
+                                    P.hstack([t[0], t[1]]),
+                                    P.vstack([t[0], t[1]]),
+                                    *P.atleast_3d(t[0, 0], t[0])), [x], True),
+        "split family": (lambda t: (*P.tensor_split(t, 3, 2),
+                                    *P.hsplit(t, [1, 3]), *P.vsplit(t, 3),
+                                    *P.dsplit(t, [2])), [x], True),
+        "diagflat": (lambda t: P.diagflat(t, 1), [v], True),
+        "real/imag/conj/angle": (lambda t: (P.real(t), P.imag(t), P.conj(t),
+                                            P.angle(t)), [x], False),
+        "polar/sgn": (lambda p, q: (P.real(P.polar(p, q)),
+                                    P.imag(P.polar(p, q)), P.sgn(q)),
+                      [y, x], False),
+        "predicates": (lambda t: (P.isreal(t), P.isneginf(t / 0 * -1),
+                                  P.isposinf(t / 0), P.signbit(t),
+                                  P.isin(t, t[0])), [x], False),
+        "sinc/logit/round": (lambda t: (P.sinc(t), P.logit(t * 0.4 + 0.5, 1e-3),
+                                        P.round(t * 10, 1)), [x], True),
+        "nextafter": (P.nextafter, [x, y], False),
+        "special": (lambda t: (P.gammaln(t), P.gammainc(t, t * 2),
+                               P.gammaincc(t, t * 2), P.multigammaln(t + 2, 3),
+                               P.i0e(t), P.i1(t), P.i1e(t),
+                               P.polygamma(t, 1)), [y], False),
+        "block_diag/add_n/cartesian_prod": (lambda t: (
+            P.block_diag([t[0], t[1, :2]]), P.add_n([t, t, t]),
+            P.cartesian_prod([t[0, 0], t[1, 1, :2]])), [x], True),
+        "combinations": (lambda t: P.combinations(t, 2), [v], True),
+        "reverse/crop/unflatten": (lambda t: (
+            P.reverse(t, [0, 2]), P.crop(t, [2, 2, -1], [1, 1, 2]),
+            P.unflatten(t, 2, [5, 1])), [x], True),
+        "view_as/strided_slice": (lambda t: (
+            P.view_as(t, t.reshape(4, 15)),
+            P.strided_slice(t, [1, 2], [3, 0], [0, 5], [-1, 2])), [x], True),
+        "scatter_nd": (lambda u: P.scatter_nd(P.to_tensor(
+            np.array([[1], [3], [1]]), place=u.device), u, [5, 4]),
+            [arr(3, 4)], True),
+        "index_sample": (lambda t: P.index_sample(t, P.to_tensor(
+            np.array([[0, 3], [2, 2], [4, 1]]), place=t.device)), [b.T], True),
+        "multiplex": (lambda p, q: P.multiplex([p, q], P.to_tensor(
+            np.array([[1], [0], [1], [0], [0]]), place=p.device)),
+            [a, a * 2], True),
+        "shard_index": (lambda t: P.shard_index(t.reshape(-1, 1), 6, 2, 1),
+                        [ids], False),
+        "reduce_as": (lambda t: P.reduce_as(t, t[0, :, :1]), [x], True),
+        "tril/triu_indices": (lambda t: (P.tril_indices(4, 5, 1),
+                                         P.triu_indices(4, None, -1)), [x],
+                              False),
+        "frexp": (P.frexp, [x], False),
+        "bit shifts": (lambda t: (P.bitwise_left_shift(t, 2),
+                                  P.bitwise_right_shift(-t, 1, False),
+                                  P.bitwise_right_shift(-t, 1)), [ids], False),
+        "histogramdd": (lambda t: P.histogramdd(t, 3), [arr(20, 2)], False),
+        "mv": (P.mv, [a, v[:5]], True),
+    }
+    return cases
+
+
+def _reg_ops(P, device, cpu, rng):
+    """21e (i): every case of :func:`_reg_cases` on the card and on the
+    CPU, values and fp32 gradients within 1e-5 of the largest value
+    (fp8 within its bf16 output's ulp).  Returns (comparisons, in-place
+    variants, worst error, worst fp8 error)."""
+    worst, worst8, n = 0.0, 0.0, 0
+    for tag, (fn, arrays, diff) in _reg_cases(P, rng).items():
+        ins, outs = {}, {}
+        for side, d in (("card", device), ("cpu", cpu)):
+            ts = [P.to_tensor(arr_, place=d) for arr_ in arrays]
+            if diff:
+                for t in ts:
+                    if t.is_floating_point():
+                        t.stop_gradient = False
+            ins[side] = ts
+            outs[side] = [o for o in _ns_leaves(fn(*ts))
+                          if isinstance(o, torch.Tensor)]
+        tol = 1e-2 if "fp8" in tag else 1e-5
+        for i, (g, w) in enumerate(zip(outs["card"], outs["cpu"])):
+            e = _ns_close(f"{tag} out {i}", g, w, tol,
+                          prefix="[autograd-parity]")
+            if "fp8" in tag:
+                worst8 = max(worst8, e)
+            else:
+                worst = max(worst, e)
+            n += 1
+        if not diff:
+            continue
+        for side, d in (("card", device), ("cpu", cpu)):
+            terms = [(o * torch.linspace(-1, 1, o.numel()).reshape(
+                o.shape).to(d)).sum() for o in outs[side]
+                if o.is_floating_point() and o.requires_grad]
+            if terms:
+                sum(terms).backward()
+        for i, (g, w) in enumerate(zip(ins["card"], ins["cpu"])):
+            if w.grad is not None:
+                worst = max(worst, _ns_close(f"{tag} grad {i}", g.grad,
+                                             w.grad, 1e-5,
+                                             prefix="[autograd-parity]"))
+                n += 1
+    x = rng.uniform(0.3, 2.0, (6, 5)).astype(np.float32)
+    inplace = [("addmm_", (x[:, :3], x[:, :4], x[:4, :3])),
+               ("copysign_", (x, -x)), ("hypot_", (x, x)),
+               ("ldexp_", (x, np.full((6, 5), 2))),
+               ("gammainc_", (x, x)), ("gammaincc_", (x, x)),
+               ("gammaln_", (x,)), ("logit_", (x * 0.3,)),
+               ("sinc_", (x,)), ("multigammaln_", (x + 2, 2)),
+               ("polygamma_", (x, 1)), ("renorm_", (x, 2.0, 0, 1.0)),
+               ("index_add_", (x, np.array([0, 4]), 1, x[:, :2])),
+               ("index_fill_", (x, np.array([1]), 0, 3.0)),
+               ("masked_scatter_", (x, x > 1, x * 3)),
+               ("bitwise_left_shift_", (np.arange(6), np.ones(6, int))),
+               ("bitwise_right_shift_", (np.arange(6) * 8, np.ones(6, int))),
+               ("index_put_", (x, (np.array([0, 2]),), x[:2], True))]
+    for name, argv in inplace:
+        res = []
+        for d in (device, cpu):
+            def conv(a_):
+                if isinstance(a_, np.ndarray):
+                    return P.to_tensor(a_, place=d)
+                if isinstance(a_, tuple):
+                    return tuple(conv(e) for e in a_)
+                return a_
+            t = conv(argv[0])
+            if getattr(P, name)(t, *[conv(a_) for a_ in argv[1:]]) is not t:
+                raise AssertionError(f"[autograd-parity] {name}: a new "
+                                     f"object")
+            res.append(t)
+        worst = max(worst, _ns_close(f"{name} in place", res[0], res[1],
+                                     1e-5, prefix="[autograd-parity]"))
+        n += 1
+    return n, len(inplace), worst, worst8
+
+
+def _small_mlp(P, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    m = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                            torch.nn.Linear(16, 4))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    return m.to(device)
+
+
+def _reg_optimizers(P, device, cpu):
+    """21e (ii): the seven new optimizers, LookAhead around SGD, and
+    ModelAverage and EMA around Adam, 5 steps each on a small MLP on
+    both devices: parameters within 1e-5 (relative to the largest)."""
+    makers = {
+        "Adamax": lambda ps: P.optimizer.Adamax(0.01, parameters=ps),
+        "NAdam": lambda ps: P.optimizer.NAdam(0.01, parameters=ps),
+        "RAdam": lambda ps: P.optimizer.RAdam(0.01, parameters=ps),
+        "Adadelta": lambda ps: P.optimizer.Adadelta(1.0, parameters=ps),
+        "Rprop": lambda ps: P.optimizer.Rprop(0.01, parameters=ps),
+        "ASGD": lambda ps: P.optimizer.ASGD(0.05, batch_num=2, parameters=ps),
+        "LBFGS": lambda ps: P.optimizer.LBFGS(
+            1.0, max_iter=4, line_search_fn="strong_wolfe", parameters=ps),
+        "LookAhead(SGD)": lambda ps: P.incubate.LookAhead(
+            P.optimizer.SGD(0.1, parameters=ps), alpha=0.5, k=2),
+    }
+    rng = np.random.default_rng(21)
+    xs = rng.standard_normal((5, 12, 8)).astype(np.float32)
+    ys = rng.standard_normal((5, 12, 4)).astype(np.float32)
+    worst = 0.0
+    for name, make in list(makers.items()) + [("ModelAverage+EMA", None)]:
+        finals = []
+        for d in (device, cpu):
+            m = _small_mlp(P, d)
+            ps = list(m.parameters())
+            if make is None:
+                opt = P.optimizer.Adam(0.01, parameters=ps)
+                avg = P.incubate.ModelAverage(0.5, parameters=ps,
+                                              min_average_window=2,
+                                              max_average_window=3)
+                ema = P.incubate.ExponentialMovingAverage(ps, decay=0.9)
+            else:
+                opt = make(ps)
+            for i in range(5):
+                x, y = (torch.as_tensor(a[i], device=d) for a in (xs, ys))
+
+                def closure():
+                    opt.clear_grad()
+                    loss = ((m(x) - y) ** 2).mean()
+                    loss.backward()
+                    return loss
+                if name == "LBFGS":
+                    opt.step(closure)
+                    continue
+                closure()
+                opt.step()
+                if make is None:
+                    avg.step()
+                    ema.update()
+            out = [p.detach().clone() for p in ps]
+            if make is None:
+                avg.apply()
+                out += [p.detach().clone() for p in ps]
+                avg.restore()
+                ema.apply()
+                out += [p.detach().clone() for p in ps]
+                ema.restore()
+            finals.append(out)
+        for i, (g, w) in enumerate(zip(*finals)):
+            worst = max(worst, _ns_close(f"{name} param {i}", g, w, 1e-5,
+                                         prefix="[autograd-parity]"))
+    return len(makers) + 1, worst
+
+
+def _reg_autograd(P, device, cpu):
+    """21e (iii): PyLayer, hooks, paddle.grad (first and second order:
+    fault 2's cases, the refusing kernel Function), jacobian, hessian,
+    jvp and vjp, card against CPU within 1e-5."""
+    F = P.nn.functional
+
+    class Cube(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x ** 3
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensor
+            return 3 * x * x * g
+
+    rng = np.random.default_rng(21)
+    xa = rng.standard_normal((4, 3, 5, 5)).astype(np.float32)
+    za = rng.standard_normal((6, 5)).astype(np.float32)
+    lab = np.array([0, 1, 2, 3, 4, 0])
+
+    def second(t, f, red):
+        (g,) = P.grad(f(t), t, create_graph=True)
+        return [g] + P.grad(red(g), t)
+
+    results = {}
+    P.seed(0)                   # the CPU's draws, copied to the card
+    layers = (P.nn.BatchNorm2D(3), P.nn.Conv2D(3, 4, 3, padding=1))
+    for side, d in (("card", device), ("cpu", cpu)):
+        out = []
+        t = P.to_tensor(za, place=d, stop_gradient=False)
+        y = Cube.apply(t)
+        seen = []
+        t.register_hook(lambda g: seen.append(g.clone()) or g * 2)
+        (y.sum() + t.sum()).backward()
+        out += [y, t.grad, seen[0]]
+        bn, conv = (copy.deepcopy(m).to(d) for m in layers)
+        tx = P.to_tensor(xa, place=d, stop_gradient=False)
+        out += second(tx, lambda u: (bn(u) ** 3).sum(), lambda g: g.sum())
+        tz = P.to_tensor(za, place=d, stop_gradient=False)
+        tl = P.to_tensor(lab, place=d)
+        out += second(tz, lambda u: F.cross_entropy(u, tl),
+                      lambda g: (g ** 2).sum())
+        out += second(tx, lambda u: (conv(u) ** 2).sum(), lambda g: g.sum())
+        out += second(tz, lambda u: (F.hardswish(u) ** 3).sum(),
+                      lambda g: g.sum())
+        out += second(tz, lambda u: (P.max(u, axis=1) ** 2).sum(),
+                      lambda g: (g ** 3).sum())
+        fn = (lambda u: (u.sin() * u).sum(1))
+        out.append(P.autograd.jacobian(fn, tz))
+        out.append(P.autograd.hessian(lambda u: (u ** 3).sum(), tz))
+        out += list(P.autograd.jvp(fn, tz))
+        o, g = P.autograd.vjp(fn, tz)
+        out += [o, g]
+        P.set_flags({"FLAGS_use_fused_rms_norm": True})
+        try:
+            tw = P.to_tensor(za[0], place=d, stop_gradient=False)
+            (P.grad(F.rms_norm(tz, tw).sum(), tz, create_graph=True))
+            raise AssertionError(f"[autograd-parity] the fused RMSNorm "
+                                 f"Function differentiated twice on {d}")
+        except RuntimeError as e:
+            if "create_graph" not in str(e):
+                raise
+        finally:
+            P.set_flags({"FLAGS_use_fused_rms_norm": False})
+        results[side] = out
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(results["card"], results["cpu"])):
+        worst = max(worst, _ns_close(f"autograd out {i}", g, w, 1e-5,
+                                     prefix="[autograd-parity]"))
+    return len(results["cpu"]), worst
+
+
+def _reg_debugging(P, device, cpu):
+    """21e (iv): the operator-stats table of a small O1 forward is the
+    same on both devices; the tensor checker raises FloatingPointError
+    on the card as on the CPU, with the reference's message."""
+    tables = []
+    for d in (device, cpu):
+        m = _small_mlp(P, d)
+        x = torch.ones(4, 8, device=d)
+        P.amp.debugging.enable_operator_stats_collection()
+        try:
+            with P.amp.auto_cast(level="O1"):
+                P.nn.functional.softmax(m(x) * 2.0 + 1.0)
+        finally:
+            tables.append(P.amp.debugging.disable_operator_stats_collection())
+    if tables[0] != tables[1] or not tables[0]:
+        raise AssertionError(f"[autograd-parity] operator stats differ: "
+                             f"{tables}")
+    msgs = []
+    P.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        for d in (device, cpu):
+            try:
+                P.log(P.to_tensor([-1.0], place=d))
+            except FloatingPointError as e:
+                msgs.append(str(e))
+    finally:
+        P.set_flags({"FLAGS_check_nan_inf": False})
+    want = "Operator log output contains NaN/Inf"
+    if msgs != [want, want]:
+        raise AssertionError(f"[autograd-parity] the tensor checker gave "
+                             f"{msgs}")
+    return len(tables[0])
+
+
+def _reg_wgan_toy(P, device, cpu):
+    """21e (v): 21c's loss and penalty gradient at toy width (8 channels,
+    8 x 8, batch 4): the critic's gradients, card against CPU."""
+    grads, vals = [], []
+    rng = np.random.default_rng(21)
+    real, fake = (rng.standard_normal((4, 3, 8, 8)).astype(np.float32)
+                  for _ in range(2))
+    eps = rng.random((4, 1, 1, 1)).astype(np.float32)
+    P.seed(3)                   # the CPU's draws, copied to the card
+    base = _wgan_critic(P, 8)
+    for d in (device, cpu):
+        critic = copy.deepcopy(base).to(d)
+        loss, gp = _wgan_step(P, critic, *(P.to_tensor(a, place=d)
+                                           for a in (real, fake, eps)), 10.0)
+        loss.backward()
+        vals.append(torch.stack([loss.detach(), gp.detach()]))
+        grads.append([p.grad for p in critic.parameters()])
+    worst = _ns_close("wgan loss, penalty", vals[0], vals[1], 1e-5,
+                      prefix="[autograd-parity]")
+    for i, (g, w) in enumerate(zip(*grads)):
+        worst = max(worst, _ns_close(f"wgan grad {i}", g, w, 1e-5,
+                                     prefix="[autograd-parity]"))
+    return worst
+
+
+def _reg_rms_norm(device, cpu):
+    """21e (vi): the RMSNorm kernels at the new shapes (fp16 at h = 4097
+    and 32768, fp32 x with bf16 / fp16 weights) against their plain
+    versions on the CPU from the same values, one fp16 ulp."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+    g = torch.Generator().manual_seed(21)
+    worst = 0.0
+    saved = (rn.rms_norm_fwd.launches, rn.rms_norm_bwd.launches)
+    for h, xd, wd in ((4097, torch.float16, torch.float32),
+                      (32768, torch.float16, torch.float16),
+                      (4097, torch.float32, torch.bfloat16),
+                      (4097, torch.float32, torch.float16)):
+        x = torch.randn(3, h, generator=g).to(xd)
+        w = (1 + 0.1 * torch.randn(h, generator=g)).to(wd)
+        dy = torch.randn(3, h, generator=g).to(xd)
+        res = []
+        for d in (device, cpu):
+            out, rstd = rn.rms_norm_fwd(x.to(d), w.to(d), 1e-6)
+            res.append((out, rn.rms_norm_bwd(x.to(d), w.to(d), rstd,
+                                             dy.to(d))))
+        tol = 2.0 ** -10 if xd == torch.float16 else 1e-5
+        for i in range(2):
+            worst = max(worst, _ns_close(f"rms_norm h={h} {xd}/{wd} {i}",
+                                         res[0][i], res[1][i], tol,
+                                         prefix="[autograd-parity]"))
+    rn.rms_norm_fwd.launches, rn.rms_norm_bwd.launches = saved
+    return worst
+
+
+def phase_autograd_parity(device, limit):
+    """21e: card = CPU for the new ops, optimizers, autograd and
+    debugging surface, 21c's penalty at toy width and the RMSNorm kernels
+    at their new shapes."""
+    import paddle_tpu_torch as P
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(21)
+    prev = P.get_device()
+    P.set_device("cpu")
+    try:
+        n_ops, n_inplace, w_ops, w_fp8 = _reg_ops(P, device, cpu, rng)
+        n_opt, w_opt = _reg_optimizers(P, device, cpu)
+        n_ag, w_ag = _reg_autograd(P, device, cpu)
+        n_stats = _reg_debugging(P, device, cpu)
+        w_wgan = _reg_wgan_toy(P, device, cpu)
+    finally:
+        P.set_device(prev)
+    w_rms = _reg_rms_norm(device, cpu) if device.type == "cuda" else 0.0
+    log(f"[autograd-parity] card vs CPU from the same seeded inputs: (i) "
+        f"{n_ops} outputs and fp32 gradients of the new linalg, lowrank, "
+        f"fp8, extra and tail ops and {n_inplace} in-place variants, worst "
+        f"{w_ops:.2e} of the largest value (limit 1e-5), the fp8 GEMM "
+        f"{w_fp8:.2e} (limit 1e-2); (ii) "
+        f"{n_opt} optimizers and wrappers over 5 steps on an MLP, worst "
+        f"{w_opt:.2e}; (iii) {n_ag} PyLayer, hook, paddle.grad first and "
+        f"second order (batch norm, cross entropy, conv, hardswish, max) "
+        f"and jacobian/hessian/jvp/vjp values, worst {w_ag:.2e}, the fused "
+        f"RMSNorm refusing create_graph on both; (iv) the operator-stats "
+        f"table of an O1 forward equal ({n_stats} rows) and the tensor "
+        f"checker raising FloatingPointError on both; (v) WGAN-GP's penalty "
+        f"gradient at toy width, worst {w_wgan:.2e}; (vi) RMSNorm kernels "
+        f"at h = 4097 / 32768 (fp16, fp32 x with 16-bit weights) against "
+        f"the plain versions, worst {w_rms:.2e} (limit one fp16 ulp) | "
+        f"phase {time.perf_counter() - t0:.1f} s | {limit}")
+    _empty(device)
+
+
+def phase_autograd_incubate(device, limit):
+    """21 (module docstring): the op registry, autograd and the incubate
+    surface as a user drives them.  Returns {kernel: launches} of 21a
+    and 21b together."""
+    t0 = time.perf_counter()
+    bert = phase_bert_fused(device, limit)
+    t_a = time.perf_counter()
+    llama = phase_llama_blocks(device, limit)
+    t_b = time.perf_counter()
+    phase_wgan_gp(device, limit)
+    t_c = time.perf_counter()
+    phase_style_lbfgs(device, limit)
+    t_d = time.perf_counter()
+    phase_autograd_parity(device, limit)
+    log(f"[autograd] legs: 21a {t_a - t0:.1f} s, 21b {t_b - t_a:.1f} s, 21c "
+        f"{t_c - t_b:.1f} s, 21d {t_d - t_c:.1f} s, 21e "
+        f"{time.perf_counter() - t_d:.1f} s")
+    return {k: bert[k] + llama[k] for k in bert}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -7877,6 +8996,11 @@ def main():
                            "short_attention_fwd", "short_attention_bwd"):
             row["nn_launches"] = nn_launches[row["name"]]
     elapsed("phase 20")
+    inc_launches = phase_autograd_incubate(device, limit)
+    for row in rows:
+        if row["name"] in inc_launches:
+            row["incubate_launches"] = inc_launches[row["name"]]
+    elapsed("phase 21")
     log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7884,7 +9008,8 @@ def main():
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("replay_launches", "verify_launches",
                                   "durable_launches", "elastic_launches",
-                                  "decode_13b_launches", "nn_launches")
+                                  "decode_13b_launches", "nn_launches",
+                                  "incubate_launches")
          if k in r}
         for r in rows]}))
     print(limit)

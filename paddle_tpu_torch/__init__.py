@@ -63,6 +63,7 @@ from .core.flags import get_flags, set_flags  # noqa: F401
 
 # Ops: the flat tensor-op namespace (paddle.add, paddle.matmul, ...).
 from .ops import *  # noqa: F401,F403
+from .ops import linalg  # noqa: F401  (paddle.linalg)
 from .ops import (  # noqa: F401
     abs, all, any, max, min, pow, sum,  # shadow builtins intentionally
 )
@@ -81,11 +82,12 @@ from .ops.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from . import amp  # noqa: F401
 from . import autograd  # noqa: F401
 from .autograd import (  # noqa: F401
-    enable_grad, is_grad_enabled, no_grad, set_grad_enabled,
+    enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled,
 )
 from . import nn  # noqa: F401
 from .nn.param_attr import ParamAttr  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
 from . import io  # noqa: F401
 from . import vision  # noqa: F401
 from . import inference  # noqa: F401

@@ -40,10 +40,10 @@ def cached_cast(t, target):
                 and not (need_node and out.grad_fn is None)):
             return out
     out = t.to(target)
-    from .state import _record, amp_state
+    from .state import amp_state, record
 
     if amp_state().tally is not None:
-        _record("cast", out)
+        record("cast", out)
     released = [False]
     if out.grad_fn is not None:
         out.grad_fn.register_hook(_released(released))

@@ -6,8 +6,9 @@ included).  ``decorate(level="O2")`` casts the model's parameters to
 the low dtype, keeps the norm layers' in fp32 and turns on the
 optimizers' master weights.
 
-``auto_cast`` sets the state and enters ``state.AmpMode`` for the torch
-functions between the port's named ops (see ``amp/state.py``).  This is
+``auto_cast`` sets the state and puts the op registry's ``DispatchMode``
+on the stack for the torch functions between the port's named ops (see
+``amp/state.py``).  This is
 not ``torch.autocast``: its lists differ and it has no O2.
 """
 from __future__ import annotations
@@ -16,9 +17,7 @@ from contextlib import contextmanager
 
 import torch
 
-from .state import AmpMode, amp_state, to_dtype
-
-_modes = []
+from .state import amp_state, to_dtype
 
 
 @contextmanager
@@ -34,17 +33,13 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         st.custom_white = set(custom_white_list)
     if custom_black_list:
         st.custom_black = set(custom_black_list)
-    mode = None
-    if not _modes:        # one mode on the stack serves nested contexts
-        mode = AmpMode()
-        mode.__enter__()
-        _modes.append(mode)
+    from ..ops import registry
+
+    registry.acquire_mode()
     try:
         yield
     finally:
-        if mode is not None:
-            _modes.pop()
-            mode.__exit__(None, None, None)
+        registry.release_mode()
         (st.enabled, st.level, st.dtype, st.custom_white,
          st.custom_black) = prev
 

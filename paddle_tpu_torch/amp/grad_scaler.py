@@ -16,12 +16,17 @@ from __future__ import annotations
 
 import torch
 
-from .state import amp_op, no_amp
+from ..ops import registry as _registry
+from .state import no_amp
 
 
-@amp_op("scale")
-def _scale(var, scale):
+def _mul(var, scale):
     return var * scale
+
+
+def _scale(var, scale):
+    """The reference's ``scale`` op (cast by its AMP name)."""
+    return _registry.call("scale", _mul, var, scale)
 
 
 class GradScaler:

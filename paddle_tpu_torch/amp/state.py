@@ -3,22 +3,17 @@
 state (enabled, level, dtype, custom lists) and ``amp_transform``, which
 casts an op's floating inputs as the policy says.
 
-``paddle_tpu`` casts inside its op registry, by op name; the port has no
-registry, so the policy reaches its ops two ways:
-
-* the port's own ops that stand for a registered op (``conv2d``, the
-  ``matmul`` of ``Linear``, the batch norms, the cross entropy, the
-  pools, the norms, ``softmax``, ...) are wrapped by :func:`amp_op`
-  under the reference's name.  The wrapper casts the inputs and runs the
-  body with the policy suspended, so nothing inside is cast again (the
-  reference's op bodies are jnp code, which no cast reaches);
-* plain torch arithmetic in between (``+``, ``reshape``, ``cat``,
-  ``relu``, ``mean``, ...) is seen by :class:`AmpMode`, a
-  ``TorchFunctionMode`` that ``auto_cast`` enters.  It maps each torch
-  function to the reference's op name (``_TORCH_NAMES``) and casts its
-  inputs by that name.  Functions it does not know (``Tensor.to``,
-  ``size``, in-place updates) pass through as they are, as the
-  reference's ``cast`` and ``assign`` do.
+The policy is applied by the op registry's one dispatch wrapper
+(``ops/registry.py``): the port's named ops (``@dispatch(name)``) cast
+their positional tensor arguments by their name and run their body with
+the policy suspended (:func:`no_amp`: nothing inside is cast again, as
+no cast reaches the reference's jnp op bodies); plain torch arithmetic
+between them (``+``, ``reshape``, ``cat``, ``mean``, ...) is seen by the
+registry's ``DispatchMode``, which maps each torch function to the
+reference's op name (``_TORCH_NAMES``) and casts its inputs by that
+name.  Functions it does not know (``Tensor.to``, ``size``, in-place
+updates) pass through as they are, as the reference's ``cast`` and
+``assign`` do.
 
 Gradients are never cast (the reference's grad ops skip the policy):
 the mode passes everything through while autograd runs a backward.
@@ -29,10 +24,8 @@ running-statistics update, the scaler's unscale) runs under
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import torch
-from torch.overrides import TorchFunctionMode
 
 # Ops that run in low precision under O1 (matmul-class ops).
 WHITE_LIST = {
@@ -65,7 +58,7 @@ class _AmpState:
         self.custom_white = set()
         self.custom_black = set()
         self.depth = 0        # > 0 inside a named op or under no_amp
-        self.tally = None     # {(op, dtype): calls} while op_dtypes() runs
+        self.tally = None     # {(op, dtype): calls} while stats are on
 
 
 _state = _AmpState()
@@ -94,7 +87,7 @@ def amp_dtype() -> torch.dtype:
     return to_dtype(_state.dtype)
 
 
-def _target(op_name):
+def target(op_name):
     """The dtype the policy casts ``op_name``'s floating inputs to, or
     ``None`` (left as they are)."""
     if op_name in ("cast", "assign"):
@@ -117,7 +110,7 @@ def _cast_one(t, target):
     return t
 
 
-def _cast_arg(a, target):
+def cast_arg(a, target):
     """A tensor, or a plain list or tuple of them (``torch.cat``'s
     operands), cast as :func:`_cast_one` casts."""
     if type(a) in (list, tuple):
@@ -127,17 +120,20 @@ def _cast_arg(a, target):
 
 def amp_transform(op_name: str, tensors):
     """Cast op inputs per policy (the reference's ``amp_transform``):
-    each floating tensor of ``tensors`` whose dtype differs from the
-    target goes through the cast cache; other values pass as they are."""
+    each floating tensor of ``tensors`` (or of a list or tuple among
+    them) whose dtype differs from the target goes through the cast
+    cache; other values pass as they are."""
     if not _state.enabled:
         return tensors
-    target = _target(op_name)
-    if target is None:
+    target_ = target(op_name)
+    if target_ is None:
         return tensors
-    return tuple(_cast_one(t, target) for t in tensors)
+    return tuple(cast_arg(t, target_) for t in tensors)
 
 
-def _record(op_name, out):
+def record(op_name, out):
+    """Tally one call of ``op_name``: +1 per tensor output, keyed by
+    (op, output dtype name), as the reference's operator statistics."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
     for o in outs:
         if isinstance(o, torch.Tensor):
@@ -152,21 +148,23 @@ def cast(t, dtype):
         return t
     out = t.to(dtype)
     if _state.tally is not None:
-        _record("cast", out)
+        record("cast", out)
     return out
 
 
 @contextlib.contextmanager
 def op_dtypes():
-    """Tally ``(op name, output dtype)`` of every op the policy sees
-    (named ops and the mode's torch functions) while AMP is on: the
-    port's view of the reference's operator statistics
-    (``amp.debugging.collect_operator_stats``), for tests.  Yields the
-    dict it fills."""
+    """Tally ``(op name, output dtype)`` of every op the dispatch sees
+    while the block runs (what ``amp.debugging.collect_operator_stats``
+    prints).  Yields the dict it fills."""
+    from ..ops import registry
+
     prev, _state.tally = _state.tally, {}
+    registry.acquire_mode()
     try:
         yield _state.tally
     finally:
+        registry.release_mode()
         _state.tally = prev
 
 
@@ -180,25 +178,6 @@ def no_amp():
             yield
     finally:
         _state.depth -= 1
-
-
-def amp_op(op_name):
-    """Decorator: ``fn``'s positional tensor arguments are cast by the
-    policy for ``op_name``, and its body runs under :func:`no_amp`.
-    With AMP off (or inside another named op) it is a plain call."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapped(*args, **kwargs):
-            if not _state.enabled or _state.depth:
-                return fn(*args, **kwargs)
-            args = amp_transform(op_name, args)
-            with no_amp():
-                out = fn(*args, **kwargs)
-            if _state.tally is not None:
-                _record(op_name, out)
-            return out
-        return wrapped
-    return deco
 
 
 # torch function name -> the reference's op name.  In-place variants are
@@ -238,29 +217,3 @@ _TORCH_NAMES = {
     "adaptive_avg_pool2d": "adaptive_avg_pool2d",
     "conv2d": "conv2d",
 }
-
-
-def _in_backward():
-    return torch._C._current_graph_task_id() != -1
-
-
-class AmpMode(TorchFunctionMode):
-    """Casts the inputs of the torch functions in ``_TORCH_NAMES`` by
-    the reference's op name (see the module docstring).  Entered by
-    ``auto_cast``; does nothing while AMP is off, inside a named op, or
-    in a backward."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = _TORCH_NAMES.get(getattr(func, "__name__", None))
-        if name is None or not _state.enabled or _state.depth \
-                or _in_backward():
-            return func(*args, **kwargs)
-        target = _target(name)
-        if target is not None:
-            args = tuple(_cast_arg(a, target) for a in args)
-            kwargs = {k: _cast_arg(v, target) for k, v in kwargs.items()}
-        out = func(*args, **kwargs)
-        if _state.tally is not None:
-            _record(name, out)
-        return out

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ... import ops  # noqa: F401  - the reference's module exposes ops
-from ...amp.state import amp_op, no_amp
+from ...amp.state import no_amp
+from ...ops.registry import dispatch
 from ...core.flags import flag
 from ...ops import nn_ops
 from ...ops import nn_ops_nd as nd
@@ -67,7 +68,7 @@ def linear(x, weight, bias=None, name=None):
     return out
 
 
-@amp_op("matmul")
+@dispatch("matmul")
 def _matmul(x, w):
     """``x @ w`` with jnp's promotion of two float dtypes (the
     reference's ``matmul`` op; under AMP both come cast by the policy)."""
@@ -77,6 +78,7 @@ def _matmul(x, w):
     return torch.matmul(x, w)
 
 
+@dispatch("embedding", datas=("weight", "x"))
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` (``nn.common.embedding_grad``'s backward, the
     same bits on every run); with ``padding_idx >= 0`` the rows of that
@@ -103,7 +105,7 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     return nn_ops.rms_norm(x, weight, epsilon)
 
 
-@amp_op("fused_rms_norm")
+@dispatch("fused_rms_norm")
 def _fused_rms_norm(x, weight, epsilon):
     from ...ops.kernels.rms_norm import fused_rms_norm
 

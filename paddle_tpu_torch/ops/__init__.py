@@ -3,10 +3,12 @@
 of the model paths' ops (``nn_ops``), int8 quantization (``quant``) and
 the hand-written kernels (``kernels``).
 
-Counterpart of ``paddle_tpu/ops/__init__.py`` for the families ported so
-far: ``math``, ``reduction``, ``manipulation``, ``creation``,
-``activation``, ``random``, ``linalg.matmul``, the in-place variants
-(``inplace``) and the names this module defines itself.
+Counterpart of ``paddle_tpu/ops/__init__.py``: the families ``math``,
+``reduction``, ``manipulation``, ``linalg``, ``creation``, ``extra``,
+``random``, ``tail``, ``lowrank`` and ``activation``, the in-place
+variants (``inplace``), the names this module defines itself, and the
+op registry (``registry``: ``register_op``, ``get_op``, ``all_ops``,
+``apply``), through whose dispatch every named op runs.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch as _torch
 from .kernels.grouped_gemm import grouped_ffn  # noqa: F401
 from . import inplace as _inplace_mod
 from .math import prep as _prep
+from .registry import dispatch as _dispatch
 
 from .math import (  # noqa: F401
     add, subtract, multiply, divide, pow, maximum, minimum, remainder, mod,
@@ -47,7 +50,39 @@ from .manipulation import (  # noqa: F401
     repeat_interleave, one_hot, meshgrid, moveaxis, view, slice, getitem,
     setitem,
 )
-from .linalg import matmul  # noqa: F401
+from .linalg import (  # noqa: F401
+    matmul, mm, bmm, inner, dot, outer, addmm, einsum, norm, dist,
+    triangular_solve, cholesky, inverse, det, slogdet, solve, svd, qr, eigh,
+    matrix_power, pinv, matrix_rank, cross, histogram, bincount,
+    lu, lu_unpack, cholesky_solve, eig, eigvals, eigvalsh, svdvals, cond,
+    corrcoef, cov, lstsq, matrix_exp, multi_dot,
+)
+from .extra import (  # noqa: F401
+    kron, trace, heaviside, copysign, ldexp, hypot, deg2rad, rad2deg,
+    diff, trapezoid, vander, logcumsumexp, renorm, cdist,
+    tensordot, bucketize, searchsorted, nanmedian, mode, kthvalue, rot90,
+    take, index_add, index_fill, unfold, as_strided, select_scatter,
+    slice_scatter, atleast_1d, atleast_2d, atleast_3d, column_stack,
+    row_stack, dstack, tensor_split, hsplit, vsplit, dsplit, diagflat,
+    index_put, index_put_,
+)
+from .tail import (  # noqa: F401
+    real, imag, conj, angle, isreal, isneginf, isposinf, signbit, sinc,
+    nextafter, polar, sgn, logit, round, gammaln, gammainc, gammaincc,
+    multigammaln, i0e, i1, i1e, polygamma, hstack, vstack, block_diag,
+    add_n, cartesian_prod, combinations, reverse, crop, unflatten,
+    view_as, strided_slice, scatter_nd, diagonal_scatter,
+    masked_scatter, index_sample, multiplex, shard_index, reduce_as,
+    isin, tril_indices, triu_indices, shape, is_empty, is_integer,
+    nanquantile, pdist, histogramdd, cumulative_trapezoid, mv, vecdot,
+    householder_product, geqrf, ormqr, cholesky_inverse, frexp,
+    bitwise_left_shift, bitwise_right_shift,
+)
+from .lowrank import (  # noqa: F401
+    create_tensor, fp8_fp8_half_gemm_fused, histogram_bin_edges,
+    matrix_norm, pca_lowrank, svd_lowrank, top_p_sampling, vector_norm,
+)
+from .registry import all_ops, apply, get_op, register_op  # noqa: F401
 from .creation import (  # noqa: F401
     zeros, ones, full, empty, zeros_like, ones_like, full_like, empty_like,
     arange, linspace, logspace, eye, diag_embed, clone, to_tensor, complex,
@@ -67,6 +102,7 @@ from .activation import (  # noqa: F401
 )
 
 
+@_dispatch("allclose", datas=("x", "y"), validate_only=True)
 def allclose(x, y, rtol=1e-05, atol=1e-08, equal_nan=False, name=None):
     """A 0-d bool tensor: ``np.allclose`` of the two, on x's device."""
     a, b = _prep(x, y)
@@ -74,6 +110,7 @@ def allclose(x, y, rtol=1e-05, atol=1e-08, equal_nan=False, name=None):
     return _torch.tensor(ok, device=a.device)
 
 
+@_dispatch("isclose", datas=("x", "y"), validate_only=True)
 def isclose(x, y, rtol=1e-05, atol=1e-08, equal_nan=False, name=None):
     a, b = _prep(x, y)
     return _torch.isclose(a, b, rtol=rtol, atol=atol, equal_nan=equal_nan)

@@ -6,7 +6,7 @@ wrappers that ``paddle_tpu/ops/__init__.py`` defines over it (``relu``,
 the reference's ``nn.functional`` re-exports its ``ops``.  Each is the
 reference's ``jax.numpy`` expression written in torch, so the rounding
 points agree, and each is the reference's registered op under AMP
-(``amp_op``).  Gradients come from torch's autograd, except where the
+(``registry.dispatch``).  Gradients come from torch's autograd, except where the
 reference's op has a hand-written backward that differs from autograd
 on a boundary: ``relu6`` (``hardtanh``'s mask, 0 < x < 6), ``hardswish``
 (0 at x <= -3, 1 at x >= 3); ``hardtanh`` and ``hardsigmoid`` clip as
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..amp.state import amp_op
+from .registry import dispatch
 from . import nn_ops
 from .math import prep
 
@@ -39,24 +39,24 @@ def _jclip(x, lo, hi):
     return torch.minimum(x, x.new_full((), hi))
 
 
-@amp_op("relu")
+@dispatch("relu")
 def relu(x, name=None):
     return torch.relu(_x(x))
 
 
-@amp_op("relu6")
+@dispatch("relu6")
 def relu6(x, name=None):
     """``min(max(x, 0), 6)``; the gradient passes where 0 < x < 6, as the
     reference's hand-written one does (``hardtanh``'s backward)."""
     return F.hardtanh(_x(x), 0.0, 6.0)
 
 
-@amp_op("sigmoid")
+@dispatch("sigmoid")
 def sigmoid(x, name=None):
     return torch.sigmoid(_x(x))
 
 
-@amp_op("tanh")
+@dispatch("tanh")
 def tanh(x, name=None):
     return torch.tanh(_x(x))
 
@@ -65,7 +65,7 @@ def silu(x, name=None):
     return nn_ops.silu(_x(x))
 
 
-@amp_op("swish")
+@dispatch("swish")
 def swish(x, name=None):
     """``x * sigmoid(x)`` (the reference's ``swish`` is ``jax.nn.silu``)."""
     x = _x(x)
@@ -77,26 +77,26 @@ def gelu(x, approximate=False, name=None):
     return nn_ops.gelu(_x(x), approximate=bool(approximate))
 
 
-@amp_op("leaky_relu")
+@dispatch("leaky_relu")
 def leaky_relu(x, negative_slope=0.01, name=None):
     x = _x(x)
     return torch.where(x >= 0, x, negative_slope * x)
 
 
-@amp_op("elu")
+@dispatch("elu")
 def elu(x, alpha=1.0, name=None):
     x = _x(x)
     return torch.where(x > 0, x, alpha * torch.expm1(
         torch.where(x > 0, torch.zeros_like(x), x)))
 
 
-@amp_op("selu")
+@dispatch("selu")
 def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
     x = _x(x)
     return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
 
 
-@amp_op("celu")
+@dispatch("celu")
 def celu(x, alpha=1.0, name=None):
     x = _x(x)
     return torch.where(x > 0, x, alpha * torch.expm1(x / alpha))
@@ -106,25 +106,25 @@ def _softplus0(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-@amp_op("softplus")
+@dispatch("softplus")
 def softplus(x, beta=1.0, threshold=20.0, name=None):
     x = _x(x)
     return torch.where(x * beta > threshold, x,
                        _softplus0(x * beta) / beta)
 
 
-@amp_op("softsign")
+@dispatch("softsign")
 def softsign(x, name=None):
     x = _x(x)
     return x / (1 + torch.abs(x))
 
 
-@amp_op("hardtanh")
+@dispatch("hardtanh")
 def hardtanh(x, min=-1.0, max=1.0, name=None):  # noqa: A002
     return _jclip(_x(x), float(min), float(max))
 
 
-@amp_op("hardsigmoid")
+@dispatch("hardsigmoid")
 def hardsigmoid(x, slope=1 / 6, offset=0.5, name=None):
     """``clip(slope * x + offset, 0, 1)``."""
     return _jclip(slope * _x(x) + offset, 0.0, 1.0)
@@ -148,24 +148,24 @@ class _Hardswish(torch.autograd.Function):
         return g * d
 
 
-@amp_op("hardswish")
+@dispatch("hardswish")
 def hardswish(x, name=None):
     return _Hardswish.apply(_x(x))
 
 
-@amp_op("mish")
+@dispatch("mish")
 def mish(x, name=None):
     x = _x(x)
     return x * torch.tanh(_softplus0(x))
 
 
-@amp_op("tanhshrink")
+@dispatch("tanhshrink")
 def tanhshrink(x, name=None):
     x = _x(x)
     return x - torch.tanh(x)
 
 
-@amp_op("softshrink")
+@dispatch("softshrink")
 def softshrink(x, threshold=0.5, name=None):
     x = _x(x)
     zero = torch.zeros_like(x)
@@ -173,24 +173,24 @@ def softshrink(x, threshold=0.5, name=None):
                        torch.where(x < -threshold, x + threshold, zero))
 
 
-@amp_op("hardshrink")
+@dispatch("hardshrink")
 def hardshrink(x, threshold=0.5, name=None):
     x = _x(x)
     return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
 
 
-@amp_op("thresholded_relu")
+@dispatch("thresholded_relu")
 def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
     x = _x(x)
     return torch.where(x > threshold, x, torch.full_like(x, value))
 
 
-@amp_op("log_sigmoid")
+@dispatch("log_sigmoid")
 def log_sigmoid(x, name=None):
     return F.logsigmoid(_x(x))
 
 
-@amp_op("prelu")
+@dispatch("prelu")
 def prelu(x, weight, data_format="NCHW", name=None):
     x, weight = prep(x, weight)
     if weight.dim() == 1 and weight.shape[0] > 1:
@@ -200,7 +200,7 @@ def prelu(x, weight, data_format="NCHW", name=None):
     return torch.where(x >= 0, x, weight * x)
 
 
-@amp_op("glu")
+@dispatch("glu")
 def glu(x, axis=-1, name=None):
     a, b = torch.chunk(_x(x), 2, dim=int(axis))
     return a * torch.sigmoid(b)
@@ -219,7 +219,7 @@ def softmax(x, axis=-1, dtype=None, name=None):
     return nn_ops.softmax(x, axis=int(axis))
 
 
-@amp_op("log_softmax")
+@dispatch("log_softmax")
 def log_softmax(x, axis=-1, dtype=None, name=None):
     x = _x(x)
     if dtype is not None:

@@ -51,6 +51,7 @@ import os
 
 import torch
 
+from ..registry import refuse_create_graph
 from . import _build
 from ..nn_ops import einsum
 from ..quant import dequantize, is_quantized
@@ -318,6 +319,8 @@ class GroupedFFN(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        if torch.is_grad_enabled():
+            refuse_create_graph("grouped_ffn")
         x, w1, b1, w2, b2 = ctx.saved_tensors
         f = torch.float32
         x32, dy32 = x.to(f), dy.to(f)

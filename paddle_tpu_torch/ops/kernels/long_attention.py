@@ -52,6 +52,7 @@ import math
 
 import torch
 
+from ..registry import refuse_create_graph
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -363,6 +364,8 @@ class LongAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            refuse_create_graph("long_attention")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, lse,
                                    g.to(q.dtype).contiguous(), *ctx.cfg)

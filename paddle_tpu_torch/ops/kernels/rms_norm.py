@@ -6,8 +6,12 @@ rms_norm.py``: ``_fused_fwd_2d`` (out in x's dtype, fp32 ``rstd``) and
 ``_fused_bwd_2d`` (``dx`` in x's dtype), reached on the training path
 through ``nn.functional.rms_norm`` under ``FLAGS_use_fused_rms_norm``.
 The kernels are ``csrc/rms_norm.cu``: one block per row, the row read
-once into shared memory as fp32, an fp32 block reduction, and the output
-written with ONE cast (``x * rstd * w`` in fp32, then x's dtype).  That
+once into shared memory as fp32 (read a second time from device memory
+where it does not fit: the forward past h = 58112, the backward past
+h = 29056), an fp32 block reduction, and the output written with ONE cast
+(``x * rstd * w`` in fp32, then x's dtype).  Any hidden size (a vector
+body with a scalar head and tail) and x, w each fp32, bf16 or fp16, as
+the reference sends any h and dtype to its kernel.  That
 is the fused rounding rule, which differs from the plain op
 (``ops.nn_ops.rms_norm`` casts ``x * rstd`` first, then multiplies by the
 weight cast to x's dtype): with fp32 norm weights on a bf16 stream the
@@ -29,20 +33,20 @@ import ctypes
 
 import torch
 
+from ..registry import refuse_create_graph
 from . import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: (x dtype, w dtype) pairs the kernels are instantiated for
-_DTYPE_PAIRS = {(torch.float32, torch.float32),
-                (torch.bfloat16, torch.float32),
-                (torch.bfloat16, torch.bfloat16)}
+#: x and w dtypes the kernels are instantiated for (every pair)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMEM_LIMIT = 232448            # bytes of shared memory a block may use
 
 
 def smem_bytes(h) -> dict:
     """Dynamic shared memory a block takes at hidden size ``h`` (mirrors
-    the .cu: the row, and in the backward the row of dy too, in fp32)."""
-    return {"fwd": 4 * h, "bwd": 8 * h}
+    the .cu: the row, and in the backward the row of dy too, in fp32; 0
+    past the limit, where the row is read twice from device memory)."""
+    return {k: (b if b <= _SMEM_LIMIT else 0)
+            for k, b in (("fwd", 4 * h), ("bwd", 8 * h))}
 
 
 def rms_norm_fwd_reference(x2, w, eps):
@@ -88,28 +92,30 @@ def _check(name, x2, w, *others):
         raise ValueError(f"{name}: unsupported device {x2.device}")
     if x2.device.type == "cpu":
         return
-    if (x2.dtype, w.dtype) not in _DTYPE_PAIRS:
+    if x2.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtypes x={x2.dtype}, w={w.dtype} not "
-                        "supported by the kernel")
-    h = x2.shape[1]
-    if h % 4 or 8 * h > _SMEM_LIMIT:
-        raise ValueError(f"{name}: hidden size {h} must be a multiple of "
-                         f"4 and at most {_SMEM_LIMIT // 8}")
+                        "supported by the kernel (fp32, bf16, fp16)")
     for t in (x2, w, *others):
         if not t.is_contiguous():
             raise ValueError(f"{name}: a tensor is not contiguous")
+
+
+def _aligned(t):
+    """``t``, or a fresh copy when its data does not start on 16 bytes
+    (the kernels' vector loads assume x, dy and w start aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def rms_norm_fwd(x2, w, eps):
     """Fused RMSNorm forward over rows: x2 [N, h], w [h] -> (out [N, h]
     in x's dtype, rstd [N] fp32).  CPU tensors take
     :func:`rms_norm_fwd_reference`; CUDA tensors launch the kernel, or
-    raise on what it does not take: (x, w) dtypes other than (f32, f32),
-    (bf16, f32), (bf16, bf16); h not a multiple of 4 or above 29056; a
+    raise on what it does not take: x or w not fp32, bf16 or fp16; a
     non-contiguous input."""
     _check("rms_norm_fwd", x2, w)
     if x2.device.type == "cpu":
         return rms_norm_fwd_reference(x2, w, eps)
+    x2, w = _aligned(x2), _aligned(w)
     n, h = x2.shape
     out = torch.empty_like(x2)
     rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
@@ -140,6 +146,7 @@ def rms_norm_bwd(x2, w, rstd, dy2):
     if dy2.dtype != x2.dtype or rstd.dtype != torch.float32:
         raise TypeError("rms_norm_bwd: dy must have x's dtype and rstd "
                         "must be float32")
+    x2, w, dy2 = _aligned(x2), _aligned(w), _aligned(dy2)
     n, h = x2.shape
     dx = torch.empty_like(x2)
     if n == 0:
@@ -177,6 +184,8 @@ class FusedRMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        if torch.is_grad_enabled():
+            refuse_create_graph("fused_rms_norm")
         x2, w, rstd = ctx.saved_tensors
         dy2 = dy.reshape(x2.shape).to(x2.dtype).contiguous()
         dx = rms_norm_bwd(x2, w.contiguous(), rstd, dy2)

@@ -50,6 +50,7 @@ import math
 import numpy as np
 import torch
 
+from ..registry import refuse_create_graph
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -330,6 +331,8 @@ class ShortAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            refuse_create_graph("short_attention")
         q, k, v, out, lse, seed = ctx.saved_tensors
         dq, dk, dv = short_attention_bwd(q, k, v, out, lse,
                                          g.to(q.dtype).contiguous(), seed,

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..core import dtype as D
 from .math import prep
+from .registry import arg, dispatch
 
 builtins_slice = builtins.slice
 
@@ -42,6 +43,57 @@ def _t(x):
     return x
 
 
+def _pad_pairs(nd, pad):
+    """Paddle's pad list as one (before, after) pair per axis: pairs for
+    every axis when it has 2 * nd entries, else for the trailing axes,
+    the last axis first."""
+    pad = _ints(pad)
+    if len(pad) == 2 * nd:
+        return [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
+    pairs = [(0, 0)] * nd
+    for i in range(len(pad) // 2):
+        pairs[nd - 1 - i] = (pad[2 * i], pad[2 * i + 1])
+    return pairs
+
+
+def _pad_operands(args, kwargs):
+    x = arg(args, kwargs, 0, "x")
+    pairs = _pad_pairs(len(x.shape), arg(args, kwargs, 1, "pad"))
+    mode = arg(args, kwargs, 2, "mode", "constant")
+    return (x,), {"pad_width": tuple(pairs),
+                  "mode": _PAD_MODES.get(mode, mode),
+                  "value": arg(args, kwargs, 3, "value", 0.0)}
+
+
+def _expand_as_operands(args, kwargs):
+    return ((arg(args, kwargs, 0, "x"),),
+            {"target_shape": tuple(arg(args, kwargs, 1, "y").shape)})
+
+
+def _repeat_operands(args, kwargs):
+    repeats = arg(args, kwargs, 1, "repeats")
+    if isinstance(repeats, torch.Tensor):
+        repeats = tuple(repeats.tolist()) if repeats.dim() else \
+            int(repeats)
+    return (arg(args, kwargs, 0, "x"),), {
+        "repeats": repeats, "axis": arg(args, kwargs, 2, "axis")}
+
+
+def _gather_operands(args, kwargs):
+    # the reference flattens an index of rank > 1 before its op
+    index = arg(args, kwargs, 1, "index")
+    if isinstance(index, torch.Tensor) and index.dim() > 1:
+        index = index.reshape(-1)
+    return (arg(args, kwargs, 0, "x"), index), {
+        "axis": arg(args, kwargs, 2, "axis", 0)}
+
+
+def _meshgrid_operands(args, kwargs):
+    if len(args) == 1 and isinstance(args[0], (list, tuple)):
+        args = args[0]
+    return tuple(args), {}
+
+
 # -- cast -------------------------------------------------------------------
 
 def cast(x, dtype):
@@ -50,10 +102,12 @@ def cast(x, dtype):
 
 # -- reshape family ---------------------------------------------------------
 
+@dispatch("reshape")
 def reshape(x, shape, name=None):
     return torch.reshape(_t(x), _ints(shape))
 
 
+@dispatch("transpose")
 def transpose(x, perm, name=None):
     """Permute every axis: ``perm[i]`` is the input axis of output axis
     ``i`` (torch's ``transpose`` swaps two)."""
@@ -68,6 +122,7 @@ def t(x, name=None):
                                                       x.dim() - 2])
 
 
+@dispatch("squeeze")
 def squeeze(x, axis=None, name=None):
     """Drop the axes of size 1 among ``axis`` (all of them when
     ``None``); an axis of another size stays."""
@@ -83,6 +138,7 @@ def squeeze(x, axis=None, name=None):
     return torch.squeeze(x, dim=tuple(axes))
 
 
+@dispatch("unsqueeze")
 def unsqueeze(x, axis, name=None):
     """Insert axes of size 1 at ``axis`` (positions in the output, as
     ``jnp.expand_dims``)."""
@@ -95,6 +151,7 @@ def unsqueeze(x, axis, name=None):
     return x
 
 
+@dispatch("flatten", validate_only=True)
 def flatten(x, start_axis=0, stop_axis=-1, name=None):
     x = _t(x)
     if x.dim() == 0:
@@ -102,6 +159,7 @@ def flatten(x, start_axis=0, stop_axis=-1, name=None):
     return torch.flatten(x, start_axis % x.dim(), stop_axis % x.dim())
 
 
+@dispatch("expand")
 def expand(x, shape, name=None):
     """Broadcast to ``shape``; a -1 keeps the input's axis."""
     x = _t(x)
@@ -114,6 +172,7 @@ def expand(x, shape, name=None):
 broadcast_to = expand
 
 
+@dispatch("expand_as", operands=_expand_as_operands, validate_only=True)
 def expand_as(x, y, name=None):
     return expand(x, list(y.shape))
 
@@ -122,20 +181,24 @@ def broadcast_shape(x_shape, y_shape):
     return list(np.broadcast_shapes(tuple(x_shape), tuple(y_shape)))
 
 
+@dispatch("tile")
 def tile(x, repeat_times, name=None):
     return torch.tile(_t(x), tuple(_ints(repeat_times)))
 
 
 # -- concat / split / stack -------------------------------------------------
 
+@dispatch("concat")
 def concat(x, axis=0, name=None):
     return torch.cat(prep(*x), dim=_ints(axis))
 
 
+@dispatch("stack")
 def stack(x, axis=0, name=None):
     return torch.stack(prep(*x), dim=int(axis))
 
 
+@dispatch("split")
 def split(x, num_or_sections, axis=0, name=None):
     """``num_or_sections``: the number of equal pieces (the axis must
     divide), or the list of piece sizes with at most one -1."""
@@ -155,6 +218,7 @@ def split(x, num_or_sections, axis=0, name=None):
     return list(torch.split(x, sections, dim=axis))
 
 
+@dispatch("chunk", validate_only=True)
 def chunk(x, chunks, axis=0, name=None):
     return split(x, int(chunks), axis)
 
@@ -164,17 +228,20 @@ def unstack(x, axis=0, num=None, name=None):
     return list(torch.unbind(x, dim=int(axis) % x.dim()))
 
 
+@dispatch("unbind", validate_only=True)
 def unbind(x, axis=0):
     return unstack(x, axis)
 
 
 # -- flip / roll / pad ------------------------------------------------------
 
+@dispatch("flip")
 def flip(x, axis, name=None):
     axes = _ints(axis)
     return torch.flip(_t(x), axes if isinstance(axes, list) else [axes])
 
 
+@dispatch("roll")
 def roll(x, shifts, axis=None, name=None):
     shifts = _ints(shifts)
     axis = _ints(axis) if axis is not None else None
@@ -185,19 +252,13 @@ _PAD_MODES = {"constant": "constant", "reflect": "reflect",
               "replicate": "edge", "circular": "wrap"}
 
 
+@dispatch("pad", operands=_pad_operands)
 def pad(x, pad, mode="constant", value=0.0, data_format=None, name=None):
     """nn.functional.pad with an int list: one (before, after) pair per
     axis when it covers every axis, else pairs for the trailing axes,
     the last axis first."""
     x = _t(x)
-    nd = x.dim()
-    pad = _ints(pad)
-    if len(pad) == 2 * nd:
-        pairs = [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
-    else:
-        pairs = [(0, 0)] * nd
-        for i in range(len(pad) // 2):
-            pairs[nd - 1 - i] = (pad[2 * i], pad[2 * i + 1])
+    pairs = _pad_pairs(x.dim(), pad)
     npmode = _PAD_MODES[mode]
     if npmode == "constant":
         flat = []
@@ -219,6 +280,7 @@ def _long(index, device):
     return index.to(device=device, dtype=torch.int64)
 
 
+@dispatch("gather", operands=_gather_operands)
 def gather(x, index, axis=0, name=None):
     """Rows of ``x`` along ``axis`` at ``index`` (flattened to 1-D);
     ``index_select`` is the same op."""
@@ -245,6 +307,7 @@ def _along(x, index, axis):
     return x.expand(shape_x), index.expand(shape_i)
 
 
+@dispatch("take_along_axis")
 def take_along_axis(x, indices, axis, broadcast=True, name=None):
     x = _t(x)
     axis = int(axis) % x.dim()
@@ -252,6 +315,7 @@ def take_along_axis(x, indices, axis, broadcast=True, name=None):
     return torch.gather(x, axis, index)
 
 
+@dispatch("put_along_axis", datas=("x", "indices", "values"))
 def put_along_axis(x, indices, values, axis, reduce="assign",
                    include_self=True, broadcast=True, name=None):
     x, values = prep(x, values, dtype=_t(x).dtype)
@@ -270,6 +334,7 @@ def put_along_axis(x, indices, values, axis, reduce="assign",
     raise ValueError(f"unsupported reduce {reduce}")
 
 
+@dispatch("scatter")
 def scatter(x, index, updates, overwrite=True, name=None):
     """Write the rows of ``updates`` at rows ``index`` of x
     (``overwrite``), or add them to x's rows."""
@@ -286,6 +351,7 @@ def scatter_nd_add(x, index, updates, name=None):
     return x.index_put(tuple(index.unbind(-1)), updates, accumulate=True)
 
 
+@dispatch("gather_nd")
 def gather_nd(x, index, name=None):
     x = _t(x)
     index = _long(index, x.device)
@@ -294,6 +360,7 @@ def gather_nd(x, index, name=None):
 
 # -- where / masked ---------------------------------------------------------
 
+@dispatch("where", datas=("condition", "x", "y"))
 def where(condition, x=None, y=None, name=None):
     if x is None and y is None:
         return nonzero(condition, as_tuple=True)
@@ -306,6 +373,7 @@ def where(condition, x=None, y=None, name=None):
     return torch.where(cond.to(a.device), a, b)
 
 
+@dispatch("nonzero", validate_only=True)
 def nonzero(x, as_tuple=False):
     """[n, ndim] int64 indices of the nonzero entries; with
     ``as_tuple`` one [n, 1] tensor per axis, as the reference gives."""
@@ -315,11 +383,13 @@ def nonzero(x, as_tuple=False):
     return nz
 
 
+@dispatch("masked_select", validate_only=True)
 def masked_select(x, mask, name=None):
     x = _t(x)
     return torch.masked_select(x, _t(mask).to(torch.bool))
 
 
+@dispatch("masked_fill", datas=("x", "mask", "value"))
 def masked_fill(x, mask, value, name=None):
     a, v = prep(x, value)
     mask = _t(mask).to(torch.bool)
@@ -331,6 +401,7 @@ def masked_fill(x, mask, value, name=None):
 
 # -- sort / topk / unique ---------------------------------------------------
 
+@dispatch("topk")
 def topk(x, k, axis=-1, largest=True, sorted=True, name=None):
     """``(values, indices int64)`` of the ``k`` largest (or smallest)
     entries along ``axis``, as ``_topk`` computes them: one stable sort on
@@ -346,12 +417,14 @@ def topk(x, k, axis=-1, largest=True, sorted=True, name=None):
     return vals.movedim(-1, axis), si[..., :k].movedim(-1, axis)
 
 
+@dispatch("sort")
 def sort(x, axis=-1, descending=False, stable=False, name=None):
     """The sorted values only (torch's ``sort`` returns a pair)."""
     return torch.sort(_t(x), dim=int(axis), descending=bool(descending),
                       stable=True).values
 
 
+@dispatch("argsort")
 def argsort(x, axis=-1, descending=False, stable=False, name=None):
     """Stable: equal values keep their order, descending too (the
     reference sorts the negated key)."""
@@ -374,6 +447,7 @@ def _back(arr, dt, dev):
     return torch.as_tensor(np.ascontiguousarray(arr)).to(device=dev, dtype=dt)
 
 
+@dispatch("unique", validate_only=True)
 def unique(x, return_index=False, return_inverse=False, return_counts=False,
            axis=None, dtype="int64", name=None):
     """``np.unique`` on the host, as the reference computes it."""
@@ -387,6 +461,7 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
         torch.as_tensor(r).to(dev) for r in res[1:])
 
 
+@dispatch("unique_consecutive", validate_only=True)
 def unique_consecutive(x, return_inverse=False, return_counts=False,
                        axis=None, dtype="int64", name=None):
     """The reference's host computation, line for line."""
@@ -425,22 +500,27 @@ def assign(x, output=None):
     return out
 
 
+@dispatch("tril")
 def tril(x, diagonal=0, name=None):
     return torch.tril(_t(x), int(diagonal))
 
 
+@dispatch("triu")
 def triu(x, diagonal=0, name=None):
     return torch.triu(_t(x), int(diagonal))
 
 
+@dispatch("diag")
 def diag(x, offset=0, padding_value=0, name=None):
     return torch.diag(_t(x), int(offset))
 
 
+@dispatch("diagonal")
 def diagonal(x, offset=0, axis1=0, axis2=1, name=None):
     return torch.diagonal(_t(x), int(offset), int(axis1), int(axis2))
 
 
+@dispatch("repeat_interleave", operands=_repeat_operands)
 def repeat_interleave(x, repeats, axis=None, name=None):
     x = _t(x)
     if isinstance(repeats, (list, tuple)):
@@ -451,11 +531,13 @@ def repeat_interleave(x, repeats, axis=None, name=None):
         x, repeats, dim=int(axis) if axis is not None else None)
 
 
+@dispatch("one_hot")
 def one_hot(x, num_classes, name=None):
     return F.one_hot(_t(x).to(torch.int64),
                      int(num_classes)).to(torch.float32)
 
 
+@dispatch("meshgrid", operands=_meshgrid_operands, validate_only=True)
 def meshgrid(*args, **kwargs):
     """``ij``-indexed grids, each in its input's dtype."""
     if len(args) == 1 and isinstance(args[0], (list, tuple)):
@@ -470,6 +552,7 @@ def meshgrid(*args, **kwargs):
     return out
 
 
+@dispatch("moveaxis")
 def moveaxis(x, source, destination, name=None):
     return torch.movedim(_t(x), _ints(source), _ints(destination))
 

@@ -17,6 +17,7 @@ import torch
 
 from ..core import dtype as D
 from ..device import resolve_device
+from .registry import dispatch
 
 
 def _device_of(args):
@@ -229,6 +230,7 @@ def _scalar(v):
     return float(v) if isinstance(v, numbers.Number) else v
 
 
+@dispatch("clip")
 def clip(x, min=None, max=None, name=None):  # noqa: A002
     """``jnp.clip`` with float bounds: the bounds are Python floats, so
     an integer ``x`` comes back float64 as in the reference."""
@@ -248,6 +250,7 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
     return (x + b) * s
 
 
+@dispatch("lerp", datas=("x", "y", "weight"))
 def lerp(x, y, weight, name=None):
     x, y, w = prep(x, y, weight)
     return x + w * (y - x)

@@ -32,14 +32,15 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import types
 
 import torch
 import torch.nn.functional as F
 
-from ..amp.state import amp_op
+from .registry import arg, dispatch, recompute_vjp
 
 
-@amp_op("rms_norm")
+@dispatch("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm over the last axis: computed in fp32, cast back to
     ``x.dtype``, then multiplied by ``weight`` cast to ``x.dtype`` (an
@@ -53,7 +54,7 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
-@amp_op("einsum")
+@dispatch("einsum")
 def einsum(eq, *operands):
     """``torch.einsum`` with jnp's promotion of mixed float dtypes (a bf16
     operand meeting an fp32 one computes in fp32); ``torch.einsum``
@@ -104,7 +105,7 @@ def fused_rope(q, k, cos, sin, position_ids=None, neox=True):
     return q * c + rot(q) * s, k * c + rot(k) * s
 
 
-@amp_op("layer_norm")
+@dispatch("layer_norm")
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last axis as ``_layer_norm_plain`` computes it:
     mean and variance in **x's dtype** (a bf16 stream normalises in bf16,
@@ -124,7 +125,7 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     return out
 
 
-@amp_op("swiglu")
+@dispatch("swiglu")
 def swiglu(x, y=None):
     """``silu(x) * y``; with one argument, its last axis is split in two."""
     if y is None:
@@ -132,7 +133,7 @@ def swiglu(x, y=None):
     return x * torch.sigmoid(x) * y
 
 
-@amp_op("gelu")
+@dispatch("gelu")
 def gelu(x, approximate=False):
     """GELU in x's dtype: the exact erf form (``ops.gelu``'s default,
     ``approximate=False``, which BERT uses), or with ``approximate`` the
@@ -142,14 +143,14 @@ def gelu(x, approximate=False):
                                     else "none")
 
 
-@amp_op("silu")
+@dispatch("silu")
 def silu(x):
     """``x * sigmoid(x)`` in x's dtype (``ops.silu``); its gradient is the
     reference's ``g * s * (1 + x * (1 - s))``."""
     return torch.nn.functional.silu(x)
 
 
-@amp_op("softmax")
+@dispatch("softmax")
 def softmax(x, axis=-1):
     """Softmax along ``axis`` in x's dtype.  The reference's custom
     backward, ``out * (g - sum(out * g))``, is the library's own."""
@@ -158,7 +159,7 @@ def softmax(x, axis=-1):
 
 # -- diffusion: group norm and resizing -------------------------------------------
 
-@amp_op("group_norm")
+@dispatch("group_norm")
 def group_norm(x, weight=None, bias=None, epsilon=1e-5, groups=32,
                data_format="NCHW"):
     """``_group_norm_plain``: x viewed as ``[N, groups, C / groups,
@@ -240,7 +241,7 @@ def cubic_resize(x, size, antialias=True):
     return out.to(dt)
 
 
-@amp_op("interpolate")
+@dispatch("interpolate")
 def interpolate(x, size, mode="nearest", data_format="NCHW"):
     """``_interp_plain`` (``jax.image.resize``) to spatial ``size`` (h, w).
     ``jax.image.resize``'s ``"nearest"`` takes the source pixel under each
@@ -278,7 +279,7 @@ def _need_generator(generator, device, what):
                          f"{generator.device}, the tensor on {device}")
 
 
-@amp_op("dropout")
+@dispatch("dropout")
 def dropout(x, p=0.5, training=True, mode="upscale_in_train",
             generator=None):
     """Dropout as ``dropout_raw`` applies it.  Training: a Bernoulli keep
@@ -357,7 +358,7 @@ def _seed(generator, device):
                          device=device, generator=generator)
 
 
-@amp_op("scaled_dot_product_attention")
+@dispatch("scaled_dot_product_attention")
 def sdpa(q, k, v, mask=None, causal=False, scale=None, impl="auto",
          dropout_p=0.0, generator=None):
     """Scaled dot-product attention on ``[B, S, H, D]`` (the paddle
@@ -445,28 +446,45 @@ def _flce_logits(hidden, weight, tied):
     return hidden @ (weight.t() if tied else weight)
 
 
+def _flce_forward(hidden, weight, labels, tied, ignore_index):
+    """``_flce_fwd``: (mean loss, lse [N] fp32)."""
+    lf = _flce_logits(hidden, weight, tied).float()
+    mx = lf.amax(dim=-1)
+    lse = mx + torch.log(torch.exp(lf - mx[:, None]).sum(dim=-1))
+    lab = labels.clamp(0, lf.shape[-1] - 1)
+    tgt = lf.gather(-1, lab[:, None])[:, 0]
+    nll = torch.where(labels != ignore_index, lse - tgt,
+                      torch.zeros_like(lse))
+    return nll.mean(), lse
+
+
 class FusedLinearCrossEntropy(torch.autograd.Function):
     """``fused_linear_cross_entropy``'s custom VJP: the backward recomputes
     the logits and forms ``softmax - onehot`` in the hidden dtype, so the
-    ``[N, V]`` fp32 log-softmax is never kept for the backward."""
+    ``[N, V]`` fp32 log-softmax is never kept for the backward.  Under
+    ``create_graph=True`` the backward is the VJP of the plain forward,
+    recomputed under autograd (``registry.recompute_vjp``), as the
+    reference differentiates its plain forward there."""
 
     @staticmethod
     def forward(ctx, hidden, weight, labels, tied, ignore_index):
-        lf = _flce_logits(hidden, weight, tied).float()
-        mx = lf.amax(dim=-1)
-        lse = mx + torch.log(torch.exp(lf - mx[:, None]).sum(dim=-1))
-        lab = labels.clamp(0, lf.shape[-1] - 1)
-        tgt = lf.gather(-1, lab[:, None])[:, 0]
-        nll = torch.where(labels != ignore_index, lse - tgt,
-                          torch.zeros_like(lse))
+        loss, lse = _flce_forward(hidden, weight, labels, tied,
+                                  ignore_index)
         ctx.save_for_backward(hidden, weight, labels, lse)
         ctx.cfg = (tied, ignore_index)
-        return nll.mean()
+        return loss
 
     @staticmethod
     def backward(ctx, g):
         hidden, weight, labels, lse = ctx.saved_tensors
         tied, ignore_index = ctx.cfg
+        if torch.is_grad_enabled():
+            gs = recompute_vjp(
+                lambda h, w: _flce_forward(h, w, labels, tied,
+                                           ignore_index)[0],
+                [hidden, weight], [g],
+                [i for i in (0, 1) if ctx.needs_input_grad[i]])
+            return gs[0], gs[1], None, None, None
         lf = _flce_logits(hidden, weight, tied).float()
         n, V = lf.shape
         lab = labels.clamp(0, V - 1)
@@ -512,7 +530,7 @@ def _acc(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-@amp_op("reduce_mean")
+@dispatch("reduce_mean")
 def mean_fp32acc(x, dim=None):
     """``jnp.mean``'s rounding: the sum accumulated in fp32, divided by
     the count and rounded once to x's dtype (bf16 included).  torch's
@@ -585,7 +603,20 @@ def _same_pads(size, k, stride, dilation):
     return total // 2, total - total // 2
 
 
-@amp_op("conv2d")
+def _conv2d_operands(args, kwargs):
+    """The validator's view of a conv2d call, the weight as OIHW: an
+    NHWC call takes an HWIO weight, which the reference's validator
+    reads as OIHW (and refuses valid grouped calls)."""
+    x, w = arg(args, kwargs, 0, "x"), arg(args, kwargs, 1, "weight")
+    fmt = arg(args, kwargs, 6, "data_format", "NCHW")
+    if fmt == "NHWC" and w.dim() == 4:
+        w = types.SimpleNamespace(shape=(w.shape[3], w.shape[2],
+                                         w.shape[0], w.shape[1]))
+    return (x, w), {"groups": arg(args, kwargs, 5, "groups", 1),
+                    "data_format": fmt}
+
+
+@dispatch("conv2d", operands=_conv2d_operands)
 def conv2d(x, weight, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """``_conv2d_plain``: the weight cast to x's dtype (``_conv_dtype``:
@@ -618,7 +649,7 @@ def conv2d(x, weight, stride=1, padding=0, dilation=1, groups=1,
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
-@amp_op("conv1d")
+@dispatch("conv1d")
 def conv1d(x, weight, stride=1, padding=0, dilation=1, groups=1):
     """``_conv1d_plain``: ``[N, C, L]`` by an OIL weight ``[out, in /
     groups, k]`` cast to x's dtype; int stride, padding (both sides) and
@@ -627,7 +658,7 @@ def conv1d(x, weight, stride=1, padding=0, dilation=1, groups=1):
                        (int(padding),), (int(dilation),), int(groups))
 
 
-@amp_op("conv2d_transpose")
+@dispatch("conv2d_transpose")
 def conv2d_transpose(x, weight, stride=1, padding=0, output_padding=0,
                      dilation=1, groups=1, data_format="NCHW"):
     """``_conv2d_transpose_plain``: the gradient of a convolution (XLA's
@@ -656,7 +687,7 @@ def _pool_args(x, kernel_size, stride, padding, data_format):
             _pair(padding))
 
 
-@amp_op("max_pool2d")
+@dispatch("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, data_format="NCHW"):
     """``_max_pool2d_plain``: the max over each window, padding at -inf
     (the output size is the floor one).  The gradient goes to the first
@@ -672,7 +703,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, data_format="NCHW"):
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
-@amp_op("avg_pool2d")
+@dispatch("avg_pool2d")
 def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
                data_format="NCHW"):
     """``_avg_pool2d_plain``: window sums over the zero-padded input
@@ -690,7 +721,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
     return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
 
 
-@amp_op("adaptive_avg_pool2d")
+@dispatch("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     """``_adaptive_avg_pool2d_plain``: a reshape and a mean when the
     sizes divide, else the mean of each interval ``[i*h // oh,
@@ -723,7 +754,7 @@ def _bn_axes_shape(ndim, data_format):
     return tuple(range(ndim - 1)), (1,) * (ndim - 1) + (-1,)
 
 
-@amp_op("batch_norm_stats")
+@dispatch("batch_norm_stats")
 def batch_norm_stats(x, data_format="NCHW"):
     """``_batch_norm_stats``: the batch mean and the biased variance in
     x's dtype (each accumulated in fp32 and rounded once, as ``jnp.mean``
@@ -743,7 +774,7 @@ def batch_norm_stats(x, data_format="NCHW"):
     return mean_fp32acc(x, axes), var.to(x.dtype)
 
 
-@amp_op("batch_norm_infer")
+@dispatch("batch_norm_infer")
 def batch_norm_infer(x, mean, var, weight=None, bias=None, epsilon=1e-5,
                      data_format="NCHW"):
     """``_batch_norm_infer``: ``rsqrt`` of the fp32 variance plus epsilon,
@@ -767,6 +798,24 @@ def batch_norm_infer(x, mean, var, weight=None, bias=None, epsilon=1e-5,
     return out
 
 
+def _bn_train_forward(x, w, b, epsilon, data_format):
+    """``_bn_train_fwd``: (y, batch mean, variance, inv), the statistics
+    in fp32."""
+    axes, shape = _bn_axes_shape(x.dim(), data_format)
+    n = math.prod(x.shape[a] for a in axes)
+    xf = _acc(x)
+    s = xf.sum(dim=axes)
+    ss = (xf * xf).sum(dim=axes)
+    del xf
+    m = s / n
+    var = torch.clamp(ss / n - m * m, min=0.0)
+    inv = torch.rsqrt(var + epsilon)
+    dt = x.dtype
+    xhat = (x - m.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
+    y = xhat * w.to(dt).reshape(shape) + b.to(dt).reshape(shape)
+    return y, m, var, inv
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """``_bn_train_fwd`` / ``_bn_train_bwd``: one fp32 pass for Σx and Σx²,
     ``var = max(E[x²] - E[x]², 0)``; x̂ formed in x's dtype and y = x̂·w
@@ -774,31 +823,34 @@ class _BatchNormTrain(torch.autograd.Function):
     saved (x, w, mean, inv: saving x̂ would double the activation memory
     batch norm keeps), takes Σg and Σg·x̂ in fp32, forms w·inv in fp32
     and casts it, and returns dγ, dβ in w's dtype.  The batch mean and
-    variance (fp32) come out beside y, without gradient."""
+    variance (fp32) come out beside y, without gradient.  Under
+    ``create_graph=True`` the backward is the VJP of the plain forward
+    recomputed under autograd (``registry.recompute_vjp``): the
+    reference differentiates its plain forward there, so the second
+    derivative is the true one (a train-mode batch norm's dx sums to 0
+    per channel)."""
 
     @staticmethod
     def forward(ctx, x, w, b, epsilon, data_format):
+        y, m, var, inv = _bn_train_forward(x, w, b, epsilon, data_format)
         axes, shape = _bn_axes_shape(x.dim(), data_format)
-        n = math.prod(x.shape[a] for a in axes)
-        xf = _acc(x)
-        s = xf.sum(dim=axes)
-        ss = (xf * xf).sum(dim=axes)
-        del xf
-        m = s / n
-        var = torch.clamp(ss / n - m * m, min=0.0)
-        inv = torch.rsqrt(var + epsilon)
-        dt = x.dtype
-        xhat = (x - m.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
-        y = xhat * w.to(dt).reshape(shape) + b.to(dt).reshape(shape)
-        ctx.save_for_backward(x, w, m, inv)
-        ctx.cfg = (axes, shape, n)
+        ctx.save_for_backward(x, w, b, m, inv)
+        ctx.cfg = (axes, shape, math.prod(x.shape[a] for a in axes),
+                   epsilon, data_format)
         ctx.mark_non_differentiable(m, var)
         return y, m, var
 
     @staticmethod
     def backward(ctx, gy, _gm, _gv):
-        x, w, m, inv = ctx.saved_tensors
-        axes, shape, n = ctx.cfg
+        x, w, b, m, inv = ctx.saved_tensors
+        axes, shape, n, epsilon, data_format = ctx.cfg
+        if torch.is_grad_enabled():     # create_graph: see the docstring
+            gs = recompute_vjp(
+                lambda x, w, b: _bn_train_forward(x, w, b, epsilon,
+                                                  data_format)[0],
+                [x, w, b], [gy],
+                [i for i in range(3) if ctx.needs_input_grad[i]])
+            return (*gs, None, None)
         dt = x.dtype
         xhat = (x - m.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
         gyf = _acc(gy)
@@ -811,7 +863,7 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx, dgamma.to(w.dtype), dbeta.to(w.dtype), None, None
 
 
-@amp_op("batch_norm_train")
+@dispatch("batch_norm_train")
 def batch_norm_train(x, weight, bias, epsilon=1e-5, data_format="NCHW"):
     """Training-mode batch norm with a weight and a bias (the fused op):
     ``(y, batch mean, biased batch variance)``, the statistics in fp32
@@ -822,30 +874,47 @@ def batch_norm_train(x, weight, bias, epsilon=1e-5, data_format="NCHW"):
 
 # -- vision: softmax cross entropy ---------------------------------------------
 
+def _softmax_ce_forward(logits, label, soft_label, ignore_index, axis):
+    """``_softmax_ce_fwd``: (the loss [..., 1] fp32, the fp32
+    log-softmax)."""
+    lsm = torch.log_softmax(_acc(logits), dim=axis)
+    if soft_label:
+        return -(label * lsm).sum(dim=axis, keepdim=True), lsm
+    lab = label.long().unsqueeze(axis)
+    nll = -lsm.gather(axis, lab.clamp(0, lsm.shape[axis] - 1))
+    if ignore_index is not None:
+        nll = torch.where(lab != ignore_index, nll, torch.zeros_like(nll))
+    return nll, lsm
+
+
 class _SoftmaxCrossEntropy(torch.autograd.Function):
     """``_softmax_ce_fwd`` / ``_softmax_ce_bwd``: log-softmax in fp32, the
     loss ``[..., 1]`` in fp32 (rows labelled ``ignore_index`` give 0);
     the backward ``g·(softmax - onehot)·valid`` (soft labels:
-    ``g·(softmax·Σlabel - label)``), returned in the logits' dtype."""
+    ``g·(softmax·Σlabel - label)``), returned in the logits' dtype.
+    Under ``create_graph=True`` the backward is the VJP of the plain
+    forward recomputed under autograd (``registry.recompute_vjp``), as
+    the reference differentiates its plain forward there."""
 
     @staticmethod
     def forward(ctx, logits, label, soft_label, ignore_index, axis):
-        lsm = torch.log_softmax(_acc(logits), dim=axis)
-        ctx.save_for_backward(lsm, label)
+        nll, lsm = _softmax_ce_forward(logits, label, soft_label,
+                                       ignore_index, axis)
+        ctx.save_for_backward(lsm, label, logits)
         ctx.cfg = (soft_label, ignore_index, axis, logits.dtype)
-        if soft_label:
-            return -(label * lsm).sum(dim=axis, keepdim=True)
-        lab = label.long().unsqueeze(axis)
-        nll = -lsm.gather(axis, lab.clamp(0, lsm.shape[axis] - 1))
-        if ignore_index is not None:
-            nll = torch.where(lab != ignore_index, nll,
-                              torch.zeros_like(nll))
         return nll
 
     @staticmethod
     def backward(ctx, g):
-        lsm, label = ctx.saved_tensors
+        lsm, label, logits = ctx.saved_tensors
         soft_label, ignore_index, axis, dtype = ctx.cfg
+        if torch.is_grad_enabled():     # create_graph: see the docstring
+            gs = recompute_vjp(
+                lambda z, y: _softmax_ce_forward(z, y, soft_label,
+                                                 ignore_index, axis)[0],
+                [logits, label], [g],
+                [i for i in (0, 1) if ctx.needs_input_grad[i]])
+            return gs[0], gs[1], None, None, None
         sm = torch.exp(lsm)
         if soft_label:
             gl = g * (sm * label.sum(dim=axis, keepdim=True) - label)
@@ -860,7 +929,7 @@ class _SoftmaxCrossEntropy(torch.autograd.Function):
         return gl.to(dtype), None, None, None, None
 
 
-@amp_op("softmax_with_cross_entropy")
+@dispatch("softmax_with_cross_entropy")
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, axis=-1):
     """The per-row loss ``[..., 1]`` (fp32) of ``logits`` against integer

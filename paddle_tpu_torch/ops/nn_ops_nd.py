@@ -11,7 +11,7 @@ Every op of the reference here is ``lax.conv_general_dilated`` or
 the library's (cuDNN on the card, through ``nn_ops._Conv``: TF32 held
 off for fp32 as for ``conv2d``) and the pools plain PyTorch with the
 reference's window rules.  Each op carries the reference's registered
-name for the AMP policy (``amp_op``).
+name for the AMP policy (``registry.dispatch``).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..amp.state import amp_op
+from .registry import dispatch
 from .nn_ops import _Conv
 
 
@@ -35,7 +35,7 @@ def _tup(v, n):
 
 # -- conv tail ---------------------------------------------------------------
 
-@amp_op("conv1d_transpose")
+@dispatch("conv1d_transpose")
 def conv1d_transpose(x, weight, stride=1, padding=0, output_padding=0,
                      dilation=1, groups=1):
     """``[N, C, L]`` by an IOL weight ``[in, out / groups, k]`` cast to
@@ -46,14 +46,14 @@ def conv1d_transpose(x, weight, stride=1, padding=0, output_padding=0,
                        True, _tup(output_padding, 1))
 
 
-@amp_op("conv3d")
+@dispatch("conv3d")
 def conv3d(x, weight, stride=1, padding=0, dilation=1, groups=1):
     """``[N, C, D, H, W]`` by an OIDHW weight cast to x's dtype."""
     return _Conv.apply(x, weight.to(x.dtype), _tup(stride, 3),
                        _tup(padding, 3), _tup(dilation, 3), int(groups))
 
 
-@amp_op("conv3d_transpose")
+@dispatch("conv3d_transpose")
 def conv3d_transpose(x, weight, stride=1, padding=0, output_padding=0,
                      dilation=1, groups=1):
     """``[N, C, D, H, W]`` by an IODHW weight ``[in, out / groups, kd, kh,
@@ -131,7 +131,7 @@ def pool_nd(x, kernel, stride, padding, op, exclusive=True, ceil_mode=False,
 
 
 def _named_pool(name, nd, op):
-    @amp_op(name)
+    @dispatch(name)
     def pool(x, kernel_size, stride, padding, ceil_mode=False,
              exclusive=True, divisor_override=None):
         return pool_nd(x, _tup(kernel_size, nd), _tup(stride, nd),
@@ -163,13 +163,13 @@ def _lp_pool(x, kernel_size, stride, padding, norm_type):
     return s ** (1.0 / norm_type)
 
 
-@amp_op("lp_pool1d")
+@dispatch("lp_pool1d")
 def lp_pool1d(x, kernel_size, stride, padding, norm_type):
     return _lp_pool(x, _tup(kernel_size, 1), _tup(stride, 1),
                     _tup(padding, 1), float(norm_type))
 
 
-@amp_op("lp_pool2d")
+@dispatch("lp_pool2d")
 def lp_pool2d(x, kernel_size, stride, padding, norm_type):
     return _lp_pool(x, _tup(kernel_size, 2), _tup(stride, 2),
                     _tup(padding, 2), float(norm_type))
@@ -179,27 +179,27 @@ def lp_pool2d(x, kernel_size, stride, padding, norm_type):
 # ``_adaptive_regions``: region i of an axis is [floor(i * in / out),
 # ceil((i + 1) * in / out)), the library's own adaptive rule.
 
-@amp_op("adaptive_avg_pool1d")
+@dispatch("adaptive_avg_pool1d")
 def adaptive_avg_pool1d(x, output_size):
     return F.adaptive_avg_pool1d(x, _tup(output_size, 1))
 
 
-@amp_op("adaptive_avg_pool3d")
+@dispatch("adaptive_avg_pool3d")
 def adaptive_avg_pool3d(x, output_size):
     return F.adaptive_avg_pool3d(x, _tup(output_size, 3))
 
 
-@amp_op("adaptive_max_pool1d")
+@dispatch("adaptive_max_pool1d")
 def adaptive_max_pool1d(x, output_size):
     return F.adaptive_max_pool1d(x, _tup(output_size, 1))
 
 
-@amp_op("adaptive_max_pool2d")
+@dispatch("adaptive_max_pool2d")
 def adaptive_max_pool2d(x, output_size):
     return F.adaptive_max_pool2d(x, _tup(output_size, 2))
 
 
-@amp_op("adaptive_max_pool3d")
+@dispatch("adaptive_max_pool3d")
 def adaptive_max_pool3d(x, output_size):
     return F.adaptive_max_pool3d(x, _tup(output_size, 3))
 
@@ -228,7 +228,7 @@ def _max_with_index_windows(x, k, s, p):
     return xw.gather(-1, arg)[..., 0], idx[..., 0].long()
 
 
-@amp_op("max_pool_with_index")
+@dispatch("max_pool_with_index")
 def max_pool_with_index(x, kernel_size, stride, padding):
     """``max_pool_with_index_op``: (the max of each window, its flat index
     over the input's spatial axes, int64).  The first maximum in window
@@ -269,7 +269,7 @@ class _MaxUnpool(torch.autograd.Function):
         return dx.reshape(ctx.shape), None, None
 
 
-@amp_op("max_unpool")
+@dispatch("max_unpool")
 def max_unpool(x, indices, out_spatial):
     """``_max_unpool_nd``: each pooled value written at its flat index of
     a zero ``[N, C, *out_spatial]`` (see :class:`_MaxUnpool`)."""
@@ -290,7 +290,7 @@ def _fractional_regions(in_size, out_size, u):
     return bounds
 
 
-@amp_op("fractional_max_pool")
+@dispatch("fractional_max_pool")
 def fractional_max_pool(x, output_size, us):
     """``_fractional_max_pool_nd``: one axis at a time, region i the
     input's ``[b_i, max(b_{i+1}, b_i + 1))`` (clipped to the axis), its

@@ -19,6 +19,7 @@ import torch
 
 from ..core import dtype as dtype_mod
 from ..device import resolve_device
+from .registry import dispatch
 
 _seed = 0
 _generators: dict = {}
@@ -154,15 +155,18 @@ def bernoulli(x, name=None):
     return torch.bernoulli(x, generator=generator(x.device))
 
 
+@dispatch("poisson", validate_only=True)
 def poisson(x, name=None):
     return torch.poisson(x, generator=generator(x.device))
 
 
+@dispatch("multinomial", validate_only=True)
 def multinomial(x, num_samples=1, replacement=False, name=None):
     return torch.multinomial(x, int(num_samples), bool(replacement),
                              generator=generator(x.device))
 
 
+@dispatch("exponential_", datas=("x",), validate_only=True)
 def exponential_(x, lam=1.0, name=None):
     with torch.no_grad():
         return x.exponential_(lam, generator=generator(x.device))
@@ -183,17 +187,20 @@ def bernoulli_(x, p=0.5, name=None):
         return x.bernoulli_(p, generator=generator(x.device))
 
 
+@dispatch("cauchy_", datas=("x",), validate_only=True)
 def cauchy_(x, loc=0, scale=1, name=None):
     with torch.no_grad():
         return x.cauchy_(loc, scale, generator=generator(x.device))
 
 
+@dispatch("geometric_", datas=("x",), validate_only=True)
 def geometric_(x, probs, name=None):
     """Counts of trials to the first success (support 1, 2, ...)."""
     with torch.no_grad():
         return x.geometric_(probs, generator=generator(x.device))
 
 
+@dispatch("log_normal_", datas=("x",), validate_only=True)
 def log_normal_(x, mean=1.0, std=2.0, name=None):
     with torch.no_grad():
         return x.log_normal_(mean, std, generator=generator(x.device))
@@ -215,6 +222,7 @@ def standard_gamma(alpha, name=None):
                                  generator=generator(alpha.device))
 
 
+@dispatch("binomial", datas=("count", "prob"), validate_only=True)
 def binomial(count, prob, name=None):
     """Elementwise draws, int64."""
     count, prob = torch.broadcast_tensors(count, prob)

@@ -19,6 +19,7 @@ import torch
 
 from ..core import dtype as D
 from .math import prep
+from .registry import dispatch
 
 
 def _axes(axis, ndim):
@@ -90,10 +91,11 @@ def min(x, axis=None, keepdim=False, name=None):  # noqa: A001
     return _amax(x, axis, keepdim, torch.amin)
 
 
-amax = max
-amin = min
+amax = dispatch("amax")(max)
+amin = dispatch("amin")(min)
 
 
+@dispatch("reduce_prod")
 def prod(x, axis=None, keepdim=False, dtype=None, name=None):
     (x,) = prep(x)
     out = x.to(_sum_dtype(x.dtype))
@@ -123,6 +125,7 @@ def all(x, axis=None, keepdim=False, name=None):  # noqa: A001
     return _logical(x, axis, keepdim, torch.all)
 
 
+@dispatch("logsumexp")
 def logsumexp(x, axis=None, keepdim=False, name=None):
     (x,) = prep(x)
     x = x.to(D.to_inexact(x.dtype))
@@ -154,6 +157,7 @@ def _scan_dtype(d):
     return torch.int64 if d == torch.bool else d
 
 
+@dispatch("cumsum")
 def cumsum(x, axis=None, dtype=None, name=None):
     """Running sum along ``axis`` (over the flattened tensor when
     ``None``) in x's dtype (bool counts in int64), as ``jnp.cumsum``."""
@@ -164,6 +168,7 @@ def cumsum(x, axis=None, dtype=None, name=None):
     return _cast(out, dtype)
 
 
+@dispatch("cumprod")
 def cumprod(x, dim=None, dtype=None, name=None):
     (x,) = prep(x)
     if dim is None:
@@ -247,6 +252,7 @@ def _moved(x, axis):
     return xm, keep
 
 
+@dispatch("median")
 def median(x, axis=None, keepdim=False, mode="avg", name=None):
     """``jnp.median``: the mean of the two middle values of an even
     count; NaN where the slice holds a NaN."""

@@ -1,8 +1,8 @@
 """Optimizers of the port.  Counterpart of ``paddle_tpu/optimizer``: the
 base ``Optimizer`` with ``L1Decay`` / ``L2Decay`` (``optimizer``), the
 core family (``optimizers``: SGD, Momentum, Adagrad, RMSProp, Adam,
-AdamW, Lamb, LarsMomentum) and the LR schedulers (``lr``).  ``extra``'s
-optimizers and ``LBFGS`` raise (ROADMAP.md Queue 1, item 9).
+AdamW, Lamb, LarsMomentum), the rest (``extra``: Adamax, NAdam, RAdam,
+Adadelta, Rprop, ASGD), ``LBFGS`` and the LR schedulers (``lr``).
 ``models.CompiledTrainStep`` keeps its own fused AdamW for the compiled
 train step."""
 from . import lr  # noqa: F401

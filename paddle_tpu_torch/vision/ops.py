@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..amp.state import amp_op
+from ..ops.registry import dispatch
 from ..device import resolve_device
 from ..nn.initializer import Uniform, seeded_generator
 
@@ -244,7 +244,7 @@ def roi_align_grid(boxes, boxes_num, output_size, spatial_scale=1.0,
             b.shape[0] * ph * pw)
 
 
-@amp_op("roi_align")
+@dispatch("roi_align")
 def _roi_align(x, sb, sy, sx, bin_id, inv_cnt, n_bins, ph, pw):
     """The reference's ``roi_align`` body: a bilinear sample at each grid
     point, zero outside (-1, H) x (-1, W), coordinates clamped into the
@@ -302,7 +302,7 @@ def _region_index(lo, hi, size):
         idx < hi[..., None]
 
 
-@amp_op("roi_pool")
+@dispatch("roi_pool")
 def _roi_pool(x, sb, ys, ye, xs, xe):
     N, C, H, W = x.shape
     yi, _ = _region_index(ys, ye, H)                  # [R, ph, sh]
@@ -375,7 +375,7 @@ def psroi_pool(x, boxes, boxes_num, output_size, spatial_scale=1.0):
 
 # -- box coder --------------------------------------------------------------
 
-@amp_op("box_encode")
+@dispatch("box_encode")
 def _box_encode(p, v, t, norm):
     pw = p[:, 2] - p[:, 0] + norm
     ph_ = p[:, 3] - p[:, 1] + norm
@@ -393,7 +393,7 @@ def _box_encode(p, v, t, norm):
     return torch.stack([ox, oy, ow, oh], dim=-1)
 
 
-@amp_op("box_decode")
+@dispatch("box_decode")
 def _box_decode(p, v, t, norm, axis):
     if p.dim() == 2:
         p = p.unsqueeze(axis)              # [1, M, 4] or [N, 1, 4]
@@ -460,7 +460,7 @@ def _bilinear_sample(x, fy, fx):
     return top * (1 - wy) + bot * wy
 
 
-@amp_op("deform_conv2d")
+@dispatch("deform_conv2d")
 def _deform_conv2d(x, offset, weight, mask, sh, sw, ph, pw, dh, dw, dg,
                    groups):
     B, Cin, H, W = x.shape

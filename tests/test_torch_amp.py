@@ -382,8 +382,3 @@ def test_grad_scaler_fp16_semantics():
     scaler.step(popt.SGD(learning_rate=0.0, parameters=model.parameters()))
     scaler.update()
     assert pamp.is_bfloat16_supported() and pamp.is_float16_supported()
-
-
-def test_debugging_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pamp.debugging.enable_operator_stats_collection()

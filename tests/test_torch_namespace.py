@@ -39,38 +39,12 @@ def _declared():
 
 # The declared names the port does not have yet, each with the ROADMAP
 # Queue 1 item that ports it.
-_ITEM_9C = (
-    # ops/extra.py
-    "angle as_strided atleast_1d atleast_2d atleast_3d bucketize cdist "
-    "column_stack combinations conj copysign cumulative_trapezoid deg2rad "
-    "diagflat diagonal_scatter diff dsplit dstack gammainc gammaincc gammaln "
-    "heaviside hsplit hypot i0e i1 i1e imag index_add index_fill index_put "
-    "index_put_ index_sample isin isneginf isposinf isreal kron kthvalue "
-    "ldexp logcumsumexp logit masked_scatter mode multigammaln mv nanmedian "
-    "nanquantile nextafter pdist polar polygamma rad2deg real renorm reverse "
-    "rot90 round row_stack scatter_nd searchsorted select_scatter sgn "
-    "shard_index signbit sinc slice_scatter take tensor_split tensordot "
-    "trace trapezoid tril_indices triu_indices unflatten unfold vander "
-    "vsplit "
-    # ops/tail.py
-    "add_n bitwise_left_shift bitwise_right_shift block_diag cartesian_prod "
-    "crop frexp histogramdd hstack is_empty is_integer multiplex reduce_as "
-    "shape strided_slice view_as vstack "
-    # ops/linalg.py, but matmul
-    "addmm bincount bmm cross dist dot einsum histogram inner mm outer "
-    # in-place variants of those families
-    "addmm_ bitwise_left_shift_ bitwise_right_shift_ copysign_ gammainc_ "
-    "gammaincc_ gammaln_ hypot_ index_add_ index_fill_ ldexp_ logit_ "
-    "masked_scatter_ multigammaln_ polygamma_ renorm_ sinc_ "
-    # autograd/ (its grad-mode names are ported)
-    "grad").split()
-ABSENT = {**{n: "item 9c" for n in _ITEM_9C},
-          "flops": "item 9e", "Model": "item 9e", "summary": "item 9e",
+ABSENT = {"flops": "item 9e", "Model": "item 9e", "summary": "item 9e",
           "DataParallel": "item 8"}
 
 
 def test_declared_names_exist_or_are_mapped():
-    """Every declared name exists, except the 128 mapped to the ROADMAP
+    """Every declared name exists, except the 4 mapped to the ROADMAP
     item that ports them; a mapped name that now exists fails (stale)."""
     names = _declared()
     assert len(names) == 421
@@ -80,7 +54,7 @@ def test_declared_names_exist_or_are_mapped():
     missing = sorted(n for n in names if n not in ABSENT
                      and not hasattr(paddle, n))
     assert not missing, missing
-    assert len(ABSENT) == 128 and len(names) - len(ABSENT) == 293
+    assert len(ABSENT) == 4 and len(names) - len(ABSENT) == 417
     with open(os.path.join(ROOT, "ROADMAP.md")) as f:
         roadmap = f.read().lower()
     for item in set(ABSENT.values()):

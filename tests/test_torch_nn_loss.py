@@ -82,7 +82,7 @@ CASES.update({
     "cross_entropy weighted": _fn(
         "cross_entropy", [_r(6, 5), _i(5, 6), _u(5)], [0]),
     "cross_entropy smoothed": _fn(
-        "cross_entropy", [_r(6, 5), _i(5, 6, 1)], [0], label_smoothing=0.1),
+        "cross_entropy", [_r(6, 5), _i(5, 6)], [0], label_smoothing=0.1),
     "cross_entropy ignore": _fn(
         "cross_entropy", [_r(6, 5), np.array([1, 2, 0, 3, 1, 2])], [0],
         ignore_index=1),

@@ -280,13 +280,6 @@ def test_state_dict_round_trip_within_the_port():
         assert v == want if k.endswith("_t") else torch.equal(v, want)
 
 
-def test_not_ported_optimizers_name_their_item():
-    for cls in (popt.LBFGS, popt.Adamax, popt.NAdam, popt.RAdam,
-                popt.Adadelta, popt.Rprop, popt.ASGD):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cls(parameters=[])
-
-
 # -- counterparts of tests/test_nn_optimizer.py ------------------------------
 
 def test_sgd_converges_linear_regression():
